@@ -1,0 +1,224 @@
+// Single-query GQA decode attention over one layer of the position-major
+// int8 KV cache, read in place.
+//
+// Replaces: fish_speech_tpu/ops/attention.py::pallas_decode_attention_stream
+// (kernel body _decode_attn_stream_kernel) with pos_major=True, an int8
+// cache and int8_scores.
+//
+// What bounds it on the H100: bytes. Each filled key position is read once
+// per (row, kv head): 128 B of int8 k, 128 B of int8 v and two f32 scales,
+// against 2 x 4 x 128 multiply-adds. At the serving shape (B=256, S=384,
+// 8 kv heads) one launch moves ~200 MB, ~60 us at 3.35 TB/s; the arithmetic
+// is ~100x below the int8 tensor-core roof.
+//
+// Design (simple first): one CTA of 128 threads per (kv head, row). The CTA
+// walks only the filled range [start, length) in tiles of 128 positions:
+// the tile's k and v rows are staged in shared memory with 16-byte
+// coalesced loads, each thread scores one position against the G query
+// heads with __dp4a on the int8 query (quantized per query head once per
+// CTA, as the TPU kernel does), and an online softmax keeps (max, sum) per
+// head; thread d then accumulates output column d over the tile. A grid
+// over (Hkv, B) replaces the TPU kernel's single-grid-step cursor. The
+// probability times the value scale is rounded to bf16 before the value
+// product, as the TPU kernel does. Not yet done: splitting one row's key
+// range over several CTAs, which a small batch needs to fill the card.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 128;        // threads == positions per tile
+constexpr int D = 128;         // head dim
+constexpr int KP = D + 4;      // padded k row (bytes): conflict-free int reads
+
+template <int G>
+__global__ void __launch_bounds__(NT) decode_attn_kernel(
+    const __nv_bfloat16* __restrict__ q,   // (B, Hkv, G, D)
+    const int8_t* __restrict__ k,          // (L, S, B, Hkv, D)
+    const int8_t* __restrict__ v,
+    const float* __restrict__ ks,          // (L, B, S*Hkv)
+    const float* __restrict__ vs,
+    const int* __restrict__ lengths, const int* __restrict__ starts,
+    __nv_bfloat16* __restrict__ out,       // (B, Hkv, G, D)
+    int S, int B, int Hkv, int layer, float scale, int int8_scores) {
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  constexpr int NW = NT / 32;
+
+  __shared__ __align__(16) int8_t sk[NT * KP];
+  __shared__ __align__(16) int8_t sv[NT * D];
+  __shared__ float sp[G][NT];
+  __shared__ float qf[G][D];
+  __shared__ __align__(16) int8_t qi[G][D];
+  __shared__ float qmul[G];
+  __shared__ float red[G][NW];
+  __shared__ float m_s[G], l_s[G], corr_s[G];
+
+  const size_t row = (size_t)b * Hkv + h;
+  for (int i = tid; i < G * D; i += NT)
+    qf[i / D][i % D] = __bfloat162float(q[row * G * D + i]);
+  if (tid < G) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+  // query quantization: one warp per query head
+  for (int g = warp; g < G; g += NW) {
+    float amax = 0.f;
+    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(qf[g][d]));
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float qsc = fmaxf(amax / 127.f, 1e-8f);
+    for (int d = lane; d < D; d += 32)
+      qi[g][d] = (int8_t)rintf(qf[g][d] / qsc);
+    if (lane == 0) qmul[g] = int8_scores ? qsc * scale : scale;
+  }
+  __syncthreads();
+
+  const int length = lengths[b], start = starts[b];
+  const size_t pos_stride = (size_t)B * Hkv * D;        // bytes per position
+  const int8_t* kbase = k + (size_t)layer * S * pos_stride + row * D;
+  const int8_t* vbase = v + (size_t)layer * S * pos_stride + row * D;
+  const float* ksrow = ks + ((size_t)layer * B + b) * ((size_t)S * Hkv) + h;
+  const float* vsrow = vs + ((size_t)layer * B + b) * ((size_t)S * Hkv) + h;
+
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+
+  for (int t0 = start; t0 < length; t0 += NT) {
+    const int n = min(NT, length - t0);
+    for (int c = tid; c < n * (D / 16); c += NT) {
+      const int p = c / (D / 16), part = c % (D / 16);
+      const int4 kk = *reinterpret_cast<const int4*>(
+          kbase + (size_t)(t0 + p) * pos_stride + part * 16);
+      int* dst = reinterpret_cast<int*>(sk + p * KP + part * 16);
+      dst[0] = kk.x; dst[1] = kk.y; dst[2] = kk.z; dst[3] = kk.w;
+      *reinterpret_cast<int4*>(sv + p * D + part * 16) =
+          *reinterpret_cast<const int4*>(
+              vbase + (size_t)(t0 + p) * pos_stride + part * 16);
+    }
+    __syncthreads();
+
+    float s[G];
+    if (tid < n) {
+      const float ksc = ksrow[(size_t)(t0 + tid) * Hkv];
+      if (int8_scores) {
+        int dot[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) dot[g] = 0;
+        const int* kr = reinterpret_cast<const int*>(sk + tid * KP);
+#pragma unroll 8
+        for (int w = 0; w < D / 4; ++w) {
+          const int kw = kr[w];
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            dot[g] = __dp4a(kw, reinterpret_cast<const int*>(qi[g])[w],
+                            dot[g]);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] = (float)dot[g] * qmul[g] * ksc;
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] = 0.f;
+        for (int d = 0; d < D; ++d) {
+          const float kd = (float)sk[tid * KP + d];
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[g] += qf[g][d] * kd;
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] = s[g] * qmul[g] * ksc;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = -INFINITY;
+    }
+    // tile max per head
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float m = s[g];
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) red[g][warp] = m;
+    }
+    __syncthreads();
+    if (tid < G) {
+      float m = red[tid][0];
+      for (int w = 1; w < NW; ++w) m = fmaxf(m, red[tid][w]);
+      const float m_new = fmaxf(m_s[tid], m);
+      corr_s[tid] = expf(m_s[tid] - m_new);
+      m_s[tid] = m_new;
+    }
+    __syncthreads();
+    const float vsc = tid < n ? vsrow[(size_t)(t0 + tid) * Hkv] : 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float p = tid < n ? expf(s[g] - m_s[g]) : 0.f;
+      sp[g][tid] = __bfloat162float(__float2bfloat16(p * vsc));
+      float sum = p;
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) red[g][warp] = sum;
+    }
+    __syncthreads();
+    if (tid < G) {
+      float sum = 0.f;
+      for (int w = 0; w < NW; ++w) sum += red[tid][w];
+      l_s[tid] = l_s[tid] * corr_s[tid] + sum;
+    }
+    // value product: thread tid owns output column tid (D == NT)
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] *= corr_s[g];
+    for (int p = 0; p < n; ++p) {
+      const float vv = (float)sv[p * D + tid];
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] += sp[g][p] * vv;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+    out[(row * G + g) * D + tid] =
+        __float2bfloat16(acc[g] / fmaxf(l_s[g], 1e-20f));
+}
+
+template <int G>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* ks, const void* vs, const void* lengths,
+                   const void* starts, void* out, int S, int B, int Hkv,
+                   int layer, float scale, int int8_scores,
+                   cudaStream_t stream) {
+  dim3 grid(Hkv, B);
+  decode_attn_kernel<G><<<grid, NT, 0, stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
+      (const float*)ks, (const float*)vs, (const int*)lengths,
+      (const int*)starts, (__nv_bfloat16*)out, S, B, Hkv, layer, scale,
+      int8_scores);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int decode_attention_stream(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, const void* lengths, const void* starts, void* out,
+    int L, int S, int B, int Hkv, int G, int Dh, int layer, float scale,
+    int int8_scores, void* stream) {
+  (void)L;
+  if (Dh != D) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (G) {
+    case 1: return (int)launch<1>(q, k, v, ks, vs, lengths, starts, out, S, B,
+                                  Hkv, layer, scale, int8_scores, st);
+    case 2: return (int)launch<2>(q, k, v, ks, vs, lengths, starts, out, S, B,
+                                  Hkv, layer, scale, int8_scores, st);
+    case 4: return (int)launch<4>(q, k, v, ks, vs, lengths, starts, out, S, B,
+                                  Hkv, layer, scale, int8_scores, st);
+    case 8: return (int)launch<8>(q, k, v, ks, vs, lengths, starts, out, S, B,
+                                  Hkv, layer, scale, int8_scores, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

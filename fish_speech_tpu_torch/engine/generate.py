@@ -1,0 +1,280 @@
+"""Long-text generation and the end-to-end TTS engine.
+
+Counterpart of `fish_speech_tpu/engine/generate.py` without the
+continuous-batching scheduler: speaker-tag splitting, byte/speaker-bounded
+batching, a system prompt carrying the voice-cloning reference, per-batch
+conversation growth, the decode loop of models/decode.py and the fused
+vocoder of codec/fastpath.py.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+import time
+from dataclasses import dataclass
+from typing import Iterator, Literal
+
+import numpy as np
+import torch
+
+from ..codec.config import DACConfig, s2_pro_codec_config
+from ..device import resolve_device
+from ..models.config import DualARConfig, apply_pallas_attn_mode, s2_pro_lm_config
+from ..models.decode import SamplingConfig, generate
+from ..ops.sampling import semantic_logit_bias
+from ..text.content import TextPart, VQPart
+from ..text.conversation import Conversation, Message
+from ..text.tokenizer import IM_END_TOKEN, ByteTokenizer
+
+
+def split_text_by_speaker(text: str) -> list[str]:
+    """Split into turns on <|speaker:N|> tags."""
+    pattern = r"(<\|speaker:\d+\|>)"
+    parts = re.split(pattern, text)
+    turns = []
+    i = 0
+    while i < len(parts):
+        part = parts[i].strip()
+        if re.match(pattern, part):
+            if i + 1 < len(parts):
+                turns.append((part + parts[i + 1]).strip())
+                i += 2
+            else:
+                turns.append(part)
+                i += 1
+        else:
+            i += 1
+    return turns
+
+
+def group_turns_into_batches(turns: list[str], max_speakers: int = 5,
+                             max_bytes: int = 300) -> list[str]:
+    """Group turns under byte/speaker limits."""
+    batches, current, current_bytes = [], [], 0
+    for turn in turns:
+        turn_bytes = len(turn.encode("utf-8"))
+        if len(current) >= max_speakers or (current_bytes + turn_bytes
+                                            > max_bytes and current):
+            batches.append("\n".join(current))
+            current, current_bytes = [turn], turn_bytes
+        else:
+            current.append(turn)
+            current_bytes += turn_bytes
+    if current:
+        batches.append("\n".join(current))
+    return batches
+
+
+@dataclass
+class GenerateLongRequest:
+    text: str
+    max_new_tokens: int = 0          # 0 = up to the cache length
+    top_p: float = 0.9
+    top_k: int = 30
+    temperature: float = 1.0
+    chunk_length: int = 300          # max bytes per batch
+    prompt_text: list[str] | None = None          # voice-clone reference text
+    prompt_tokens: list[np.ndarray] | None = None  # (K, T) codes per reference
+    seed: int = 42
+
+
+@dataclass
+class GenerateResponse:
+    action: Literal["sample", "next"]
+    codes: np.ndarray | None = None   # (K, T)
+    text: str | None = None
+    tokens_generated: int = 0
+    wall_s: float = 0.0
+
+
+def build_base_conversation(prompt_text: list[str] | None,
+                            prompt_tokens: list[np.ndarray] | None
+                            ) -> Conversation:
+    """System message, optionally with the voice-cloning reference."""
+    conv = Conversation()
+    if prompt_text and prompt_tokens:
+        tagged = []
+        for i, t in enumerate(prompt_text):
+            if not re.search(r"<\|speaker:\d+\|>", t):
+                tagged.append(f"<|speaker:{i}|>{t}")
+            else:
+                tagged.append(t)
+        parts = [
+            TextPart(text="convert the provided text to speech reference to "
+                          "the following:\n\nText:\n"),
+            TextPart(text="\n".join(tagged)),
+            TextPart(text="\n\nSpeech:\n"),
+            VQPart(codes=np.concatenate(prompt_tokens, axis=1)),
+        ]
+    else:
+        parts = [TextPart(text="convert the provided text to speech")]
+    conv.append(Message(role="system", parts=parts, add_im_start=True,
+                        add_im_end=True))
+    return conv
+
+
+class TTSEngine:
+    """text -> codes -> waveform on one device."""
+
+    def __init__(self, params: dict, cfg: DualARConfig, tokenizer,
+                 codec_params: dict | None = None,
+                 codec_cfg: DACConfig | None = None,
+                 cache_len: int | None = None, device=None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.codec_params = codec_params
+        self.codec_cfg = codec_cfg
+        self.cache_len = cache_len or cfg.max_seq_len
+        self.im_end_id = tokenizer.get_token_id(IM_END_TOKEN)
+        self._bias = semantic_logit_bias(
+            cfg.vocab_size, cfg.semantic_begin_id, cfg.semantic_end_id,
+            self.im_end_id, device=self.device)
+        self.packed_decoder = None
+        if codec_params is not None:
+            from ..codec.fastpath import pack_decoder
+
+            dtype = (torch.bfloat16 if self.device.type == "cuda"
+                     else torch.float32)
+            self.packed_decoder = pack_decoder(codec_params["decoder"],
+                                                codec_cfg, dtype=dtype)
+
+    def _generate_codes(self, padded: np.ndarray, start: int, max_new: int,
+                        req: GenerateLongRequest,
+                        gen: torch.Generator) -> np.ndarray:
+        """One segment: (K+1, Tpad) left-padded prompt -> (K+1, n) codes."""
+        sampling = SamplingConfig.create(req.temperature, req.top_p)
+        codes, lengths = generate(
+            self.params, self.cfg, torch.from_numpy(padded)[None],
+            torch.tensor([start], dtype=torch.int32), gen, sampling,
+            self._bias, max_new_tokens=max_new, im_end_id=self.im_end_id,
+            top_k=req.top_k, cache_len=self.cache_len, device=self.device)
+        n_valid = int(lengths[0])
+        return codes[0, :, :n_valid].cpu().numpy()
+
+    def decode_codes(self, codes: np.ndarray) -> np.ndarray:
+        """(K, n) codes -> (n * frame_length,) f32 waveform. The frame count
+        is bucketed to a multiple of 64 (at least 32): the codec is causal,
+        so the right padding never changes the prefix."""
+        from ..codec.fastpath import dac_from_indices_fused
+
+        if self.codec_params is None:
+            raise RuntimeError("no codec attached")
+        n = codes.shape[1]
+        bucket = max(32, -(-n // 64) * 64)
+        padded = np.zeros((codes.shape[0], bucket), dtype=np.int64)
+        padded[:, :n] = codes
+        wav = dac_from_indices_fused(
+            self.codec_params, self.codec_cfg,
+            torch.from_numpy(padded)[None], packed=self.packed_decoder,
+            device=self.device)
+        fl = self.codec_cfg.frame_length
+        return wav[0, :n * fl].float().cpu().numpy()
+
+    def generate_long(self, req: GenerateLongRequest
+                      ) -> Iterator[GenerateResponse]:
+        cfg = self.cfg
+        max_length = self.cache_len
+        conversation = build_base_conversation(req.prompt_text,
+                                               req.prompt_tokens)
+        turns = split_text_by_speaker(req.text)
+        batches = (group_turns_into_batches(turns, max_speakers=5,
+                                            max_bytes=req.chunk_length)
+                   if turns else [req.text])
+        gen = torch.Generator(device=self.device).manual_seed(req.seed)
+
+        for batch_text in batches:
+            conversation.append(Message(
+                role="user", parts=[TextPart(text=batch_text)],
+                add_im_start=True, add_im_end=True))
+            conv_gen = conversation.copy()
+            conv_gen.append(Message(role="assistant", parts=[],
+                                    modality="voice", add_im_start=True,
+                                    add_im_end=False))
+            encoded = conv_gen.encode_for_inference(
+                self.tokenizer, num_codebooks=cfg.num_codebooks)
+            prompt_len = encoded.shape[1]
+            if prompt_len > max_length - 2048 and max_length > 4096:
+                raise ValueError(
+                    f"Prompt is too long: {prompt_len} > {max_length - 2048}")
+            # left-pad to a bucket of 256 (at least 64), as the JAX engine
+            # does to reuse its compiled programs
+            bucket = max(64, -(-prompt_len // 256) * 256)
+            bucket = min(bucket, max_length - 64)
+            padded = np.zeros((encoded.shape[0], bucket), dtype=np.int64)
+            padded[:, bucket - prompt_len:] = encoded[:, :prompt_len]
+            start = bucket - prompt_len
+
+            max_new = self.cache_len - bucket
+            if req.max_new_tokens:
+                max_new = min(max_new, req.max_new_tokens)
+            t0 = time.perf_counter()
+            full = self._generate_codes(padded, start, max_new, req, gen)
+            n_valid = full.shape[1]
+            wall = time.perf_counter() - t0
+
+            codes = full[1:, :n_valid]
+            if (codes < 0).any():
+                raise RuntimeError("negative code generated")
+            conversation.append(Message(
+                role="assistant", parts=[VQPart(codes=codes)],
+                modality="voice", add_im_start=True, add_im_end=True))
+            yield GenerateResponse(action="sample", codes=codes,
+                                   text=batch_text,
+                                   tokens_generated=n_valid + 1, wall_s=wall)
+        yield GenerateResponse(action="next")
+
+    def tts(self, req: GenerateLongRequest) -> np.ndarray:
+        """Full text -> waveform (concatenated over batches)."""
+        return self.tts_with_codes(req)[0]
+
+    def tts_with_codes(self, req: GenerateLongRequest
+                       ) -> tuple[np.ndarray, np.ndarray, float]:
+        """`tts` that also returns the (K, n) codes and the seconds spent
+        generating them (the rest of the wall time is the vocoder)."""
+        segs = [r for r in self.generate_long(req) if r.action == "sample"]
+        codes = np.concatenate([r.codes for r in segs], axis=1)
+        return self.decode_codes(codes), codes, sum(r.wall_s for r in segs)
+
+
+def serving_config(cfg: DualARConfig) -> DualARConfig:
+    """The serving configuration: W8A8 products, position-major int8 KV
+    cache read by the stream attention kernel."""
+    cfg = dataclasses.replace(cfg, w8a8_matmuls=True, kv_cache_dtype="int8",
+                              kv_cache_layout="pos")
+    return apply_pallas_attn_mode(cfg, "stream")
+
+
+def build_engine(device=None, serving: bool = True, *, seed: int = 0,
+                 lm_cfg: DualARConfig | None = None,
+                 codec_cfg: DACConfig | None = None,
+                 cache_len: int = 2048) -> TTSEngine:
+    """An engine with seeded random weights drawn on `device` (CUDA by
+    default): S2-Pro LM and codec unless configs are given, a byte
+    tokenizer whose semantic ids span the codebook. serving=True applies
+    the serving configuration: int8 weights with W8A8 products, the
+    position-major int8 KV cache with stream attention, and the fused
+    fast head."""
+    from ..codec.init import init_dac_params
+    from ..models.init import init_dual_ar_params
+    from ..ops.fast_fused import enable_fused_fast_head
+    from ..ops.quant import quantize_lm_params
+
+    device = resolve_device(device)
+    cfg = lm_cfg or s2_pro_lm_config(max_seq_len=cache_len)
+    tokenizer = ByteTokenizer(n_semantic=cfg.codebook_size)
+    if tokenizer.vocab_size > cfg.vocab_size:
+        raise ValueError("the LM vocabulary is smaller than the tokenizer's")
+    cfg = cfg.with_semantic_range(tokenizer.semantic_begin_id,
+                                  tokenizer.semantic_end_id)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16, device=device)
+    if serving:
+        params = enable_fused_fast_head(quantize_lm_params(params))
+        cfg = serving_config(cfg)
+    codec_cfg = codec_cfg or s2_pro_codec_config()
+    codec_params = init_dac_params(gen, codec_cfg, device=device)
+    return TTSEngine(params, cfg, tokenizer, codec_params, codec_cfg,
+                     cache_len=min(cache_len, cfg.max_seq_len), device=device)

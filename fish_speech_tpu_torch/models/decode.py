@@ -1,0 +1,202 @@
+"""Autoregressive decode loop for the Dual-AR transformer.
+
+Counterpart of `fish_speech_tpu/models/decode.py`. The JAX package runs
+prefill and a `lax.while_loop` as one program; here a host loop launches one
+step at a time. The KV caches, the RAS window (recent main tokens checked by
+`ras_select`), the emitted codes and the stop flags stay on the device, every
+step has the same shapes (full cache extent, fixed batch), and the host only
+syncs every `sync_every` steps to test whether all rows have finished.
+
+Batching: prompts are LEFT-padded to a common length; `start_offsets (B,)`
+marks each row's first real slot. RoPE positions are shifted per row and
+the attention mask excludes pad slots.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..device import resolve_device
+from ..ops.quant import take_rows
+from ..ops.sampling import (
+    RAS_WIN_SIZE,
+    greedy_one,
+    push_window,
+    ras_select,
+    sample_main_and_high,
+    sample_one,
+)
+from .config import DualARConfig
+from .dual_ar import (
+    KVCache,
+    forward_generate,
+    forward_generate_fast,
+    param_dtype,
+    precompute_freqs_cis,
+)
+
+
+@dataclass
+class SamplingConfig:
+    temperature: float = 0.7
+    top_p: float = 0.7
+
+    @staticmethod
+    def create(temperature: float = 0.7, top_p: float = 0.7) -> "SamplingConfig":
+        return SamplingConfig(float(temperature), float(top_p))
+
+
+def new_fast_cache(params: dict, cfg: DualARConfig, batch: int, device,
+                   dtype=torch.bfloat16):
+    """The fast head's per-step cache. Every position is written before it
+    is read within a step, so one cache serves all steps of a decode."""
+    if "fast_packed" in params:
+        from ..ops.fast_fused import FusedFastCache
+
+        return FusedFastCache.create(cfg.n_fast_layer, cfg.num_codebooks,
+                                     batch, cfg.fast_dim, device)
+    kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    return KVCache.create(cfg.n_fast_layer, batch, cfg.num_codebooks,
+                          cfg.fast_n_local_heads, cfg.fast_head_dim,
+                          dtype=kv_dtype, device=device)
+
+
+def _sample(logits, sampling: SamplingConfig, top_k: int, greedy: bool, gen):
+    if greedy:
+        return greedy_one(logits)
+    return sample_one(logits, sampling.temperature, sampling.top_p, top_k,
+                      gen=gen)
+
+
+def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
+                     cache: KVCache, input_pos: int,
+                     freqs_table: torch.Tensor, fast_freqs_table: torch.Tensor,
+                     bias: torch.Tensor, sampling: SamplingConfig,
+                     prev_window: torch.Tensor | None, *, top_k: int,
+                     greedy: bool, gen: torch.Generator | None = None,
+                     rope_positions: torch.Tensor | None = None,
+                     key_valid_from: torch.Tensor | None = None,
+                     sample_support: tuple | None = None,
+                     fast_cache=None) -> torch.Tensor:
+    """One full Dual-AR step. x: (B, K+1, T) — the prompt on prefill (T>1)
+    or the last column (T=1). sample_support: optional (semantic_begin,
+    semantic_end, im_end): logits and sampling over only those rows (the
+    bias must be -inf elsewhere, as semantic_logit_bias is).
+    Returns the new column (B, K+1) int32."""
+    b = x.shape[0]
+    out = forward_generate(params, cfg, x, cache, input_pos, freqs_table,
+                           rope_positions=rope_positions,
+                           key_valid_from=key_valid_from,
+                           logit_support=sample_support)
+    logits_col = out.logits[:, -1, :]
+    hidden = out.hidden[:, -1, :]
+    if sample_support is not None:
+        sb, se, im = sample_support
+        bias_r = torch.cat([bias[sb:se + 1], bias[im:im + 1]])
+        logits = logits_col.float() + bias_r
+        n_sem = se - sb + 1
+
+        def unmap(t):
+            return torch.where(t == n_sem, im, t + sb).to(torch.int32)
+    else:
+        logits = logits_col.float() + bias
+
+        def unmap(t):
+            return t
+
+    if prev_window is not None and not greedy:
+        tn, th = sample_main_and_high(logits, sampling.temperature,
+                                      sampling.top_p, top_k, gen=gen)
+        token = ras_select(unmap(tn), unmap(th), prev_window,
+                           cfg.semantic_begin_id, cfg.semantic_end_id)
+    else:
+        token = unmap(_sample(logits, sampling, top_k, greedy, gen))
+
+    # fast head: prime position 0 with the slow hidden state, then emit the
+    # residual codebooks one position at a time
+    if fast_cache is None:
+        fast_cache = new_fast_cache(params, cfg, b, x.device, hidden.dtype)
+    forward_generate_fast(params, cfg, hidden, fast_cache, 0,
+                          fast_freqs_table, want_logits=False)
+    code = (token - cfg.semantic_begin_id).clamp(0, cfg.codebook_size - 1)
+    codes = [token, code]
+    for idx in range(1, cfg.num_codebooks):
+        emb = take_rows(params["fast_embeddings"], code.long())
+        logits_f = forward_generate_fast(params, cfg, emb, fast_cache, idx,
+                                         fast_freqs_table)
+        code = _sample(logits_f.float(), sampling, top_k, greedy, gen)
+        codes.append(code)
+    return torch.stack([c.to(torch.int32) for c in codes], dim=1)
+
+
+def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,
+             start_offsets: torch.Tensor, gen: torch.Generator | None,
+             sampling: SamplingConfig, bias: torch.Tensor, *,
+             max_new_tokens: int, im_end_id: int, top_k: int = 30,
+             greedy: bool = False, cache_len: int | None = None,
+             restrict_sampling: bool = True, sync_every: int = 8,
+             device=None):
+    """Prefill + decode loop on `device` (CUDA by default; the inputs are
+    moved there). prompt: (B, K+1, T) int, left-padded; start_offsets:
+    (B,) first real slot. Returns (codes (B, K+1, max_new_tokens) int32,
+    lengths (B,)) on that device, lengths counting the columns before each
+    row's im_end. The parameters must already be on it."""
+    dev = resolve_device(device)
+    prompt = prompt.to(dev)
+    support = None
+    if (restrict_sampling and cfg.semantic_begin_id is not None
+            and cfg.semantic_end_id is not None):
+        support = (cfg.semantic_begin_id, cfg.semantic_end_id, im_end_id)
+    b, cb, t = prompt.shape
+    s = cache_len or cfg.max_seq_len
+    if t + max_new_tokens > s + 1:
+        raise ValueError(f"prompt {t} + {max_new_tokens} new tokens exceed "
+                         f"the cache ({s})")
+    start_offsets = start_offsets.to(dev)
+    kv_dtype = (torch.int8 if cfg.kv_cache_dtype == "int8"
+                else param_dtype(params))
+    cache = KVCache.create(cfg.n_layer, b, s, cfg.n_local_heads, cfg.head_dim,
+                           dtype=kv_dtype,
+                           pos_major=cfg.kv_cache_layout == "pos", device=dev)
+    freqs_table = precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base, dev)
+    fast_freqs_table = precompute_freqs_cis(cfg.num_codebooks,
+                                            cfg.fast_head_dim, cfg.rope_base,
+                                            dev)
+    fast_cache = new_fast_cache(params, cfg, b, dev, param_dtype(params))
+    rope_positions = (torch.arange(t, device=dev)[None, :]
+                      - start_offsets[:, None]).clamp_min(0)
+    bias = bias.to(dev)
+    step_kw = dict(top_k=top_k, greedy=greedy, gen=gen,
+                   key_valid_from=start_offsets, sample_support=support,
+                   fast_cache=fast_cache)
+
+    first = decode_one_token(params, cfg, prompt, cache, 0, freqs_table,
+                             fast_freqs_table, bias, sampling, None,
+                             rope_positions=rope_positions, **step_kw)
+    window = push_window(torch.zeros(b, RAS_WIN_SIZE, dtype=torch.int32,
+                                     device=dev), first[:, 0])
+    out = torch.zeros(b, cb, max_new_tokens, dtype=torch.int32, device=dev)
+    out[:, :, 0] = first
+    finished = first[:, 0] == im_end_id
+    lengths = torch.where(finished, 0, max_new_tokens).to(torch.int32)
+    cur = first
+    pos = t
+    for step in range(1, max_new_tokens):
+        if step % sync_every == 0 and bool(finished.all()):
+            break
+        col = decode_one_token(params, cfg, cur[:, :, None], cache, pos,
+                               freqs_table, fast_freqs_table, bias, sampling,
+                               window,
+                               rope_positions=(pos - start_offsets)[:, None],
+                               **step_kw)
+        now = col[:, 0] == im_end_id
+        lengths = torch.where(now & ~finished,
+                              torch.clamp_max(lengths, step), lengths)
+        out[:, :, step] = torch.where(finished[:, None], out[:, :, step], col)
+        window = push_window(window, col[:, 0])
+        finished = finished | now
+        cur = col
+        pos += 1
+    return out, lengths

@@ -1,0 +1,416 @@
+"""Dual-AR transformer (slow token decoder + fast residual-codebook head).
+
+Counterpart of `fish_speech_tpu/models/dual_ar.py`, for the branches the
+serving path takes (int8 W8A8 weights, position-major int8 KV cache read by
+the stream attention kernel, fused fast-head sweeps) and the unquantized
+head-major branch the parity goldens need.
+
+Parameters are the nested dicts of models/init.py, layers stacked along a
+leading depth axis. Unlike the JAX package, which threads immutable caches
+through a scan, the caches here are written IN PLACE (one slab per layer
+and step), so a step never copies the multi-GB KV cache.
+
+Shapes: activations (B, T, D); token matrices (B, K+1, T) with row 0 the
+text token and rows 1..K the codebook codes.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops.quant import as_weight, is_quantized, matmul_t, slice_rows, take_rows
+from .config import AttnDims, DualARConfig
+
+
+def param_dtype(params: dict) -> torch.dtype:
+    emb = params["embeddings"]
+    return torch.bfloat16 if is_quantized(emb) else emb.dtype
+
+
+# ---------------------------------------------------------------------------
+# Shared primitives
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 statistics; the result is cast back to x.dtype BEFORE the weight
+    multiply, as in the JAX function."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return normed.to(x.dtype) * weight.to(x.dtype)
+
+
+def precompute_freqs_cis(seq_len: int, n_elem: int, base: float,
+                         device=None) -> torch.Tensor:
+    """(T, n_elem//2, 2) bf16 table of (cos, sin), computed in f32 numpy."""
+    freqs = 1.0 / (base ** (np.arange(0, n_elem, 2)[: n_elem // 2]
+                            .astype(np.float32) / n_elem))
+    t = np.arange(seq_len, dtype=np.float32)
+    angles = np.outer(t, freqs)
+    cache = np.stack([np.cos(angles), np.sin(angles)], axis=-1)
+    return torch.from_numpy(cache).to(device=device, dtype=torch.bfloat16)
+
+
+def apply_rotary_emb(x: torch.Tensor, freqs_cis: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, H, D); freqs_cis: (T, D//2, 2) or per-row (B, T, D//2, 2).
+    f32 math on interleaved (real, imag) pairs."""
+    xf = x.float().reshape(*x.shape[:-1], -1, 2)
+    if freqs_cis.ndim == 4:
+        fc = freqs_cis.float()[:, :, None]
+    else:
+        fc = freqs_cis.float()[None, :, None]
+    real = xf[..., 0] * fc[..., 0] - xf[..., 1] * fc[..., 1]
+    imag = xf[..., 1] * fc[..., 0] + xf[..., 0] * fc[..., 1]
+    return torch.stack([real, imag], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class KVCache:
+    """Stacked per-layer KV cache, written in place.
+
+    head-major: k, v (L, B, Hkv, S, D); int8 scales (L, B, Hkv, S) f32.
+    position-major: k, v (L, S, B, Hkv, D); int8 scales FLAT (L, B, S*Hkv)
+    f32 with element [l, b, s*Hkv + h] (the stream kernel's layout)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor | None = None
+    vs: torch.Tensor | None = None
+    pos_major: bool = False
+
+    @staticmethod
+    def create(n_layer: int, batch: int, seq: int, n_kv: int, head_dim: int,
+               dtype=torch.bfloat16, pos_major: bool = False,
+               device=None) -> "KVCache":
+        if pos_major:
+            shape = (n_layer, seq, batch, n_kv, head_dim)
+            sshape = (n_layer, batch, seq * n_kv)
+        else:
+            shape = (n_layer, batch, n_kv, seq, head_dim)
+            sshape = (n_layer, batch, n_kv, seq)
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        ks = vs = None
+        if dtype == torch.int8:
+            ks = torch.zeros(sshape, dtype=torch.float32, device=device)
+            vs = torch.zeros(sshape, dtype=torch.float32, device=device)
+        return KVCache(k, v, ks, vs, pos_major)
+
+    @property
+    def seq_len(self) -> int:
+        return self.k.shape[1] if self.pos_major else self.k.shape[3]
+
+
+def _quant_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, head, position) symmetric int8 over the head dim."""
+    tf = t.float()
+    sc = (tf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    return torch.round(tf / sc[..., None]), sc
+
+
+def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write new (B, T, Hkv, D) k/v rows at slots [pos, pos+T) of `layer`."""
+    b, t, hkv, _ = k.shape
+    if cache.ks is not None:
+        k, k_sc = _quant_kv(k)          # scales (B, T, Hkv)
+        v, v_sc = _quant_kv(v)
+    k = k.to(cache.k.dtype)
+    v = v.to(cache.v.dtype)
+    if cache.pos_major:
+        cache.k[layer, pos:pos + t] = k.transpose(0, 1)
+        cache.v[layer, pos:pos + t] = v.transpose(0, 1)
+        if cache.ks is not None:
+            cache.ks[layer, :, pos * hkv:(pos + t) * hkv] = k_sc.reshape(b, -1)
+            cache.vs[layer, :, pos * hkv:(pos + t) * hkv] = v_sc.reshape(b, -1)
+    else:
+        cache.k[layer, :, :, pos:pos + t] = k.transpose(1, 2)
+        cache.v[layer, :, :, pos:pos + t] = v.transpose(1, 2)
+        if cache.ks is not None:
+            cache.ks[layer, :, :, pos:pos + t] = k_sc.transpose(1, 2)
+            cache.vs[layer, :, :, pos:pos + t] = v_sc.transpose(1, 2)
+
+
+def _read_cache(cache: KVCache, layer: int):
+    """One layer's cache as head-major (B, Hkv, S, D) values and (B, Hkv, S)
+    scales (None for a native cache). Position-major layouts pay one
+    transposing copy here: only prefill reads them this way."""
+    if not cache.pos_major:
+        ks = cache.ks[layer] if cache.ks is not None else None
+        vs = cache.vs[layer] if cache.vs is not None else None
+        return cache.k[layer], cache.v[layer], ks, vs
+    k = cache.k[layer].permute(1, 2, 0, 3)
+    v = cache.v[layer].permute(1, 2, 0, 3)
+    if cache.ks is None:
+        return k, v, None, None
+    b = k.shape[0]
+    s = cache.seq_len
+
+    def unflat(a):
+        return a[layer].reshape(b, s, -1).transpose(1, 2)
+
+    return k, v, unflat(cache.ks), unflat(cache.vs)
+
+
+class DecodeBounds(NamedTuple):
+    """Per-row filled key range [starts, lengths) for the T=1 kernel path."""
+    lengths: torch.Tensor  # (B,) int32
+    starts: torch.Tensor   # (B,) int32
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
+              mask: torch.Tensor, cache: KVCache | None = None,
+              layer: int = 0, input_pos: int = 0,
+              bounds: DecodeBounds | None = None) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D). mask: (B or 1, 1, T, S) bool. With
+    `bounds`, a T=1 step on a position-major int8 cache goes through the
+    stream attention kernel."""
+    b, t, _ = x.shape
+    h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
+    qkv = matmul_t(x, p["wqkv"], w8a8=ad.w8a8)
+    if ad.qkv_bias:
+        qkv = qkv + p["wqkv_b"]
+    q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
+    q = q.reshape(b, t, h, d)
+    k = k.reshape(b, t, hkv, d)
+    v = v.reshape(b, t, hkv, d)
+    if ad.qk_norm:
+        q = rms_norm(q, p["q_norm"], 1e-5)
+        k = rms_norm(k, p["k_norm"], 1e-5)
+    q = apply_rotary_emb(q, freqs_cis)
+    k = apply_rotary_emb(k, freqs_cis)
+
+    g = h // hkv
+    qg = q.reshape(b, t, hkv, g, d)
+    scale = 1.0 / math.sqrt(d)
+    k_scale = v_scale = None
+    if cache is not None:
+        _write_cache(cache, layer, input_pos, k, v)
+        if bounds is not None and t == 1:
+            if not (cache.pos_major and cache.ks is not None):
+                raise ValueError("the decode kernel path needs the "
+                                 "position-major int8 cache")
+            from ..ops.attention import decode_attention_stream
+
+            y = decode_attention_stream(
+                qg[:, 0], cache.k, cache.v, cache.ks, cache.vs, layer,
+                bounds.lengths, bounds.starts,
+                int8_scores=ad.pallas_int8_scores)
+            out = matmul_t(y.reshape(b, 1, h * d), p["wo"], w8a8=ad.w8a8)
+            return out + p["wo_b"] if ad.o_bias else out
+        k, v, k_scale, v_scale = _read_cache(cache, layer)
+
+    if cache is not None and t == 1 and g > 1:
+        # GQA decode step over the full cache extent (head-major form)
+        qd = qg[:, 0]                                         # (B,Hkv,G,D)
+        m = mask[:, :, -1, :, None]                           # (B|1,1,S,1)
+        if k_scale is not None:
+            st = torch.einsum("bhkd,bhgd->bhkg", k.to(qd.dtype), qd)
+            st = st.float() * (k_scale[..., None].float() * scale)
+        else:
+            st = torch.einsum("bhkd,bhgd->bhkg", k, qd).float() * scale
+        st = torch.where(m, st, torch.tensor(-1e30, device=st.device))
+        pt = torch.softmax(st, dim=2)
+        if v_scale is not None:
+            pt = pt * v_scale[..., None].float()
+        y = torch.einsum("bhkg,bhkd->bhgd", pt.to(x.dtype), v.to(x.dtype))
+    else:
+        if cache is not None and k_scale is not None:
+            scores = torch.einsum("bqhgd,bhkd->bhgqk", qg, k.to(qg.dtype))
+            scores = scores.float() * (
+                k_scale[:, :, None, None, :].float() * scale)
+        elif cache is not None:
+            scores = torch.einsum("bqhgd,bhkd->bhgqk", qg, k) * scale
+        else:
+            scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
+        # large-finite mask value: fully masked pad rows stay finite
+        scores = torch.where(mask[:, :, None], scores.float(),
+                             torch.tensor(-1e30, device=scores.device))
+        probs = torch.softmax(scores, dim=-1)
+        if cache is not None and v_scale is not None:
+            pv = (probs * v_scale[:, :, None, None, :].float()).to(x.dtype)
+            y = torch.einsum("bhgqk,bhkd->bqhgd", pv, v.to(x.dtype))
+        elif cache is not None:
+            y = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(x.dtype), v)
+        else:
+            y = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(x.dtype), v)
+    out = matmul_t(y.reshape(b, t, h * d), p["wo"], w8a8=ad.w8a8)
+    return out + p["wo_b"] if ad.o_bias else out
+
+
+def _ffn(p: dict, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+    gate = torch.nn.functional.silu(matmul_t(x, p["w1"], w8a8=w8a8))
+    return matmul_t(gate * matmul_t(x, p["w3"], w8a8=w8a8), p["w2"],
+                    w8a8=w8a8)
+
+
+def _layer(layers: dict, i: int) -> dict:
+    def pick(x):
+        if isinstance(x, dict):
+            return {k: pick(v) for k, v in x.items()}
+        return x[i]
+    return pick(layers)
+
+
+def run_stack(layers: dict, ad: AttnDims, eps: float, x: torch.Tensor,
+              freqs_cis, mask, cache: KVCache | None = None,
+              input_pos: int = 0,
+              bounds: DecodeBounds | None = None) -> torch.Tensor:
+    """The layer stack in carry mode: one layer at a time, each writing its
+    own slab of the stacked cache in place."""
+    n_layer = layers["attention_norm"].shape[0]
+    for i in range(n_layer):
+        p = _layer(layers, i)
+        a = attention(p["attention"], ad, rms_norm(x, p["attention_norm"], eps),
+                      freqs_cis, mask, cache, i, input_pos, bounds)
+        h = x + a
+        x = h + _ffn(p["feed_forward"], rms_norm(h, p["ffn_norm"], eps),
+                     w8a8=ad.w8a8)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Embedding of (K+1)-row token matrices
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: dict, cfg: DualARConfig,
+                 inp: torch.Tensor) -> torch.Tensor:
+    """inp: (B, K+1, T) int -> (B, T, D)."""
+    emb_dtype = param_dtype(params)
+    codes = inp[:, 1:, :].long()
+    offsets = torch.arange(cfg.num_codebooks, device=inp.device) \
+        * cfg.codebook_size
+    vq = take_rows(params["codebook_embeddings"], codes + offsets[None, :, None])
+    vq_sum = vq.sum(dim=1).to(emb_dtype)                       # (B, T, D)
+    tok = inp[:, 0, :].long()
+    is_sem = ((tok >= cfg.semantic_begin_id)
+              & (tok <= cfg.semantic_end_id))[..., None]
+    vq_sum = torch.where(is_sem, vq_sum, torch.zeros((), dtype=emb_dtype,
+                                                     device=inp.device))
+    x = take_rows(params["embeddings"], tok).to(emb_dtype) + vq_sum
+    if cfg.scale_codebook_embeddings:
+        scale = torch.tensor(1.0 / math.sqrt(cfg.num_codebooks + 1),
+                             dtype=emb_dtype, device=inp.device)
+        x = torch.where(is_sem, x * scale, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+class SlowOut(NamedTuple):
+    logits: torch.Tensor   # (B, Tq, vocab or support)
+    hidden: torch.Tensor   # (B, Tq, fast_dim), already fast_project_in'ed
+
+
+def _token_logits(params: dict, cfg: DualARConfig, slow_out: torch.Tensor,
+                  logit_support: tuple | None = None) -> torch.Tensor:
+    """Logits over the vocabulary, or with `logit_support` = (semantic
+    begin, semantic end, im_end) over just those n_s + 1 rows (exact under
+    the semantic bias, which is -inf everywhere else)."""
+    w = params["embeddings"] if cfg.tie_word_embeddings else params["output"]
+    if logit_support is not None:
+        sb, se, im = logit_support
+        sem = slow_out @ as_weight(slice_rows(w, sb, se + 1), slow_out.dtype).T
+        eos = slow_out @ as_weight(slice_rows(w, im, im + 1), slow_out.dtype).T
+        return torch.cat([sem, eos], dim=-1)
+    return slow_out @ as_weight(w, slow_out.dtype).T
+
+
+def _fast_input(params: dict, cfg: DualARConfig, x: torch.Tensor,
+                slow_normed: torch.Tensor) -> torch.Tensor:
+    h = slow_normed if cfg.norm_fastlayer_input else x
+    if "fast_project_in" in params:
+        h = h @ params["fast_project_in"]["w"].T + params["fast_project_in"]["b"]
+    return h
+
+
+def forward_generate(params: dict, cfg: DualARConfig, inp: torch.Tensor,
+                     cache: KVCache, input_pos: int,
+                     freqs_table: torch.Tensor, *, last_only: bool = True,
+                     rope_positions: torch.Tensor | None = None,
+                     key_valid_from: torch.Tensor | None = None,
+                     logit_support: tuple | None = None) -> SlowOut:
+    """Slow-stack forward with the KV cache (prefill T>=1 or decode T=1).
+
+    input_pos: first cache slot written by `inp` (host int).
+    rope_positions: optional (B, T) per-row RoPE positions (left-padded
+    batches); defaults to input_pos + arange(T).
+    key_valid_from: optional (B,) — keys before this slot are masked out."""
+    b, _, t = inp.shape
+    dev = inp.device
+    x = embed_tokens(params, cfg, inp)
+    positions = input_pos + torch.arange(t, device=dev)
+    if rope_positions is None:
+        freqs_cis = freqs_table[positions]
+    else:
+        freqs_cis = freqs_table[rope_positions.long()]         # (B, T, ., 2)
+    key_pos = torch.arange(cache.seq_len, device=dev)
+    mask = (key_pos[None, :] <= positions[:, None])[None, None]   # (1,1,T,S)
+    if key_valid_from is not None:
+        valid = key_pos[None, :] >= key_valid_from[:, None]        # (B, S)
+        mask = mask & valid[:, None, None, :]
+
+    bounds = None
+    if cfg.use_pallas_attention and t == 1:
+        starts = (key_valid_from.int() if key_valid_from is not None
+                  else torch.zeros(b, dtype=torch.int32, device=dev))
+        lengths = torch.full((b,), input_pos + 1, dtype=torch.int32,
+                             device=dev)
+        bounds = DecodeBounds(lengths, starts)
+    x = run_stack(params["layers"], cfg.slow_attn, cfg.norm_eps, x, freqs_cis,
+                  mask, cache, input_pos, bounds)
+    if last_only and t > 1:
+        x = x[:, -1:, :]
+    slow_normed = rms_norm(x, params["norm"], cfg.norm_eps)
+    logits = _token_logits(params, cfg, slow_normed, logit_support)
+    hidden = _fast_input(params, cfg, x, slow_normed)
+    return SlowOut(logits=logits, hidden=hidden)
+
+
+def forward_generate_fast(params: dict, cfg: DualARConfig, x: torch.Tensor,
+                          fast_cache, input_pos: int,
+                          fast_freqs_table: torch.Tensor,
+                          want_logits: bool = True):
+    """One fast-head step at codebook position `input_pos` (host int).
+    x: (B, fast_dim). Returns codebook logits (B, codebook_size), or None
+    with want_logits=False (the priming sweep only writes its cache).
+    The cache is updated in place."""
+    if "fast_packed" in params:
+        from ..ops.fast_fused import fused_fast_sweep
+
+        x = fused_fast_sweep(params["fast_packed"], x, fast_cache,
+                             fast_freqs_table, pos=input_pos,
+                             n_head=cfg.fast_n_head, eps=cfg.norm_eps)
+        if not want_logits:
+            return None
+        x = rms_norm(x, params["fast_norm"], cfg.norm_eps)
+        return matmul_t(x, params["fast_output"], w8a8=True)
+
+    x = x[:, None, :]                                          # (B, 1, D)
+    freqs_cis = fast_freqs_table[input_pos:input_pos + 1]
+    key_pos = torch.arange(cfg.num_codebooks, device=x.device)
+    mask = (key_pos <= input_pos)[None, None, None]            # (1,1,1,K)
+    x = run_stack(params["fast_layers"], cfg.fast_attn, cfg.norm_eps, x,
+                  freqs_cis, mask, fast_cache, input_pos)
+    if not want_logits:
+        return None
+    x = rms_norm(x, params["fast_norm"], cfg.norm_eps)
+    return matmul_t(x[:, 0, :], params["fast_output"], w8a8=cfg.w8a8_matmuls)

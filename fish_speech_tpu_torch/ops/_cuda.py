@@ -1,0 +1,160 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled by `nvcc` for sm_90a into its own shared library
+with a plain C interface, loaded with ctypes. `build_all` starts one nvcc
+per source, all at once. Libraries go under `_build/` beside this package
+(listed in .gitignore), in a directory named by the hash of the sources, so
+an edited source is rebuilt and an unchanged one is reused.
+
+Nothing here runs at import: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+SOURCES = ("decode_attention", "fast_sweep", "voc_fused")
+# -fmad=false: no contraction of a*b + c into one rounding, so the kernels'
+# f32 epilogues round as their plain PyTorch twins do
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures: name -> (source, argtypes); every function returns the
+# cudaError_t of its launches as an int
+SIGNATURES = {
+    # q k v ks vs lengths starts out | L S B Hkv G D layer | scale |
+    # int8_scores | stream
+    "decode_attention_stream": ("decode_attention", [_P] * 8 + [_I] * 7
+                                + [_F, _I, _P]),
+    # x w s norms rope ck cv cks cvs x8 xs buf | B dim L K pos n_head |
+    # eps | stream
+    "fast_sweep": ("fast_sweep", [_P] * 12 + [_I] * 6 + [_F, _P]),
+    # x y w7 w1 vec tail | B T C n_units d0 d1 d2 has_tail | stream
+    "voc_res_stack": ("voc_fused", [_P] * 6 + [_I] * 8 + [_P]),
+    # x y pw pb w7 w1 vec tail fw | B T_in C_in C stride d0 d1 d2 final |
+    # stream
+    "voc_block": ("voc_fused", [_P] * 9 + [_I] * 9 + [_P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas register / shared-memory report) of the last build
+BUILD_LOGS: dict[str, str] = {}
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc")
+
+
+def build_all() -> dict[str, str]:
+    """Compile every source (in parallel) unless already built; returns
+    {source: path of its .so}. Raises with the compiler output on failure;
+    on success the output is kept in BUILD_LOGS."""
+    out_dir = BUILD_ROOT / _digest()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {s: str(out_dir / f"lib{s}.so") for s in SOURCES}
+    todo = [s for s in SOURCES if not Path(paths[s]).exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for s in todo:
+        tmp = paths[s] + f".{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
+               str(CSRC / f"{s}.cu")]
+        procs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    errors = []
+    for s, (tmp, p) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            errors.append(f"--- nvcc {s}.cu failed ---\n{log}")
+            continue
+        os.replace(tmp, paths[s])
+        BUILD_LOGS[s] = log
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def lib(source: str) -> ctypes.CDLL:
+    with _lock:
+        if source not in _libs:
+            path = build_all()[source]
+            dll = ctypes.CDLL(path)
+            for fn, (src, argtypes) in SIGNATURES.items():
+                if src == source:
+                    f = getattr(dll, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+            _libs[source] = dll
+        return _libs[source]
+
+
+class Kernel:
+    """A C entry point of one of the libraries, with its launch count.
+
+    `launches` is a plain integer: the wrapper adds one each time it calls
+    the kernel, and nowhere else."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.source = SIGNATURES[name][0]
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        fn = getattr(lib(self.source), self.name)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        self.launches += 1
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
+                               f"cudaError {err}")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+          device: torch.device | None = None) -> None:
+    """Validate a kernel argument before its pointer is handed to C."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

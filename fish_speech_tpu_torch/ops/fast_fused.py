@@ -1,0 +1,215 @@
+"""Fused fast-head sweep: the whole fast stack at one codebook position.
+
+Counterpart of `fish_speech_tpu/ops/fast_fused.py::fused_fast_sweep`. For
+each layer: RMSNorm, per-row int8 quantization, W8A8 q/k/v products, RoPE,
+per-(position, row) int8 quantization of k and v written at `pos` into the
+(L, K, B, dim) cache, attention over positions [0, pos], W8A8 wo and
+residual, RMSNorm, W8A8 w1/w3 with SiLU gating, W8A8 w2 and residual.
+
+Layout differences from the TPU kernel (only Mosaic needed them): the cache
+scales are (L, K, B) bf16 instead of broadcast across 128 lanes, the packed
+weights hold the 13 real (dim, dim) tiles without the padding tile, and the
+batch is not padded to 8. The scales are still rounded to bf16 after the
+int8 quantization with the f32 scale, as the TPU kernel does.
+
+`fused_fast_sweep` launches the CUDA sweep (csrc/fast_sweep.cu) for CUDA
+tensors and runs `fused_fast_sweep_plain` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from . import _cuda
+from .quant import int8_matmul_t, int8_rows
+
+KERNEL = _cuda.Kernel("fast_sweep")
+N_TILES = 13     # q, k, v, wo, w1 x3, w3 x3, w2 x3 (column tiles)
+
+
+@dataclass
+class FusedFastCache:
+    """Position-major int8 fast KV cache, written in place."""
+    k: torch.Tensor    # (L, K, B, dim) int8
+    v: torch.Tensor    # (L, K, B, dim) int8
+    ks: torch.Tensor   # (L, K, B) bf16 per-(position, row) scales
+    vs: torch.Tensor   # (L, K, B) bf16
+
+    @staticmethod
+    def create(n_layer: int, n_pos: int, batch: int, dim: int,
+               device=None) -> "FusedFastCache":
+        z = torch.zeros((n_layer, n_pos, batch, dim), dtype=torch.int8,
+                        device=device)
+        s = torch.zeros((n_layer, n_pos, batch), dtype=torch.bfloat16,
+                        device=device)
+        return FusedFastCache(z, z.clone(), s, s.clone())
+
+
+def pack_fast_stack(fast_layers: dict) -> dict:
+    """Int8-quantized fast-layer weights as the sweep's tiles:
+    {"w": (L, 13, dim, dim) int8, "s": (L, 13, dim) f32,
+     "norms": (L, 2, dim) bf16}. Needs the "3x" layer family
+    (n_head * head_dim == dim, intermediate == 3 * dim)."""
+    att, ffn = fast_layers["attention"], fast_layers["feed_forward"]
+    wqkv, wo = att["wqkv"], att["wo"]
+    w1, w2, w3 = ffn["w1"], ffn["w2"], ffn["w3"]
+    n_layer, qkv_rows, dim = wqkv["q"].shape
+    if qkv_rows != 3 * dim or w1["q"].shape[1] != 3 * dim:
+        raise ValueError("fused fast head needs the 3x layer family")
+
+    def rows3(wq):
+        return wq.reshape(n_layer, 3, dim, dim)
+
+    w = torch.cat([
+        rows3(wqkv["q"]), wo["q"][:, None], rows3(w1["q"]), rows3(w3["q"]),
+        w2["q"].reshape(n_layer, dim, 3, dim).transpose(1, 2),  # column tiles
+    ], dim=1).contiguous()
+    s = torch.cat([
+        wqkv["s"].reshape(n_layer, 3, dim), wo["s"][:, None],
+        w1["s"].reshape(n_layer, 3, dim), w3["s"].reshape(n_layer, 3, dim),
+        w2["s"][:, None].expand(n_layer, 3, dim),
+    ], dim=1).float().contiguous()
+    norms = torch.stack([fast_layers["attention_norm"],
+                         fast_layers["ffn_norm"]], dim=1).to(torch.bfloat16)
+    return {"w": w, "s": s, "norms": norms.contiguous()}
+
+
+def enable_fused_fast_head(params: dict) -> dict:
+    """Serving transform: replace `fast_layers` by the packed sweep form.
+    Needs int8-quantized parameters (quantize_lm_params)."""
+    out = dict(params)
+    out["fast_packed"] = pack_fast_stack(out.pop("fast_layers"))
+    return out
+
+
+def rope_rows(freqs_table: torch.Tensor, pos: int, n_head: int):
+    """Full-width (cos, sin) f32 rows for RoPE on a flat (B, dim) row:
+    pair i's values on lanes 2i and 2i+1, tiled across heads."""
+    cs = freqs_table[pos].float()                       # (D/2, 2)
+    cos = cs[:, 0].repeat_interleave(2).repeat(n_head)
+    sin = cs[:, 1].repeat_interleave(2).repeat(n_head)
+    return cos, sin
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    n = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return n.to(torch.bfloat16) * w
+
+
+def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    xf = x.float()
+    pairs = xf.reshape(*xf.shape[:-1], -1, 2)
+    rot = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(xf.shape)
+    return (xf * cos + rot * sin).to(torch.bfloat16)
+
+
+def _quant_cache(x: torch.Tensor):
+    xf = x.float()
+    sc = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    return torch.round(xf / sc).to(torch.int8), sc[..., 0].to(torch.bfloat16)
+
+
+def fused_fast_sweep_plain(packed: dict, x: torch.Tensor,
+                           cache: FusedFastCache, freqs_table: torch.Tensor,
+                           *, pos: int, n_head: int,
+                           eps: float) -> torch.Tensor:
+    """Plain PyTorch version, in the TPU kernel's order of roundings.
+    x: (B, dim). Returns x_out (B, dim) bf16; writes position `pos` of
+    the cache in place."""
+    w, s, norms = packed["w"], packed["s"], packed["norms"]
+    n_layer, _, dim, _ = w.shape
+    hd = dim // n_head
+    scale = 1.0 / math.sqrt(hd)
+    cos, sin = rope_rows(freqs_table, pos, n_head)
+    xs = x.to(torch.bfloat16)
+    b = xs.shape[0]
+    for l in range(n_layer):
+        def w8a8(x8, xsc, j):
+            return int8_matmul_t(x8, w[l, j]).float() * xsc * s[l, j]
+
+        x8, xsc = int8_rows(_rms(xs, norms[l, 0], eps).float())
+        q = _rope(w8a8(x8, xsc, 0).to(torch.bfloat16), cos, sin)
+        k = _rope(w8a8(x8, xsc, 1).to(torch.bfloat16), cos, sin)
+        v = w8a8(x8, xsc, 2).to(torch.bfloat16)
+        cache.k[l, pos], cache.ks[l, pos] = _quant_cache(k)
+        cache.v[l, pos], cache.vs[l, pos] = _quant_cache(v)
+
+        sc = [((q * cache.k[l, p].to(torch.bfloat16)).float()
+               .reshape(b, n_head, hd).sum(-1))
+              * cache.ks[l, p].float()[:, None] * scale
+              for p in range(pos + 1)]                  # (B, H) each
+        m = sc[0]
+        for t in sc[1:]:
+            m = torch.maximum(m, t)
+        es = [torch.exp(t - m) for t in sc]
+        den = es[0]
+        for e in es[1:]:
+            den = den + e
+        inv = 1.0 / den
+        out = torch.zeros(b, dim, dtype=torch.float32, device=x.device)
+        for p in range(pos + 1):
+            wt = (es[p] * inv * cache.vs[l, p].float()[:, None]
+                  ).to(torch.bfloat16).repeat_interleave(hd, dim=-1)
+            out = out + (wt * cache.v[l, p].to(torch.bfloat16)).float()
+        a8, asc = int8_rows(out.to(torch.bfloat16).float())
+        xs = xs + w8a8(a8, asc, 3).to(torch.bfloat16)
+
+        x8, xsc = int8_rows(_rms(xs, norms[l, 1], eps).float())
+        g = torch.cat([w8a8(x8, xsc, j) for j in (4, 5, 6)], dim=-1)
+        g = g.to(torch.bfloat16).float()
+        u = torch.cat([w8a8(x8, xsc, j) for j in (7, 8, 9)], dim=-1)
+        h2 = (g * torch.sigmoid(g)).to(torch.bfloat16) * u.to(torch.bfloat16)
+        h8, hsc = int8_rows(h2.float())
+        acc = int8_matmul_t(h8[:, :dim].contiguous(), w[l, 10]).float()
+        for c in (1, 2):
+            acc = acc + int8_matmul_t(h8[:, c * dim:(c + 1) * dim]
+                                      .contiguous(), w[l, 10 + c]).float()
+        xs = xs + (acc * hsc * s[l, 10]).to(torch.bfloat16)
+    return xs
+
+
+def fused_fast_sweep(packed: dict, x: torch.Tensor, cache: FusedFastCache,
+                     freqs_table: torch.Tensor, *, pos: int, n_head: int,
+                     eps: float) -> torch.Tensor:
+    """One fast-stack sweep at codebook position `pos`: (B, dim) -> (B, dim)
+    bf16, with the cache's position `pos` written in place."""
+    if not x.is_cuda:
+        return fused_fast_sweep_plain(packed, x, cache, freqs_table, pos=pos,
+                                      n_head=n_head, eps=eps)
+    w, s, norms = packed["w"], packed["s"], packed["norms"]
+    n_layer, n_tiles, dim, _ = w.shape
+    n_pos = cache.k.shape[1]
+    b = x.shape[0]
+    if (n_tiles != N_TILES or dim % 64 or dim > 1024 or dim % n_head
+            or (dim // n_head) % 32):
+        raise ValueError(f"fast sweep kernel takes 13 tiles, dim a multiple "
+                         f"of 64 up to 1024 and head_dim a multiple of 32 "
+                         f"(got {n_tiles}, {dim}, {n_head} heads)")
+    if not 0 <= pos < min(n_pos, 16):
+        raise ValueError(f"pos {pos} out of range")
+    if tuple(x.shape) != (b, dim):
+        raise ValueError(f"x must be (B, {dim}), got {tuple(x.shape)}")
+    dev = x.device
+    _cuda.check(w, "w", torch.int8, (n_layer, N_TILES, dim, dim), dev)
+    _cuda.check(s, "s", torch.float32, (n_layer, N_TILES, dim), dev)
+    _cuda.check(norms, "norms", torch.bfloat16, (n_layer, 2, dim), dev)
+    for name, t in (("cache.k", cache.k), ("cache.v", cache.v)):
+        _cuda.check(t, name, torch.int8, (n_layer, n_pos, b, dim), dev)
+    for name, t in (("cache.ks", cache.ks), ("cache.vs", cache.vs)):
+        _cuda.check(t, name, torch.bfloat16, (n_layer, n_pos, b), dev)
+    cos, sin = rope_rows(freqs_table, pos, n_head)
+    rope = torch.stack([cos, sin]).contiguous()
+    xo = x.to(torch.bfloat16).contiguous().clone()     # updated in place
+    x8 = torch.empty((b, 3 * dim), dtype=torch.int8, device=dev)
+    xsc = torch.empty((b,), dtype=torch.float32, device=dev)
+    buf = torch.empty((b, 6 * dim), dtype=torch.bfloat16, device=dev)
+    KERNEL(xo.data_ptr(), w.data_ptr(), s.data_ptr(), norms.data_ptr(),
+           rope.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+           cache.ks.data_ptr(), cache.vs.data_ptr(), x8.data_ptr(),
+           xsc.data_ptr(), buf.data_ptr(), b, dim, n_layer, n_pos, pos,
+           n_head, float(eps))
+    return xo

@@ -1,0 +1,169 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file imports
+neither JAX nor the JAX package, so on a machine that has only PyTorch it
+runs on its own:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fish_speech_tpu_torch.models.dual_ar import precompute_freqs_cis
+from fish_speech_tpu_torch.ops import voc_fused as tv
+from fish_speech_tpu_torch.ops.attention import (
+    decode_attention_stream,
+    decode_attention_stream_plain,
+)
+from fish_speech_tpu_torch.ops.fast_fused import (
+    FusedFastCache,
+    fused_fast_sweep,
+    fused_fast_sweep_plain,
+    pack_fast_stack,
+)
+from fish_speech_tpu_torch.ops.quant import quantize_weight
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("int8_scores", [True, False])
+def test_decode_attention_stream(dev, int8_scores):
+    g = _gen(dev, 5)
+    L, b, hkv, grp, d, s = 2, 8, 8, 4, 128, 384
+    k8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([384, 300, 129, 1, 200, 384, 77, 256],
+                           dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 5, 128, 0, 0, 300, 70, 0], dtype=torch.int32,
+                          device=dev)
+    got = decode_attention_stream(q, k8, v8, ks, vs, 1, lengths, starts,
+                                  int8_scores=int8_scores)
+    ref = decode_attention_stream_plain(q, k8, v8, ks, vs, 1, lengths, starts,
+                                        int8_scores=int8_scores)
+    torch.cuda.synchronize()
+    # outputs of magnitude <= ~1 in bf16; p * v_scale is rounded to bf16 at
+    # the kernel's running maxima and at the plain version's exact maximum:
+    # a few bf16 ulps (2^-7 each)
+    assert (got.float() - ref.float()).abs().max().item() < 1.5e-2
+
+
+# batch 3 takes the kernel's one-warp-per-column product, 40 its tiled one
+@pytest.mark.parametrize("b", [3, 40])
+@pytest.mark.parametrize("pos", [0, 3])
+def test_fast_sweep(dev, pos, b):
+    g = _gen(dev, 7)
+    n_layer, dim, n_head, n_pos = 2, 256, 4, 4
+
+    def w(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 0.02
+
+    layers = {
+        "attention": {"wqkv": quantize_weight(w(n_layer, 3 * dim, dim)),
+                      "wo": quantize_weight(w(n_layer, dim, dim))},
+        "feed_forward": {"w1": quantize_weight(w(n_layer, 3 * dim, dim)),
+                         "w2": quantize_weight(w(n_layer, dim, 3 * dim)),
+                         "w3": quantize_weight(w(n_layer, 3 * dim, dim))},
+        "attention_norm": 1 + w(n_layer, dim),
+        "ffn_norm": 1 + w(n_layer, dim),
+    }
+    packed = pack_fast_stack(layers)
+    freqs = precompute_freqs_cis(n_pos, dim // n_head, 10000.0, dev)
+    xs = torch.randn((n_pos, b, dim), generator=g,
+                     device=dev).to(torch.bfloat16)
+    cache = FusedFastCache.create(n_layer, n_pos, b, dim, dev)
+    kw = dict(n_head=n_head, eps=1e-6)
+    for p in range(pos):
+        fused_fast_sweep_plain(packed, xs[p], cache, freqs, pos=p, **kw)
+    ck = FusedFastCache(*(t.clone() for t in (cache.k, cache.v, cache.ks,
+                                              cache.vs)))
+    got = fused_fast_sweep(packed, xs[pos], ck, freqs, pos=pos, **kw)
+    ref = fused_fast_sweep_plain(packed, xs[pos], cache, freqs, pos=pos, **kw)
+    torch.cuda.synchronize()
+    # same rounding points on both sides; f32 sums in another order may move
+    # one bf16 rounding and then one int8 step: 2^-5 of the output's scale
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+    k_diff = (ck.k[:, pos].int() - cache.k[:, pos].int()).abs()
+    assert k_diff.max().item() <= 1
+    assert torch.allclose(ck.ks[:, pos].float(), cache.ks[:, pos].float(),
+                          rtol=2 ** -7)
+
+
+def _units(c, n, seed, dev):
+    g = np.random.default_rng(seed)
+    units = []
+    for _ in range(n):
+        units.append({
+            "conv1_w": torch.from_numpy(g.normal(0, 0.03, (7, c, c))),
+            "conv1_b": torch.from_numpy(g.normal(0, 0.1, c)),
+            "conv2_w": torch.from_numpy(g.normal(0, 0.1, (1, c, c))),
+            "conv2_b": torch.from_numpy(g.normal(0, 0.1, c)),
+            "snake1_alpha": torch.from_numpy(g.uniform(0.5, 2.0, c)),
+            "snake2_alpha": torch.from_numpy(g.uniform(0.5, 2.0, c)),
+        })
+    return {k: v.to(dev) for k, v in tv.pack_res_stack(units).items()}
+
+
+def _tail(c, seed, dev):
+    a = np.random.default_rng(seed).uniform(0.5, 2.0, c)
+    return torch.from_numpy(np.stack([a / np.pi, 1.0 / (a + 1e-9)])).to(
+        dev, torch.float32).contiguous()
+
+
+@pytest.mark.parametrize("d,tail", [(1, False), (9, True)])
+def test_res_stack(dev, d, tail):
+    c = 64
+    packed = _units(c, 1, 12 + d, dev)
+    tv_ = _tail(c, 14, dev) if tail else None
+    x = torch.randn(2, 200, c, device=dev).to(torch.bfloat16)
+    got = tv.fused_res_stack(x, packed, dilations=(d,), tail_vec=tv_)
+    ref = tv.fused_res_stack_plain(x, packed, dilations=(d,), tail_vec=tv_)
+    torch.cuda.synchronize()
+    # bf16 state, f32 sums in another order: a few bf16 ulps of the scale
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+
+
+@pytest.mark.parametrize("stride,final", [(4, False), (2, True)])
+def test_block(dev, stride, final):
+    c, c_in = 64, 128
+    g = np.random.default_rng(13)
+    packed = _units(c, 3, 12, dev)
+    pw = g.normal(0, 0.05, (2, c_in, stride * c))
+    packed["tconv_pw"] = torch.from_numpy(pw).to(dev, torch.bfloat16)
+    packed["tconv_pb"] = torch.from_numpy(
+        np.tile(g.normal(0, 0.1, c), stride)).to(dev, torch.float32)
+    fw = None
+    if final:
+        fwn = g.normal(0, 0.1, (8, c))
+        fwn[7] = 0.0
+        fwn[7, 0] = 0.03
+        fw = torch.from_numpy(fwn).to(dev, torch.float32)
+    kw = dict(stride=stride, tail_vec=_tail(c, 14, dev), final_w=fw)
+    x = torch.randn(2, 300, c_in, device=dev).to(torch.bfloat16)
+    got = tv.fused_block(x, packed, **kw)
+    ref = tv.fused_block_plain(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    scale = 1.0 if final else ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale

@@ -1,0 +1,130 @@
+"""Port's fused vocoder kernels (plain versions) vs the JAX Pallas kernels
+(interpret mode on the CPU): fused_res_stack and fused_block, with the tail
+snake and the final conv + tanh."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fish_speech_tpu.codec.init import _Rng, _res_unit_p
+from fish_speech_tpu.ops import voc_fused as jv
+from fish_speech_tpu_torch.ops import voc_fused as tv
+
+DIL = (1, 3, 9)
+
+
+def _units(c, n, seed, bias=True):
+    """Random units; nonzero biases and alphas so the left-context
+    semantics (state before the sequence start) are exercised."""
+    rng = _Rng(jax.random.key(seed))
+    units = [_res_unit_p(rng, c) for _ in range(n)]
+    g = np.random.default_rng(seed)
+    for u in units:
+        for k in ("snake1_alpha", "snake2_alpha"):
+            u[k] = jnp.asarray(g.uniform(0.5, 2.0, c), jnp.float32)
+        if bias:
+            for k in ("conv1_b", "conv2_b"):
+                u[k] = jnp.asarray(g.normal(0, 0.1, c), jnp.float32)
+    return units
+
+
+def _t(tree):
+    return jax.tree.map(lambda a: torch.from_numpy(np.array(a, np.float32)),
+                        tree)
+
+
+def _tail(c, seed):
+    a = np.random.default_rng(seed).uniform(0.5, 2.0, c).astype(np.float32)
+    return np.stack([a / np.pi, 1.0 / (a + 1e-9)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("dilations,tail", [((3,), False), ((9,), True),
+                                            (DIL, True)])
+def test_res_stack_matches_pallas(dilations, tail):
+    c, t, b = 16, 96, 2
+    units = _units(c, len(dilations), 0)
+    x = np.random.default_rng(1).standard_normal((b, t, c)).astype(np.float32)
+    tv_np = _tail(c, 2) if tail else None
+    ref = jv.fused_res_stack(
+        jnp.asarray(x), jv.pack_res_stack(units, dtype=jnp.float32), tt=32,
+        dilations=dilations,
+        tail_vec=None if tv_np is None else jnp.asarray(tv_np))
+    packed = tv.pack_res_stack(_t(units), dtype=torch.float32)
+    got = tv.fused_res_stack(torch.from_numpy(x), packed, dilations=dilations,
+                             tail_vec=None if tv_np is None
+                             else torch.from_numpy(tv_np))
+    # f32 state, f32 products: only summation order differs
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_res_stack_bf16_state():
+    """bf16 state and weights, as on the serving path."""
+    c, t = 32, 64
+    units = _units(c, 1, 3)
+    x = np.random.default_rng(4).standard_normal((1, t, c)).astype(np.float32)
+    ref = jv.fused_res_stack(
+        jnp.asarray(x, jnp.bfloat16),
+        jv.pack_res_stack(units, dtype=jnp.bfloat16), tt=32, dilations=(9,))
+    got = tv.fused_res_stack(torch.from_numpy(x).to(torch.bfloat16),
+                             tv.pack_res_stack(_t(units)), dilations=(9,))
+    # bf16 state: one bf16 ulp at |x| < 4 (f32 accumulation order differs)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), atol=2 ** -6,
+                               rtol=2 ** -7)
+
+
+def _block_inputs(c_in, c, stride, seed):
+    g = np.random.default_rng(seed)
+    tw = g.normal(0, 0.1, (2 * stride, c_in, c)).astype(np.float32)
+    tb = g.normal(0, 0.1, c).astype(np.float32)
+    k_t = 2 * stride
+    phases = [np.flip(tw[k_t - (j + 1) * stride:k_t - j * stride], 0)
+              .transpose(1, 0, 2).reshape(c_in, stride * c) for j in range(2)]
+    return np.stack(phases).astype(np.float32), np.tile(tb, stride)
+
+
+@pytest.mark.parametrize("stride,final", [(2, False), (4, False), (2, True)])
+def test_block_matches_pallas(stride, final):
+    c_in, c, b = 32, 16, 2
+    t_in = 256 // stride
+    units = _units(c, 3, 7 + stride)
+    pw, pb = _block_inputs(c_in, c, stride, 8)
+    x = np.random.default_rng(9).standard_normal((b, t_in, c_in)).astype(
+        np.float32)
+    tail = _tail(c, 10)
+    packed_j = jv.pack_res_stack(units, dtype=jnp.float32)
+    packed_j["tconv_pw"] = jnp.asarray(pw)
+    packed_j["tconv_pb"] = jnp.asarray(pb)[None]
+    fw = None
+    if final:
+        fw = np.random.default_rng(11).normal(0, 0.1, (8, c)).astype(
+            np.float32)
+        fw[7] = 0.0
+        fw[7, 0] = 0.03
+    ref = jv.fused_block(jnp.asarray(x), packed_j, stride=stride, tt=128,
+                         tail_vec=jnp.asarray(tail),
+                         final_w=None if fw is None else jnp.asarray(fw))
+    packed_t = tv.pack_res_stack(_t(units), dtype=torch.float32)
+    packed_t["tconv_pw"] = torch.from_numpy(pw)
+    packed_t["tconv_pb"] = torch.from_numpy(pb)
+    got = tv.fused_block(torch.from_numpy(x), packed_t, stride=stride,
+                         tail_vec=torch.from_numpy(tail),
+                         final_w=None if fw is None else torch.from_numpy(fw))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_snake_poly_matches_pallas_snake():
+    x = np.linspace(-50, 50, 20001).astype(np.float32)
+    for a in (0.05, 1.0, 30.0):
+        ref = jv._snake(jnp.asarray(x), jnp.float32(a / np.pi),
+                        jnp.float32(1.0 / (a + 1e-9)))
+        got = tv.snake_poly(torch.from_numpy(x), a / np.pi, 1.0 / (a + 1e-9))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                                   atol=1e-6)
+
