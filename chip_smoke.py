@@ -7,12 +7,18 @@ Phases, in order; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi); CUDA must be available;
   2. build the hand-written CUDA kernels (nvcc, in parallel);
   3. each kernel against its plain PyTorch version on the same inputs at the
-     serving path's shapes, with the tolerance stated, timed with CUDA
-     events; the kernels' weights are those of the engine built for phase 4;
-  4. the serving main path: build_engine(serving=True) at full S2-Pro width
+     serving paths' shapes, with the tolerance stated, timed with CUDA
+     events; the vocoder and fast-head kernels' weights are those of the
+     engine built for phase 4;
+  4. the int8 serving path: build_engine(serving=True) at full S2-Pro width
      with seeded random weights drawn on the card, then three `tts`
-     requests. Each must give codes in range and a finite waveform in
-     [-1, 1] of frames x 2048 samples, and must launch all four kernels.
+     requests;
+  5. the W4A8 serving path: that engine freed, build_engine(serving=True,
+     quant="w4a8", kv_fold=True) from the same seed, then three `tts`
+     requests, the last with W4A8_KERNEL=pc.
+Each request must give codes in range and a finite waveform in [-1, 1] of
+frames x 2048 samples, and must launch the kernels of its route and none of
+the other route's. Launch counts are set to 0 just before each path.
 
 Output: one JSON line per request, then the `{"kernels": [...]}` line, the
 card's name and power limit, and last the `{"ok": true, ...}` line.
@@ -21,8 +27,10 @@ card's name and power limit, and last the `{"ok": true, ...}` line.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -32,10 +40,15 @@ import torch
 # bytes/s and operations/s of one H100 SXM (dense, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+SM_CYCLES_PER_S = 2.0e9   # above the H100's 1.98 GHz boost clock
 
 SEED = 0
 MAX_NEW_TOKENS = 96   # frames per request, at most (~4.5 s of audio)
+W4A8_NEW_TOKENS = 64  # frames per request of the W4A8 path, at most
 FRAMES = 128          # codec frames for the vocoder kernel checks
+GROUPSIZE = 128       # int4 group size of the W4A8 path
+PREFILL_M = 256       # rows of a prefill product (a 256-token prompt bucket)
+L2_BYTES = 50e6       # timing loops rotate over more than twice this
 TEXTS = (
     "Hello there. This is the first request to the serving path.",
     "<|speaker:0|>A second request, spoken by one tagged speaker.",
@@ -66,10 +79,19 @@ def bound(n_bytes: float, ops: dict) -> tuple[float, str]:
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `reps` back-to-back calls."""
+    """Mean device time of fn() over `reps` back-to-back calls. A sleep
+    kernel holds the device while the host enqueues the calls, so that the
+    events time the device's work, not the host's rate of launching (a
+    wrapper's Python takes tens of microseconds, longer than many of these
+    kernels run)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.0, 2 * enqueue_s * reps) * SM_CYCLES_PER_S))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -86,6 +108,20 @@ def nbytes(*ts) -> int:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def rotation(tensors) -> list:
+    """Copies of `tensors`, enough that cycling through them reads more
+    than twice the L2 (so a timed call finds its operands in device memory,
+    as on the main path, and not in the 50 MB L2)."""
+    n = max(1, math.ceil(2 * L2_BYTES / nbytes(*tensors)))
+    return [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+
+
+def cycle(items):
+    while True:
+        yield from items
 
 
 class Checks:
@@ -163,6 +199,141 @@ def check_attention(chk: Checks, cfg, dev, gen) -> list[dict]:
                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                               filled_positions=filled))
         del k, v, ks, vs
+        torch.cuda.empty_cache()
+    return cases
+
+
+def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
+    """#11 and #12 at the slow stack's five products (wqkv, wo, w1, w3,
+    w2) at decode (M = 1) and prefill (M = 256) rows, on int4 weights
+    quantized from random ones. Both kernels must equal their plain
+    versions bit for bit (exact int32 dots, the same f32 steps). Library
+    yardstick: one torch._int_mm of the same M x K by K x N int8 product,
+    on the int8 weights #12 reconstructs (for #11, the W8A8 product this
+    configuration replaces)."""
+    from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
+    from fish_speech_tpu_torch.ops.w4a8 import (
+        pc_weights, w4a8_matmul, w4a8_matmul_pc, w4a8_matmul_pc_plain,
+        w4a8_matmul_plain)
+
+    d, inter = cfg.dim, cfg.intermediate_size
+    qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
+    products = (("wqkv", qkv, d), ("wo", d, cfg.n_head * cfg.head_dim),
+                ("w1", inter, d), ("w3", inter, d), ("w2", d, inter))
+    grouped, pc = [], []
+    for name, n, k in products:
+        qw = quantize_weight_int4_packed(
+            torch.randn((n, k), generator=gen, device=dev) * 0.02, GROUPSIZE)
+        q4, gs = qw["q4"], qw["gs"]
+        weights = rotation((q4, gs))
+        lib_weights = rotation((pc_weights(q4, gs)[0],))
+        for m in (1, PREFILL_M):
+            x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            # torch._int_mm takes at least 17 rows: pad, outside the timing
+            x8p = torch.cat([x8, x8.new_zeros(max(0, 32 - m), k)])
+            it = cycle(lib_weights)
+            library_ms = time_ms(
+                lambda: torch._int_mm(x8p, next(it)[0].t()),
+                2 * len(lib_weights))
+            b_ms, b_by = bound(nbytes(x8, q4, gs) + 4 * m * n,
+                               {"int8": 2 * m * n * k})
+            for fn, plain, out in ((w4a8_matmul, w4a8_matmul_plain, grouped),
+                                   (w4a8_matmul_pc, w4a8_matmul_pc_plain,
+                                    pc)):
+                got = fn(x8, q4, gs)
+                ref = plain(x8, q4, gs)
+                torch.cuda.synchronize()
+                it = cycle(weights)
+                ms = time_ms(lambda: fn(x8, *next(it)), 2 * len(weights))
+                plain_ms = time_ms(lambda: plain(x8, *next(it)), 3, 1)
+                out.append(chk.case(
+                    fn.__name__, f"{name} M={m} N={n} K={k}",
+                    max_err(got, ref), 0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=library_ms, m=m,
+                    bit_equal=bool(torch.equal(got, ref))))
+        del weights, lib_weights
+    torch.cuda.empty_cache()
+    return grouped, pc
+
+
+def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
+    """#5 at the main path's shape (B=1, S=2048) and the bench shape (B=256,
+    S=384, mixed starts), writing at the last slot. It must equal writing
+    the rows with the model's _write_cache and then launching #1, bit for
+    bit (output, int8 rows, scales); its error against its plain version
+    has #1's tolerance. Timing walks the 36 layers, as a decode step does."""
+    from fish_speech_tpu_torch.models.dual_ar import KVCache, _write_cache
+    from fish_speech_tpu_torch.ops.attention import (
+        decode_attention_stream, decode_attention_stream_fold,
+        decode_attention_stream_fold_plain)
+
+    n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
+    g = cfg.n_head // hkv
+    cases = []
+    for b, s in ((1, 2048), (256, 384)):
+        kv = [torch.randint(-127, 128, (n_layer, s, b, hkv, d), generator=gen,
+                            device=dev, dtype=torch.int8) for _ in range(2)]
+        sc = [torch.rand((n_layer, b, s * hkv), generator=gen, device=dev)
+              * 0.02 + 1e-3 for _ in range(2)]
+        c = KVCache(*kv, *sc, pos_major=True)
+        del kv, sc
+
+        def clone():
+            return KVCache(c.k.clone(), c.v.clone(), c.ks.clone(),
+                           c.vs.clone(), pos_major=True)
+
+        q = torch.randn((b, hkv, g, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        nk = torch.randn((b, hkv, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        nv = torch.randn((b, hkv, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        wpos = s - 1
+        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        starts = torch.randint(0, s // 2, (b,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        starts[0] = 0
+        args = (n_layer - 1, lengths, starts)
+        two = clone()
+        _write_cache(two, args[0], wpos, nk[:, None], nv[:, None])
+        ref2 = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, *args)
+        pc = clone()
+        ref = decode_attention_stream_fold_plain(
+            q, pc.k, pc.v, pc.ks, pc.vs, *args, nk, nv, wpos)
+        del pc
+        got = decode_attention_stream_fold(q, c.k, c.v, c.ks, c.vs, *args, nk,
+                                           nv, wpos)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in (
+            (got, ref2), (c.k, two.k), (c.v, two.v), (c.ks, two.ks),
+            (c.vs, two.vs)))
+        del two
+        torch.cuda.empty_cache()
+        if not same:
+            chk.failed.append(f"decode_attention_stream_fold [B={b} S={s}]: "
+                              f"not bit-equal to _write_cache + #1")
+        it = iter(range(10 ** 9))
+        ms = time_ms(lambda: decode_attention_stream_fold(
+            q, c.k, c.v, c.ks, c.vs, next(it) % n_layer, lengths, starts,
+            nk, nv, wpos), n_layer)
+        plain_ms = time_ms(lambda: decode_attention_stream_fold_plain(
+            q, c.k, c.v, c.ks, c.vs, next(it) % n_layer, lengths, starts,
+            nk, nv, wpos), 6, 1)
+        filled = int((lengths - starts).clamp_min(0).sum())
+        row_bytes = hkv * d * 2 + hkv * 4 * 2        # int8 k+v, f32 scales
+        new_rows = b * row_bytes + nbytes(nk, nv)    # written + read
+        b_ms, b_by = bound(filled * row_bytes + new_rows
+                           + nbytes(q, q, lengths, starts),
+                           {"int8": 2 * filled * hkv * g * d,
+                            "bf16": 2 * filled * hkv * g * d})
+        # #1's tolerance: the plain version takes one exact softmax
+        cases.append(chk.case("decode_attention_stream_fold",
+                              f"B={b} S={s}", max_err(got, ref), 1.5e-2,
+                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, filled_positions=filled,
+                              two_step_bit_equal=same))
+        del c
         torch.cuda.empty_cache()
     return cases
 
@@ -350,31 +521,41 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the serving main path
+# Phases 4 and 5: the serving paths
 # ---------------------------------------------------------------------------
 
 
-def run_main_path(engine, kernels: dict, chk: Checks) -> None:
+def run_path(engine, path: str, requests: list, kernels: dict,
+             chk: Checks) -> dict:
+    """Drive `requests` ((text, max_new_tokens, W4A8_KERNEL value or None,
+    names of the kernels that route launches)) through engine.tts with
+    every count set to 0 first; a request fails unless each kernel of its
+    route launched and no other did. Returns the path's launch counts."""
     from fish_speech_tpu_torch.engine.generate import GenerateLongRequest
 
     cfg = engine.cfg
     fl = engine.codec_cfg.frame_length
     for k in kernels.values():
         k.launches = 0
-    for i, text in enumerate(TEXTS):
+    for i, (text, max_new, w4a8_kernel, route) in enumerate(requests):
         before = {n: k.launches for n, k in kernels.items()}
-        req = GenerateLongRequest(text=text, max_new_tokens=MAX_NEW_TOKENS,
+        req = GenerateLongRequest(text=text, max_new_tokens=max_new,
                                   seed=SEED + i)
+        if w4a8_kernel:
+            os.environ["W4A8_KERNEL"] = w4a8_kernel
         t0 = time.perf_counter()
-        wav, codes, lm_s = engine.tts_with_codes(req)
-        torch.cuda.synchronize()
+        try:
+            wav, codes, lm_s = engine.tts_with_codes(req)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("W4A8_KERNEL", None)
         wall = time.perf_counter() - t0
         frames = codes.shape[1]
         rose = {n: kernels[n].launches - before[n] for n in kernels}
         problems = []
         if frames < 1:
             problems.append("no frames")
-        if codes.shape[0] != cfg.num_codebooks or codes.min() < 0 \
+        elif codes.shape[0] != cfg.num_codebooks or codes.min() < 0 \
                 or codes.max() >= cfg.codebook_size:
             problems.append(f"codes out of range: shape {codes.shape}, "
                             f"[{codes.min()}, {codes.max()}]")
@@ -382,18 +563,23 @@ def run_main_path(engine, kernels: dict, chk: Checks) -> None:
             problems.append(f"wav shape {wav.shape} != ({frames * fl},)")
         if not (abs(wav) <= 1.0).all():
             problems.append("wav not finite or outside [-1, 1]")
-        if min(rose.values()) < 1:
-            problems.append(f"kernels not launched: {rose}")
+        missing = [n for n in route if rose[n] < 1]
+        stray = [n for n in kernels if n not in route and rose[n] > 0]
+        if missing or stray:
+            problems.append(f"route {sorted(route)}: not launched {missing}, "
+                            f"launched off route {stray}")
         print(json.dumps({
-            "request": i, "frames": frames, "wall_s": wall,
-            "lm_s": lm_s, "audio_s": len(wav) / engine.codec_cfg.sample_rate,
+            "path": path, "request": i, "w4a8_kernel": w4a8_kernel,
+            "frames": frames, "wall_s": wall, "lm_s": lm_s,
+            "audio_s": len(wav) / engine.codec_cfg.sample_rate,
             "decode_steps_per_s": frames / lm_s if lm_s > 0 else None,
             "launches": rose}), flush=True)
         if problems:
-            chk.failed.append(f"request {i}: " + "; ".join(problems))
+            chk.failed.append(f"{path} request {i}: " + "; ".join(problems))
+    return {n: k.launches for n, k in kernels.items()}
 
 
-def profile_request(engine, n_rows: int) -> None:
+def profile_request(engine, n_rows: int, path: str) -> None:
     """One more request under torch.profiler: device time by kernel and the
     device's idle share of the request's wall time (to stderr). The request
     is cut to 16 frames: the profiler's own bookkeeping grows with the
@@ -418,7 +604,7 @@ def profile_request(engine, n_rows: int) -> None:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile: {codes.shape[1]} frames, wall {wall * 1e3:.1f} ms "
+    log(f"profile {path}: {codes.shape[1]} frames, wall {wall * 1e3:.1f} ms "
         f"(LM {lm_s * 1e3:.1f} ms), device busy {busy:.1f} ms, idle share "
         f"{1 - busy / (wall * 1e3):.3f}")
     for ms, n, key in rows[:n_rows]:
@@ -438,6 +624,7 @@ def main() -> int:
     from fish_speech_tpu_torch.engine.generate import build_engine
     from fish_speech_tpu_torch.ops import _cuda
     from fish_speech_tpu_torch.ops import attention, fast_fused, voc_fused
+    from fish_speech_tpu_torch.ops import w4a8
 
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -469,46 +656,87 @@ def main() -> int:
     chk = Checks()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     attn = check_attention(chk, engine.cfg, dev, gen)
+    fold = check_fold(chk, engine.cfg, dev, gen)
+    w4a8_grouped, w4a8_pc = check_w4a8(chk, engine.cfg, dev, gen)
     sweep = check_fast_sweep(chk, engine.cfg, engine.params["fast_packed"],
                              dev, gen)
     res, blk = check_vocoder(chk, engine, FRAMES, dev, gen)
     torch.cuda.empty_cache()
 
-    # phase 4: the main path, counts from zero
     kernels = {"decode_attention_stream": attention.KERNEL,
+               "decode_attention_stream_fold": attention.FOLD_KERNEL,
+               "w4a8_matmul": w4a8.KERNEL,
+               "w4a8_matmul_pc": w4a8.KERNEL_PC,
                "fast_sweep": fast_fused.KERNEL,
                "voc_block": voc_fused.BLOCK,
                "voc_res_stack": voc_fused.RES_STACK}
-    run_main_path(engine, kernels, chk)
-    launches = {n: k.launches for n, k in kernels.items()}
-    if args.profile:
-        profile_request(engine, args.profile)
+    shared = ("fast_sweep", "voc_block", "voc_res_stack")
 
-    def entry(name, replaces, cases, head, sum_cases=False):
-        h = cases[head]
-        agg = {key: (sum(c[key] for c in cases) if sum_cases else h[key])
-               for key in ("ms", "plain_ms", "bound_ms")}
+    # phase 4: the int8 path
+    int8_route = ("decode_attention_stream", *shared)
+    by_path = {"int8": run_path(
+        engine, "int8", [(t, MAX_NEW_TOKENS, None, int8_route)
+                         for t in TEXTS], kernels, chk)}
+    if args.profile:
+        profile_request(engine, args.profile, "int8")
+
+    # phase 5: the W4A8 path with the KV-write fold, same seed
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = build_engine(device=dev, serving=True, seed=SEED, quant="w4a8",
+                          groupsize=GROUPSIZE, kv_fold=True)
+    torch.cuda.synchronize()
+    log(f"engine (S2-Pro, W4A8 + fold): {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    fold_route = ("decode_attention_stream_fold", *shared)
+    by_path["w4a8_fold"] = run_path(engine, "w4a8_fold", [
+        (TEXTS[0], W4A8_NEW_TOKENS, None, ("w4a8_matmul", *fold_route)),
+        (TEXTS[1], W4A8_NEW_TOKENS, None, ("w4a8_matmul", *fold_route)),
+        (TEXTS[2], W4A8_NEW_TOKENS, "pc", ("w4a8_matmul_pc", *fold_route)),
+    ], kernels, chk)
+    if args.profile:
+        profile_request(engine, args.profile, "w4a8_fold")
+
+    def entry(name, replaces, cases, head, path):
+        """`head`: the cases whose times are summed into the headline."""
+        lib = [c.get("library_ms") for c in head]
         return {"name": name, "route": "cuda",
                 "source": f"fish_speech_tpu_torch/csrc/{_cuda.SIGNATURES[name][0]}.cu",
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": by_path[path][name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
-                **agg, "bound_by": h["bound_by"], "library_ms": None,
+                **{k: sum(c[k] for c in head)
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": head[0]["bound_by"],
+                "library_ms": None if None in lib else sum(lib),
+                "launches_by_path": {p: n[name] for p, n in by_path.items()},
                 "cases": cases}
+
+    def decode(cases):
+        return [c for c in cases if c["m"] == 1]
 
     report = {"kernels": [
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
-              "fish_speech_tpu/ops/attention.py:910", attn, 1),
+              "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
+              "int8"),
+        entry("decode_attention_stream_fold",
+              "fish_speech_tpu/ops/attention.py:980", fold, fold[:1],
+              "w4a8_fold"),
+        # headline: one decode layer's five products (M = 1)
+        entry("w4a8_matmul", "fish_speech_tpu/ops/w4a8.py:72", w4a8_grouped,
+              decode(w4a8_grouped), "w4a8_fold"),
+        entry("w4a8_matmul_pc", "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
+              decode(w4a8_pc), "w4a8_fold"),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
-              3),
+              sweep[3:4], "int8"),
         # headline: the whole decoder's use at F frames
-        entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, 0,
-              sum_cases=True),
+        entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
+              "int8"),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              0),
+              res[:1], "int8"),
     ]}
-    if min(launches.values()) < 1:
-        chk.failed.append(f"a kernel of the main path never ran: {launches}")
     print(json.dumps(report), flush=True)
     if chk.failed:
         log("chip_smoke FAILED: " + ", ".join(chk.failed))

@@ -22,6 +22,23 @@
 // probability times the value scale is rounded to bf16 before the value
 // product, as the TPU kernel does. Not yet done: splitting one row's key
 // range over several CTAs, which a small batch needs to fill the card.
+//
+// decode_attention_stream_fold (FOLD = true) replaces
+// fish_speech_tpu/ops/attention.py::pallas_decode_attention_stream_fold:
+// the same attention, after the decode step's cache write. The CTA of (kv
+// head h, row b) quantizes the new bf16 k and v rows of (b, h) (scale
+// max|x| / 127 clamped at 1e-8, round half to even), writes the int8 rows at
+// `write_pos` of `layer` and their scales into the flat scale caches, and
+// attends over [start, length) including that row. Each (kv head, row) CTA
+// owns its row's write, so no CTA waits on another; the new row is patched
+// into the staged tile from shared memory (and its scales into the score
+// and probability scaling), so the tile loop never depends on reading its
+// own write back from device memory. The
+// tile loop is decode_attention_stream's, so the output is bit-identical to
+// writing the row first and launching that kernel. Unlike the TPU kernel, which returns the scales
+// for the caller to write (their offset is not 128-lane aligned), this one
+// writes them itself. The extra bytes are the 2 x Hkv x D bf16 inputs and
+// the int8 rows and scales written: ~0.15% of a B=1, S=2048 launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,16 +51,20 @@ constexpr int NT = 128;        // threads == positions per tile
 constexpr int D = 128;         // head dim
 constexpr int KP = D + 4;      // padded k row (bytes): conflict-free int reads
 
-template <int G>
+// k, v, ks, vs are not __restrict__: with FOLD the kernel writes them too
+template <int G, bool FOLD>
 __global__ void __launch_bounds__(NT) decode_attn_kernel(
     const __nv_bfloat16* __restrict__ q,   // (B, Hkv, G, D)
-    const int8_t* __restrict__ k,          // (L, S, B, Hkv, D)
-    const int8_t* __restrict__ v,
-    const float* __restrict__ ks,          // (L, B, S*Hkv)
-    const float* __restrict__ vs,
+    const int8_t* k,                       // (L, S, B, Hkv, D)
+    const int8_t* v,
+    const float* ks,                       // (L, B, S*Hkv)
+    const float* vs,
     const int* __restrict__ lengths, const int* __restrict__ starts,
     __nv_bfloat16* __restrict__ out,       // (B, Hkv, G, D)
-    int S, int B, int Hkv, int layer, float scale, int int8_scores) {
+    const __nv_bfloat16* __restrict__ nk,  // FOLD: (B, Hkv, D) new rows
+    const __nv_bfloat16* __restrict__ nv,
+    int S, int B, int Hkv, int layer, int wpos, float scale,
+    int int8_scores) {
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   constexpr int NW = NT / 32;
@@ -56,6 +77,9 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
   __shared__ float qmul[G];
   __shared__ float red[G][NW];
   __shared__ float m_s[G], l_s[G], corr_s[G];
+  __shared__ __align__(16) int8_t nk8[D];   // FOLD: the new int8 rows
+  __shared__ __align__(16) int8_t nv8[D];
+  __shared__ float nred[2][NW], nsc[2];
 
   const size_t row = (size_t)b * Hkv + h;
   for (int i = tid; i < G * D; i += NT)
@@ -85,6 +109,39 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
   const float* ksrow = ks + ((size_t)layer * B + b) * ((size_t)S * Hkv) + h;
   const float* vsrow = vs + ((size_t)layer * B + b) * ((size_t)S * Hkv) + h;
 
+  if (FOLD) {
+    // quantize the new rows (thread tid owns column tid) and write them
+    const float kx = __bfloat162float(nk[row * D + tid]);
+    const float vx = __bfloat162float(nv[row * D + tid]);
+    float ka = fabsf(kx), va = fabsf(vx);
+    for (int o = 16; o > 0; o >>= 1) {
+      ka = fmaxf(ka, __shfl_xor_sync(0xffffffffu, ka, o));
+      va = fmaxf(va, __shfl_xor_sync(0xffffffffu, va, o));
+    }
+    if (lane == 0) {
+      nred[0][warp] = ka;
+      nred[1][warp] = va;
+    }
+    __syncthreads();
+    if (tid < 2) {
+      float m = nred[tid][0];
+      for (int w = 1; w < NW; ++w) m = fmaxf(m, nred[tid][w]);
+      nsc[tid] = fmaxf(m / 127.f, 1e-8f);
+    }
+    __syncthreads();
+    const int8_t k8 = (int8_t)rintf(kx / nsc[0]);
+    const int8_t v8 = (int8_t)rintf(vx / nsc[1]);
+    nk8[tid] = k8;
+    nv8[tid] = v8;
+    const_cast<int8_t*>(kbase)[(size_t)wpos * pos_stride + tid] = k8;
+    const_cast<int8_t*>(vbase)[(size_t)wpos * pos_stride + tid] = v8;
+    if (tid == 0) {
+      const_cast<float*>(ksrow)[(size_t)wpos * Hkv] = nsc[0];
+      const_cast<float*>(vsrow)[(size_t)wpos * Hkv] = nsc[1];
+    }
+    __syncthreads();
+  }
+
   float acc[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
@@ -102,10 +159,17 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
               vbase + (size_t)(t0 + p) * pos_stride + part * 16);
     }
     __syncthreads();
+    if (FOLD && wpos >= t0 && wpos < t0 + n) {
+      // the staged copy of the new row may predate this CTA's write of it
+      sk[(wpos - t0) * KP + tid] = nk8[tid];
+      sv[(wpos - t0) * D + tid] = nv8[tid];
+      __syncthreads();
+    }
 
     float s[G];
     if (tid < n) {
-      const float ksc = ksrow[(size_t)(t0 + tid) * Hkv];
+      const float ksc = (FOLD && t0 + tid == wpos)
+                            ? nsc[0] : ksrow[(size_t)(t0 + tid) * Hkv];
       if (int8_scores) {
         int dot[G];
 #pragma unroll
@@ -153,7 +217,9 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
       m_s[tid] = m_new;
     }
     __syncthreads();
-    const float vsc = tid < n ? vsrow[(size_t)(t0 + tid) * Hkv] : 0.f;
+    const float vsc = tid >= n ? 0.f
+                      : (FOLD && t0 + tid == wpos)
+                            ? nsc[1] : vsrow[(size_t)(t0 + tid) * Hkv];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float p = tid < n ? expf(s[g] - m_s[g]) : 0.f;
@@ -185,19 +251,44 @@ __global__ void __launch_bounds__(NT) decode_attn_kernel(
         __float2bfloat16(acc[g] / fmaxf(l_s[g], 1e-20f));
 }
 
-template <int G>
+template <int G, bool FOLD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const void* lengths,
-                   const void* starts, void* out, int S, int B, int Hkv,
-                   int layer, float scale, int int8_scores,
-                   cudaStream_t stream) {
+                   const void* starts, void* out, const void* nk,
+                   const void* nv, int S, int B, int Hkv, int layer, int wpos,
+                   float scale, int int8_scores, cudaStream_t stream) {
   dim3 grid(Hkv, B);
-  decode_attn_kernel<G><<<grid, NT, 0, stream>>>(
+  decode_attn_kernel<G, FOLD><<<grid, NT, 0, stream>>>(
       (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
       (const float*)ks, (const float*)vs, (const int*)lengths,
-      (const int*)starts, (__nv_bfloat16*)out, S, B, Hkv, layer, scale,
-      int8_scores);
+      (const int*)starts, (__nv_bfloat16*)out, (const __nv_bfloat16*)nk,
+      (const __nv_bfloat16*)nv, S, B, Hkv, layer, wpos, scale, int8_scores);
   return cudaGetLastError();
+}
+
+template <bool FOLD>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* lengths, const void* starts,
+             void* out, const void* nk, const void* nv, int S, int B,
+             int Hkv, int G, int Dh, int layer, int wpos, float scale,
+             int int8_scores, void* stream) {
+  if (Dh != D) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (G) {
+    case 1: return (int)launch<1, FOLD>(q, k, v, ks, vs, lengths, starts, out,
+                                        nk, nv, S, B, Hkv, layer, wpos, scale,
+                                        int8_scores, st);
+    case 2: return (int)launch<2, FOLD>(q, k, v, ks, vs, lengths, starts, out,
+                                        nk, nv, S, B, Hkv, layer, wpos, scale,
+                                        int8_scores, st);
+    case 4: return (int)launch<4, FOLD>(q, k, v, ks, vs, lengths, starts, out,
+                                        nk, nv, S, B, Hkv, layer, wpos, scale,
+                                        int8_scores, st);
+    case 8: return (int)launch<8, FOLD>(q, k, v, ks, vs, lengths, starts, out,
+                                        nk, nv, S, B, Hkv, layer, wpos, scale,
+                                        int8_scores, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -208,17 +299,20 @@ extern "C" int decode_attention_stream(
     int L, int S, int B, int Hkv, int G, int Dh, int layer, float scale,
     int int8_scores, void* stream) {
   (void)L;
-  if (Dh != D) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (G) {
-    case 1: return (int)launch<1>(q, k, v, ks, vs, lengths, starts, out, S, B,
-                                  Hkv, layer, scale, int8_scores, st);
-    case 2: return (int)launch<2>(q, k, v, ks, vs, lengths, starts, out, S, B,
-                                  Hkv, layer, scale, int8_scores, st);
-    case 4: return (int)launch<4>(q, k, v, ks, vs, lengths, starts, out, S, B,
-                                  Hkv, layer, scale, int8_scores, st);
-    case 8: return (int)launch<8>(q, k, v, ks, vs, lengths, starts, out, S, B,
-                                  Hkv, layer, scale, int8_scores, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, ks, vs, lengths, starts, out, nullptr,
+                         nullptr, S, B, Hkv, G, Dh, layer, -1, scale,
+                         int8_scores, stream);
+}
+
+// k, v, ks, vs are updated in place at write_pos of layer
+extern "C" int decode_attention_stream_fold(
+    const void* q, void* k, void* v, void* ks, void* vs, const void* lengths,
+    const void* starts, void* out, const void* new_k, const void* new_v,
+    int L, int S, int B, int Hkv, int G, int Dh, int layer, int write_pos,
+    float scale, int int8_scores, void* stream) {
+  (void)L;
+  if (write_pos < 0 || write_pos >= S) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(q, k, v, ks, vs, lengths, starts, out, new_k, new_v,
+                        S, B, Hkv, G, Dh, layer, write_pos, scale,
+                        int8_scores, stream);
 }

@@ -239,29 +239,35 @@ class TTSEngine:
         return self.decode_codes(codes), codes, sum(r.wall_s for r in segs)
 
 
-def serving_config(cfg: DualARConfig) -> DualARConfig:
-    """The serving configuration: W8A8 products, position-major int8 KV
-    cache read by the stream attention kernel."""
+def serving_config(cfg: DualARConfig, kv_fold: bool = False) -> DualARConfig:
+    """The serving configuration: W8A8 (or W4A8) products, position-major
+    int8 KV cache read by the stream attention kernel; kv_fold=True lets
+    that kernel also quantize and write each decode step's k/v rows."""
     cfg = dataclasses.replace(cfg, w8a8_matmuls=True, kv_cache_dtype="int8",
-                              kv_cache_layout="pos")
+                              kv_cache_layout="pos", kv_fold_write=kv_fold)
     return apply_pallas_attn_mode(cfg, "stream")
 
 
 def build_engine(device=None, serving: bool = True, *, seed: int = 0,
                  lm_cfg: DualARConfig | None = None,
                  codec_cfg: DACConfig | None = None,
-                 cache_len: int = 2048) -> TTSEngine:
+                 cache_len: int = 2048, quant: str = "int8",
+                 groupsize: int = 128, kv_fold: bool = False) -> TTSEngine:
     """An engine with seeded random weights drawn on `device` (CUDA by
     default): S2-Pro LM and codec unless configs are given, a byte
     tokenizer whose semantic ids span the codebook. serving=True applies
-    the serving configuration: int8 weights with W8A8 products, the
-    position-major int8 KV cache with stream attention, and the fused
-    fast head."""
+    the serving configuration: quantized weights (quant="int8": int8 with
+    W8A8 products; "w4a8": the slow stack's matrices as packed int4 in
+    groups of `groupsize` with W4A8 products, everything else int8), the
+    position-major int8 KV cache with stream attention (kv_fold=True: the
+    fold kernel writes the decode step's rows), and the fused fast head."""
     from ..codec.init import init_dac_params
     from ..models.init import init_dual_ar_params
     from ..ops.fast_fused import enable_fused_fast_head
     from ..ops.quant import quantize_lm_params
 
+    if not serving and (quant != "int8" or kv_fold):
+        raise ValueError("quant and kv_fold select serving configurations")
     device = resolve_device(device)
     cfg = lm_cfg or s2_pro_lm_config(max_seq_len=cache_len)
     tokenizer = ByteTokenizer(n_semantic=cfg.codebook_size)
@@ -272,8 +278,9 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16, device=device)
     if serving:
-        params = enable_fused_fast_head(quantize_lm_params(params))
-        cfg = serving_config(cfg)
+        params = enable_fused_fast_head(quantize_lm_params(
+            params, mode=quant, groupsize=groupsize))
+        cfg = serving_config(cfg, kv_fold=kv_fold)
     codec_cfg = codec_cfg or s2_pro_codec_config()
     codec_params = init_dac_params(gen, codec_cfg, device=device)
     return TTSEngine(params, cfg, tokenizer, codec_params, codec_cfg,

@@ -1,8 +1,9 @@
 """Dual-AR transformer (slow token decoder + fast residual-codebook head).
 
 Counterpart of `fish_speech_tpu/models/dual_ar.py`, for the branches the
-serving path takes (int8 W8A8 weights, position-major int8 KV cache read by
-the stream attention kernel, fused fast-head sweeps) and the unquantized
+serving paths take (int8 W8A8 or packed-int4 W4A8 weights, position-major
+int8 KV cache read by the stream attention kernel, optionally written by it
+too (`kv_fold_write`), fused fast-head sweeps) and the unquantized
 head-major branch the parity goldens need.
 
 Parameters are the nested dicts of models/init.py, layers stacked along a
@@ -23,6 +24,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.attention import (
+    decode_attention_stream,
+    decode_attention_stream_fold,
+    quantize_kv_rows,
+)
 from ..ops.quant import as_weight, is_quantized, matmul_t, slice_rows, take_rows
 from .config import AttnDims, DualARConfig
 
@@ -110,20 +116,13 @@ class KVCache:
         return self.k.shape[1] if self.pos_major else self.k.shape[3]
 
 
-def _quant_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-(row, head, position) symmetric int8 over the head dim."""
-    tf = t.float()
-    sc = (tf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
-    return torch.round(tf / sc[..., None]), sc
-
-
 def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor,
                  v: torch.Tensor) -> None:
     """Write new (B, T, Hkv, D) k/v rows at slots [pos, pos+T) of `layer`."""
     b, t, hkv, _ = k.shape
     if cache.ks is not None:
-        k, k_sc = _quant_kv(k)          # scales (B, T, Hkv)
-        v, v_sc = _quant_kv(v)
+        k, k_sc = quantize_kv_rows(k)   # scales (B, T, Hkv)
+        v, v_sc = quantize_kv_rows(v)
     k = k.to(cache.k.dtype)
     v = v.to(cache.v.dtype)
     if cache.pos_major:
@@ -178,7 +177,8 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
               bounds: DecodeBounds | None = None) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D). mask: (B or 1, 1, T, S) bool. With
     `bounds`, a T=1 step on a position-major int8 cache goes through the
-    stream attention kernel."""
+    stream attention kernel; with `ad.kv_fold` as well, the fold kernel
+    writes this step's k/v rows itself (the gate of the JAX function)."""
     b, t, _ = x.shape
     h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
     qkv = matmul_t(x, p["wqkv"], w8a8=ad.w8a8)
@@ -199,17 +199,28 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     k_scale = v_scale = None
     if cache is not None:
-        _write_cache(cache, layer, input_pos, k, v)
+        fold = (ad.kv_fold and cache.pos_major and cache.ks is not None
+                and ad.pallas_stream and ad.pallas_block_rows > 0
+                and ad.tp_shards == 1 and t == 1
+                and isinstance(input_pos, int) and bounds is not None)
+        if not fold:
+            _write_cache(cache, layer, input_pos, k, v)
         if bounds is not None and t == 1:
             if not (cache.pos_major and cache.ks is not None):
                 raise ValueError("the decode kernel path needs the "
                                  "position-major int8 cache")
-            from ..ops.attention import decode_attention_stream
-
-            y = decode_attention_stream(
-                qg[:, 0], cache.k, cache.v, cache.ks, cache.vs, layer,
-                bounds.lengths, bounds.starts,
-                int8_scores=ad.pallas_int8_scores)
+            if fold:
+                # the raw post-RoPE rows; the kernel quantizes and writes
+                y = decode_attention_stream_fold(
+                    qg[:, 0], cache.k, cache.v, cache.ks, cache.vs, layer,
+                    bounds.lengths, bounds.starts, k[:, 0].contiguous(),
+                    v[:, 0].contiguous(), input_pos,
+                    int8_scores=ad.pallas_int8_scores)
+            else:
+                y = decode_attention_stream(
+                    qg[:, 0], cache.k, cache.v, cache.ks, cache.vs, layer,
+                    bounds.lengths, bounds.starts,
+                    int8_scores=ad.pallas_int8_scores)
             out = matmul_t(y.reshape(b, 1, h * d), p["wo"], w8a8=ad.w8a8)
             return out + p["wo_b"] if ad.o_bias else out
         k, v, k_scale, v_scale = _read_cache(cache, layer)

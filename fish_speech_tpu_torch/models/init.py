@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.quant import pack_int4_params
 from .config import AttnDims, DualARConfig
 
 
@@ -98,6 +99,8 @@ def init_dual_ar_params(gen: torch.Generator, cfg: DualARConfig,
 
 def _to_torch(a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype.name == "int4":
+        a = a.astype(np.int8)
     if a.dtype.name == "bfloat16":
         # numpy has no bf16: carry the bit pattern through int16
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -109,9 +112,12 @@ def _to_torch(a, device) -> torch.Tensor:
 def lm_params_from_jax(tree: dict, device=None) -> dict:
     """The JAX Dual-AR parameter tree, with every leaf already a numpy
     array (`jax.tree.map(np.asarray, params)`), as the port's tree: float,
-    int8-quantized ({"q", "s"}) or with the packed fast stack
-    ("fast_packed", see ops/fast_fused.py). Layouts are kept, except the
-    packed stack's Mosaic-only padding tile and lane-padded scale axis."""
+    int8-quantized ({"q", "s"}), packed int4 ({"q4", "gs"}, carried as it
+    is) or with the packed fast stack ("fast_packed", see
+    ops/fast_fused.py). Layouts are kept, except the packed stack's
+    Mosaic-only padding tile and lane-padded scale axis. Native int4
+    leaves ({"q" int4, "gs"}, the JAX checkpoint form) are packed on the
+    way in, as the JAX `pack_int4_params` does."""
     device = resolve_device(device)
 
     def visit(keys: tuple, x):
@@ -125,4 +131,4 @@ def lm_params_from_jax(tree: dict, device=None) -> dict:
             return {k: visit(keys + (k,), v) for k, v in x.items()}
         return _to_torch(x, device)
 
-    return {k: visit((k,), v) for k, v in tree.items()}
+    return pack_int4_params({k: visit((k,), v) for k, v in tree.items()})

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("decode_attention", "fast_sweep", "voc_fused")
+SOURCES = ("decode_attention", "fast_sweep", "voc_fused", "w4a8")
 # -fmad=false: no contraction of a*b + c into one rounding, so the kernels'
 # f32 epilogues round as their plain PyTorch twins do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,6 +41,13 @@ SIGNATURES = {
     # int8_scores | stream
     "decode_attention_stream": ("decode_attention", [_P] * 8 + [_I] * 7
                                 + [_F, _I, _P]),
+    # q k v ks vs lengths starts out new_k new_v | L S B Hkv G D layer
+    # write_pos | scale | int8_scores | stream
+    "decode_attention_stream_fold": ("decode_attention", [_P] * 10
+                                     + [_I] * 8 + [_F, _I, _P]),
+    # x8 q4 gs out | M N K G | stream
+    "w4a8_matmul": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
+    "w4a8_matmul_pc": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
     # x w s norms rope ck cv cks cvs x8 xs buf | B dim L K pos n_head |
     # eps | stream
     "fast_sweep": ("fast_sweep", [_P] * 12 + [_I] * 6 + [_F, _P]),

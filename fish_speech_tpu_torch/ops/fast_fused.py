@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _cuda
-from .quant import int8_matmul_t, int8_rows
+from .quant import div_exact, int8_matmul_t, int8_rows
 
 KERNEL = _cuda.Kernel("fast_sweep")
 N_TILES = 13     # q, k, v, wo, w1 x3, w3 x3, w2 x3 (column tiles)
@@ -109,7 +109,8 @@ def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def _quant_cache(x: torch.Tensor):
     xf = x.float()
-    sc = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    sc = div_exact(xf.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(
+        1e-8)
     return torch.round(xf / sc).to(torch.int8), sc[..., 0].to(torch.bfloat16)
 
 

@@ -1,9 +1,13 @@
-"""Int8 per-output-channel weight quantization and the W8A8 product.
+"""Weight quantization and the W8A8 / W4A8 products.
 
-Counterpart of `fish_speech_tpu/ops/quant.py` (int8 mode only). A quantized
-weight is the dict {"q": int8 (..., out, in), "s": f32 (..., out)}; plain and
-quantized parameter trees share every code path through `as_weight`,
-`matmul_t`, `take_rows` and `slice_rows`.
+Counterpart of `fish_speech_tpu/ops/quant.py` (int8 and packed-int4 modes).
+A quantized weight is one of two dicts:
+  int8 per output channel: {"q": int8 (..., out, in), "s": f32 (..., out)};
+  groupwise int4, two nibbles per byte: {"q4": int8 (..., out, in/2),
+    "gs": f32 (..., out, in/groupsize)}, SPLIT-HALF packed: byte j holds
+    value j in its low nibble and value j + in/2 in its high nibble.
+Plain and quantized parameter trees share every code path through
+`as_weight`, `matmul_t`, `take_rows` and `slice_rows`.
 """
 
 from __future__ import annotations
@@ -11,29 +15,75 @@ from __future__ import annotations
 import torch
 
 
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, as the JAX package and the CUDA kernels divide.
+    On CUDA, PyTorch divides a tensor by a Python number as x * (1 / d),
+    two roundings that miss the quotient by one ulp for ~5% of f32 values;
+    a divisor tensor on the same device takes the true division."""
+    return x / torch.full_like(x, d)
+
+
 def quantize_weight(w: torch.Tensor) -> dict:
     """(..., out, in) -> {"q": int8, "s": f32 (..., out)}."""
     wf = w.float()
-    scale = (wf.abs().amax(dim=-1) / 127.0).clamp_min(1e-12)
+    scale = div_exact(wf.abs().amax(dim=-1), 127.0).clamp_min(1e-12)
     q = torch.round(wf / scale[..., None]).clamp(-128, 127).to(torch.int8)
     return {"q": q, "s": scale}
 
 
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7] (..., in) -> split-half packed (..., in/2)."""
+    half = q.shape[-1] // 2
+    return (q[..., half:] << 4) | (q[..., :half] & 0xF)
+
+
+def quantize_weight_int4_packed(w: torch.Tensor, groupsize: int = 128) -> dict:
+    """(..., out, in) -> {"q4": int8 (..., out, in/2), "gs": f32 (..., out,
+    in/groupsize)}: symmetric int4 per (out channel, input group), scale
+    max|w|/7. Needs groupsize | in/2, so that group boundaries line up in
+    both halves."""
+    *lead, out, inner = w.shape
+    if inner % groupsize or (inner // 2) % groupsize:
+        raise ValueError(f"groupsize {groupsize} must divide in/2 = "
+                         f"{inner // 2}")
+    wf = w.float().reshape(*lead, out, inner // groupsize, groupsize)
+    scale = div_exact(wf.abs().amax(dim=-1), 7.0).clamp_min(1e-12)
+    q = torch.round(wf / scale[..., None]).clamp(-8, 7).to(torch.int8)
+    return {"q4": pack_int4(q.reshape(*lead, out, inner)), "gs": scale}
+
+
+def unpack_int4(q4: torch.Tensor) -> torch.Tensor:
+    """Split-half packed (..., in/2) -> int8 values (..., in); arithmetic
+    shifts sign-extend the nibbles."""
+    return torch.cat([(q4 << 4) >> 4, q4 >> 4], dim=-1)
+
+
 def is_quantized(w) -> bool:
-    return isinstance(w, dict) and "q" in w and "s" in w
+    return isinstance(w, dict) and (("q" in w and "s" in w)
+                                    or ("q4" in w and "gs" in w))
+
+
+def _dequant_groups(q: torch.Tensor, gs: torch.Tensor, dtype) -> torch.Tensor:
+    groups = gs.shape[-1]
+    deq = (q.to(dtype).reshape(*q.shape[:-1], groups, -1)
+           * gs.to(dtype)[..., None])
+    return deq.reshape(q.shape)
 
 
 def as_weight(w, dtype=torch.bfloat16) -> torch.Tensor:
     """The dequantized weight (or the plain one unchanged)."""
     if not is_quantized(w):
         return w
-    return w["q"].to(dtype) * w["s"].to(dtype)[..., None]
+    if "s" in w:
+        return w["q"].to(dtype) * w["s"].to(dtype)[..., None]
+    return _dequant_groups(unpack_int4(w["q4"]), w["gs"], dtype)
 
 
 def int8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric activation quantization: (int8, f32 scale (..., 1))."""
     xf = x.float()
-    xs = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    xs = div_exact(xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8),
+                   127.0)
     return torch.round(xf / xs).to(torch.int8), xs
 
 
@@ -54,9 +104,14 @@ def matmul_t(x: torch.Tensor, w, *, w8a8: bool = False) -> torch.Tensor:
 
     w8a8=True with an int8 weight: per-row activation quantization, an
     int8 x int8 -> int32 product, and the rank-1 rescale by the activation
-    and channel scales (the serving path)."""
+    and channel scales (the serving path). With a packed int4 weight: the
+    W4A8 product of ops/w4a8.py (its kernel on CUDA tensors)."""
     if not is_quantized(w):
         return x @ w.T
+    if w8a8 and "gs" in w:
+        from .w4a8 import matmul_t_w4a8
+
+        return matmul_t_w4a8(x, w)
     if w8a8:
         lead = x.shape[:-1]
         x8, xs = int8_rows(x.reshape(-1, x.shape[-1]))
@@ -70,15 +125,29 @@ def take_rows(w, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Embedding-style row gather that dequantizes only the gathered rows."""
     if not is_quantized(w):
         return w[idx]
-    rows = w["q"][idx].to(dtype)
-    return rows * w["s"][idx].to(dtype)[..., None]
+    if "s" in w:
+        rows = w["q"][idx].to(dtype)
+        return rows * w["s"][idx].to(dtype)[..., None]
+    return _dequant_groups(unpack_int4(w["q4"][idx]), w["gs"][idx], dtype)
 
 
 def slice_rows(w, start: int, stop: int):
     """Row slice [start, stop) of a (possibly quantized) (V, D) weight."""
     if not is_quantized(w):
         return w[start:stop]
-    return {"q": w["q"][start:stop], "s": w["s"][start:stop]}
+    return {k: v[start:stop] for k, v in w.items()}
+
+
+def pack_int4_params(params: dict) -> dict:
+    """Native int4 leaves {"q": int8 values in [-8, 7], "gs"} (the JAX
+    checkpoint form, carried as int8) -> the packed serving form {"q4",
+    "gs"}; other leaves pass through."""
+    if isinstance(params, dict) and set(params) == {"q", "gs"}:
+        return {"q4": pack_int4(params["q"].to(torch.int8)),
+                "gs": params["gs"]}
+    if isinstance(params, dict):
+        return {k: pack_int4_params(v) for k, v in params.items()}
+    return params
 
 
 _LM_QUANT_LEAVES = {"wqkv", "wo", "w1", "w2", "w3"}
@@ -86,11 +155,33 @@ _LM_QUANT_TOP = {"embeddings", "codebook_embeddings", "fast_embeddings",
                  "output", "fast_output"}
 
 
-def quantize_lm_params(params: dict) -> dict:
-    """Int8-quantize the Dual-AR tree's large matrices (per output channel);
-    other floating leaves become bf16. Same leaf selection as the JAX
-    `quantize_lm_params` in int8 mode. Leaves are replaced one at a time, so
-    the peak memory is one leaf's temporaries."""
+def _int4_by_layer(w: torch.Tensor, groupsize: int) -> dict:
+    """quantize_weight_int4_packed one leading-axis slice at a time, so a
+    layer-stacked leaf's f32 temporaries are one layer's (a whole (36,
+    9728, 2560) leaf's would take 3.6 GB)."""
+    if w.ndim == 2:
+        return quantize_weight_int4_packed(w, groupsize)
+    first = quantize_weight_int4_packed(w[0], groupsize)
+    out = {k: v.new_empty((w.shape[0], *v.shape)) for k, v in first.items()}
+    for i in range(w.shape[0]):
+        part = first if i == 0 else quantize_weight_int4_packed(w[i],
+                                                                groupsize)
+        for k in out:
+            out[k][i] = part[k]
+    return out
+
+
+def quantize_lm_params(params: dict, mode: str = "int8",
+                       groupsize: int = 128) -> dict:
+    """Quantize the Dual-AR tree's large matrices; other floating leaves
+    become bf16. Same leaf selection as the JAX `quantize_lm_params`:
+    mode "int8" quantizes per output channel; mode "w4a8" packs the slow
+    stack's ("layers") matrices whose input width divides by `groupsize`
+    as groupwise int4, and leaves every other matrix (fast stack,
+    embeddings) int8. Leaves are replaced one at a time, so the peak memory
+    is one leaf's temporaries."""
+    if mode not in ("int8", "w4a8"):
+        raise ValueError(f"unknown quantization mode {mode!r}")
 
     def visit(keys: tuple, w):
         if isinstance(w, dict):
@@ -99,6 +190,9 @@ def quantize_lm_params(params: dict) -> dict:
         target = leaf in _LM_QUANT_LEAVES or (leaf in _LM_QUANT_TOP
                                               and len(keys) == 1)
         if target and w.ndim >= 2:
+            if (mode == "w4a8" and keys[0] == "layers"
+                    and w.shape[-1] % groupsize == 0):
+                return _int4_by_layer(w, groupsize)
             return quantize_weight(w)
         if w.is_floating_point():
             return w.to(torch.bfloat16)

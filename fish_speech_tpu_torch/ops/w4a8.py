@@ -1,0 +1,126 @@
+"""W4A8 products: int8 activations x nibble-packed int4 groupwise weights.
+
+Counterpart of `fish_speech_tpu/ops/w4a8.py`. Weight layout (ops/quant.py
+`quantize_weight_int4_packed`): q4 (N, K/2) int8, split-half packed (byte j
+holds k = j in its low nibble and k = j + K/2 in its high nibble); gs (N, G)
+f32 scales per (output channel, group of K/G inputs).
+
+Two kernels compute x8 (M, K) @ unpack(q4).T -> f32 (M, N), before the
+activation scale:
+  w4a8_matmul     each group's exact int32 dot, rescaled by gs[n, g] and
+                  summed in f32 in group order g = 0..G-1;
+  w4a8_matmul_pc  the int4 values requantized to int8 per channel inside
+                  the kernel, w8 = (q * r16[n, g] + 128) >> 8 with
+                  r16 = round(256 * (gs / cs) * 127 / 8), cs = max_g gs, then
+                  one int32 dot over K, times s8 = cs * 8 / 127.
+`matmul_t_w4a8` quantizes the activations per row outside the kernel and
+applies their scale after it; W4A8_KERNEL=pc selects the second kernel, as
+in the JAX package.
+
+Each wrapper launches its CUDA kernel (csrc/w4a8.cu) for CUDA tensors, at
+any M, and runs its plain PyTorch version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from . import _cuda
+from .quant import int8_matmul_t, int8_rows, unpack_int4
+
+KERNEL = _cuda.Kernel("w4a8_matmul")
+KERNEL_PC = _cuda.Kernel("w4a8_matmul_pc")
+
+
+def _group_size(x8: torch.Tensor, q4: torch.Tensor, gs: torch.Tensor) -> int:
+    m, k = x8.shape
+    n, kh = q4.shape
+    g = gs.shape[-1]
+    if kh * 2 != k or k % g or tuple(gs.shape) != (n, g):
+        raise ValueError(f"W4A8 shapes do not match: x8 {tuple(x8.shape)}, "
+                         f"q4 {tuple(q4.shape)}, gs {tuple(gs.shape)}")
+    return k // g
+
+
+def pc_weights(q4: torch.Tensor, gs: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 weights w8 (N, K) that w4a8_matmul_pc reconstructs, and
+    their per-channel scales s8 (N,), in the f32 steps of the JAX kernel's
+    wrapper."""
+    n, g = gs.shape
+    cs = gs.amax(dim=-1).clamp_min(1e-12)
+    r16 = torch.round(256.0 * (gs / cs[:, None]) * (127.0 / 8.0))
+    unp = unpack_int4(q4).to(torch.int32).reshape(n, g, -1)
+    w8 = (unp * r16.to(torch.int32)[:, :, None] + 128) >> 8
+    return w8.to(torch.int8).reshape(n, -1), cs * (8.0 / 127.0)
+
+
+def w4a8_matmul_plain(x8: torch.Tensor, q4: torch.Tensor,
+                      gs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the grouped product, same group order."""
+    gsz = _group_size(x8, q4, gs)
+    unp = unpack_int4(q4)
+    acc = torch.zeros((x8.shape[0], q4.shape[0]), dtype=torch.float32,
+                      device=x8.device)
+    for g in range(gs.shape[-1]):
+        sl = slice(g * gsz, (g + 1) * gsz)
+        dot = int8_matmul_t(x8[:, sl].contiguous(), unp[:, sl].contiguous())
+        acc = acc + dot.float() * gs[:, g]
+    return acc
+
+
+def w4a8_matmul_pc_plain(x8: torch.Tensor, q4: torch.Tensor,
+                         gs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the per-channel-requantized product."""
+    _group_size(x8, q4, gs)
+    w8, s8 = pc_weights(q4, gs)
+    return int8_matmul_t(x8, w8).float() * s8
+
+
+def _launch(kernel: _cuda.Kernel, x8, q4, gs) -> torch.Tensor:
+    gsz = _group_size(x8, q4, gs)
+    m, k = x8.shape
+    n, g = gs.shape
+    if gsz % 64 or gsz > 512 or gsz & (gsz - 1) or g % 2 or g > 160:
+        raise ValueError(f"W4A8 kernels take a power-of-two group size from "
+                         f"64 to 512 that divides K/2, and at most 160 "
+                         f"groups (got {gsz}, {g})")
+    dev = x8.device
+    _cuda.check(x8, "x8", torch.int8, (m, k), dev)
+    _cuda.check(q4, "q4", torch.int8, (n, k // 2), dev)
+    _cuda.check(gs, "gs", torch.float32, (n, g), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    kernel(x8.data_ptr(), q4.data_ptr(), gs.data_ptr(), out.data_ptr(), m, n,
+           k, g)
+    return out
+
+
+def w4a8_matmul(x8: torch.Tensor, q4: torch.Tensor,
+                gs: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 x unpack(q4 (N, K/2)).T, groupwise rescaled -> (M, N)
+    f32 (before the activation scale)."""
+    if not x8.is_cuda:
+        return w4a8_matmul_plain(x8, q4, gs)
+    return _launch(KERNEL, x8, q4, gs)
+
+
+def w4a8_matmul_pc(x8: torch.Tensor, q4: torch.Tensor,
+                   gs: torch.Tensor) -> torch.Tensor:
+    """The per-channel-requantized W4A8 product -> (M, N) f32 (before the
+    activation scale; the per-channel weight scale s8 included)."""
+    if not x8.is_cuda:
+        return w4a8_matmul_pc_plain(x8, q4, gs)
+    return _launch(KERNEL_PC, x8, q4, gs)
+
+
+def matmul_t_w4a8(x: torch.Tensor, w: dict) -> torch.Tensor:
+    """x @ W.T for a packed int4 weight {"q4", "gs"}: per-row int8
+    activations, the W4A8 product, then the activation scale."""
+    lead = x.shape[:-1]
+    x8, xs = int8_rows(x.reshape(-1, x.shape[-1]))
+    fn = (w4a8_matmul_pc if os.environ.get("W4A8_KERNEL") == "pc"
+          else w4a8_matmul)
+    y = fn(x8, w["q4"], w["gs"]) * xs
+    return y.to(x.dtype).reshape(*lead, -1)

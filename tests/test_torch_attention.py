@@ -1,5 +1,6 @@
-"""Port's stream decode attention (plain version) vs the JAX Pallas kernel
-(interpret mode on the CPU), position-major int8 layout."""
+"""Port's stream decode attention and its KV-write fold (plain versions) vs
+the JAX Pallas kernels (interpret mode on the CPU), position-major int8
+layout."""
 
 import numpy as np
 import pytest
@@ -7,10 +8,17 @@ import torch
 
 import jax.numpy as jnp
 
-from fish_speech_tpu.ops.attention import pallas_decode_attention_stream
+from fish_speech_tpu.ops.attention import (
+    pallas_decode_attention_stream,
+    pallas_decode_attention_stream_fold,
+)
+from fish_speech_tpu_torch.models.dual_ar import KVCache, _write_cache
 from fish_speech_tpu_torch.ops.attention import (
+    FOLD_KERNEL,
     KERNEL,
     decode_attention_stream,
+    decode_attention_stream_fold,
+    decode_attention_stream_fold_plain,
     decode_attention_stream_plain,
 )
 
@@ -63,3 +71,88 @@ def test_wrapper_takes_plain_path_on_cpu():
     assert torch.equal(a, b)
     assert KERNEL.launches == before   # a CPU call is not a kernel launch
 
+
+
+# --- the KV-write fold ------------------------------------------------------
+
+
+def _fold_inputs(seed=23):
+    """Shapes of tests/test_pallas_attention.py::test_stream_fold_matches_
+    two_step: a cache filled below `pos`, the new rows written at `pos`."""
+    rng = np.random.default_rng(seed)
+    L, S, B, HKV, G, D = 2, 64, 8, 2, 2, 128
+    pos, li = 33, 1
+    kf = rng.standard_normal((L, S, B, HKV, D)).astype(np.float32)
+    vf = rng.standard_normal((L, S, B, HKV, D)).astype(np.float32)
+    ksc = np.maximum(np.abs(kf).max(-1) / np.float32(127), np.float32(1e-8))
+    vsc = np.maximum(np.abs(vf).max(-1) / np.float32(127), np.float32(1e-8))
+    filled = (np.arange(S) < pos)[None, :, None, None, None]
+    k8 = np.where(filled, np.round(kf / ksc[..., None]), 0).astype(np.int8)
+    v8 = np.where(filled, np.round(vf / vsc[..., None]), 0).astype(np.int8)
+    ks = ksc.transpose(0, 2, 1, 3).reshape(L, B, S * HKV)
+    vs = vsc.transpose(0, 2, 1, 3).reshape(L, B, S * HKV)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    q = bf(rng.standard_normal((B, HKV, G, D)))
+    nk = bf(rng.standard_normal((B, HKV, D)))
+    nv = bf(rng.standard_normal((B, HKV, D)))
+    lengths = np.full((B,), pos + 1, np.int32)
+    starts = np.asarray([0] * (B // 2) + [5] * (B // 2), np.int32)
+    return (q, k8, v8, ks, vs, lengths, starts, nk, nv), pos, li
+
+
+def _torch_fold_args(arrays):
+    q, k8, v8, ks, vs, lengths, starts, nk, nv = (torch.from_numpy(a.copy())
+                                                  for a in arrays)
+    b16 = torch.bfloat16
+    return q.to(b16), k8, v8, ks, vs, lengths, starts, nk.to(b16), nv.to(b16)
+
+
+def test_fold_plain_matches_pallas_fold():
+    arrays, pos, li = _fold_inputs()
+    q, k8, v8, ks, vs, lengths, starts, nk, nv = arrays
+    j = lambda a, dt=None: jnp.asarray(a, dt)
+    ob, kb, vb, nks, nvs = pallas_decode_attention_stream_fold(
+        j(q, jnp.bfloat16), j(k8), j(v8), j(ks), j(vs), li, j(lengths),
+        j(starts), j(nk, jnp.bfloat16), j(nv, jnp.bfloat16), pos, rows=4,
+        chunk=32, int8_scores=True)
+    tq, tk, tv, tks, tvs, tl, ts, tnk, tnv = _torch_fold_args(arrays)
+    got = decode_attention_stream_fold_plain(tq, tk, tv, tks, tvs, li, tl,
+                                             ts, tnk, tnv, pos)
+    # the whole caches, new rows included, are bit-equal
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(kb))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(vb))
+    hkv = nk.shape[1]
+    sl = slice(pos * hkv, (pos + 1) * hkv)
+    np.testing.assert_allclose(tks[li, :, sl].numpy(), np.asarray(nks),
+                               rtol=1e-6)
+    np.testing.assert_allclose(tvs[li, :, sl].numpy(), np.asarray(nvs),
+                               rtol=1e-6)
+    # the stream test's tolerance: 2 bf16 ulps at outputs of magnitude ~1
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ob, np.float32), atol=2 ** -7,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("int8_scores", [False, True])
+def test_fold_plain_equals_write_then_stream(int8_scores):
+    arrays, pos, li = _fold_inputs(29)
+    tq, tk, tv, tks, tvs, tl, ts, tnk, tnv = _torch_fold_args(arrays)
+    ref_cache = KVCache(tk.clone(), tv.clone(), tks.clone(), tvs.clone(),
+                        pos_major=True)
+    _write_cache(ref_cache, li, pos, tnk[:, None], tnv[:, None])
+    ref = decode_attention_stream_plain(tq, ref_cache.k, ref_cache.v,
+                                        ref_cache.ks, ref_cache.vs, li, tl,
+                                        ts, int8_scores)
+    got = decode_attention_stream_fold(tq, tk, tv, tks, tvs, li, tl, ts, tnk,
+                                       tnv, pos, int8_scores)
+    for a, b in ((got, ref), (tk, ref_cache.k), (tv, ref_cache.v),
+                 (tks, ref_cache.ks), (tvs, ref_cache.vs)):
+        assert torch.equal(a, b)
+
+
+def test_fold_wrapper_takes_plain_path_on_cpu():
+    arrays, pos, li = _fold_inputs(31)
+    args = _torch_fold_args(arrays)
+    before = FOLD_KERNEL.launches
+    decode_attention_stream_fold(*args[:5], li, *args[5:], pos)
+    assert FOLD_KERNEL.launches == before

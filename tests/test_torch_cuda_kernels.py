@@ -11,10 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from fish_speech_tpu_torch.models.dual_ar import precompute_freqs_cis
+from fish_speech_tpu_torch.models.dual_ar import (
+    KVCache,
+    _write_cache,
+    precompute_freqs_cis,
+)
 from fish_speech_tpu_torch.ops import voc_fused as tv
+from fish_speech_tpu_torch.ops import w4a8 as tw
 from fish_speech_tpu_torch.ops.attention import (
     decode_attention_stream,
+    decode_attention_stream_fold,
     decode_attention_stream_plain,
 )
 from fish_speech_tpu_torch.ops.fast_fused import (
@@ -23,7 +29,10 @@ from fish_speech_tpu_torch.ops.fast_fused import (
     fused_fast_sweep_plain,
     pack_fast_stack,
 )
-from fish_speech_tpu_torch.ops.quant import quantize_weight
+from fish_speech_tpu_torch.ops.quant import (
+    quantize_weight,
+    quantize_weight_int4_packed,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +74,65 @@ def test_decode_attention_stream(dev, int8_scores):
     # the kernel's running maxima and at the plain version's exact maximum:
     # a few bf16 ulps (2^-7 each)
     assert (got.float() - ref.float()).abs().max().item() < 1.5e-2
+
+
+@pytest.mark.parametrize("b", [1, 40])
+def test_decode_attention_stream_fold(dev, b):
+    """The fold equals writing the rows with _write_cache and then launching
+    decode_attention_stream: output, int8 rows and scales bit for bit."""
+    g = _gen(dev, 9)
+    L, hkv, grp, d, s, layer, wpos = 2, 8, 4, 128, 384, 1, 300
+    k8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    nk = torch.randn((b, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    nv = torch.randn((b, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.full((b,), wpos + 1, dtype=torch.int32, device=dev)
+    starts = torch.randint(0, 290, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    starts[0] = 0
+    two = KVCache(k8.clone(), v8.clone(), ks.clone(), vs.clone(),
+                  pos_major=True)
+    _write_cache(two, layer, wpos, nk[:, None], nv[:, None])
+    ref = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, layer,
+                                  lengths, starts)
+    got = decode_attention_stream_fold(q, k8, v8, ks, vs, layer, lengths,
+                                       starts, nk, nv, wpos)
+    torch.cuda.synchronize()
+    for a, r in ((got, ref), (k8, two.k), (v8, two.v), (ks, two.ks),
+                 (vs, two.vs)):
+        assert torch.equal(a, r)
+
+
+# (N, K) of the S2-Pro slow stack's products: wqkv, wo, w1 and w3, w2
+S2_PRO_PRODUCTS = {"wqkv": (6144, 2560), "wo": (2560, 4096),
+                   "w1": (9728, 2560), "w2": (2560, 9728)}
+
+
+# M = 1 and 3 take the kernels' one-warp-per-column product, 40 and 256
+# (a prefill) their tiled one
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+@pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
+@pytest.mark.parametrize("m", [1, 3, 40, 256])
+def test_w4a8(dev, m, product, kernel):
+    n, k = S2_PRO_PRODUCTS[product]
+    g = _gen(dev, 11)
+    qw = quantize_weight_int4_packed(
+        torch.randn((n, k), generator=g, device=dev) * 0.02, 128)
+    x8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    fn, plain = ((tw.w4a8_matmul, tw.w4a8_matmul_plain) if kernel == "grouped"
+                 else (tw.w4a8_matmul_pc, tw.w4a8_matmul_pc_plain))
+    got = fn(x8, qw["q4"], qw["gs"])
+    ref = plain(x8, qw["q4"], qw["gs"])
+    torch.cuda.synchronize()
+    # exact int32 dots, the same f32 steps in the same order (-fmad=false)
+    assert torch.equal(got, ref)
 
 
 # batch 3 takes the kernel's one-warp-per-column product, 40 its tiled one

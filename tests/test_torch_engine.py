@@ -48,6 +48,61 @@ def test_serving_engine_configuration(engine):
     assert "fast_layers" not in engine.params
 
 
+@pytest.fixture(scope="module")
+def engine_w4a8():
+    """The second serving path: packed int4 slow stack (groups of 32 at
+    this width) with W4A8 products, and the KV-write fold."""
+    return build_engine(device="cpu", serving=True, seed=3,
+                        lm_cfg=tiny_lm_config(), codec_cfg=tiny_codec_config(),
+                        cache_len=256, quant="w4a8", groupsize=32,
+                        kv_fold=True)
+
+
+def test_w4a8_engine_configuration(engine_w4a8):
+    cfg, params = engine_w4a8.cfg, engine_w4a8.params
+    assert cfg.w8a8_matmuls and cfg.kv_fold_write and cfg.slow_attn.kv_fold
+    assert cfg.kv_cache_layout == "pos" and cfg.use_pallas_attention
+    for sub, leaf in (("attention", "wqkv"), ("attention", "wo"),
+                      ("feed_forward", "w1"), ("feed_forward", "w2"),
+                      ("feed_forward", "w3")):
+        assert set(params["layers"][sub][leaf]) == {"q4", "gs"}, leaf
+    assert set(params["embeddings"]) == {"q", "s"}
+    assert "fast_packed" in params
+    with pytest.raises(ValueError):
+        build_engine(device="cpu", serving=False, quant="w4a8")
+
+
+def test_w4a8_fold_tts_text_to_wav(engine_w4a8, monkeypatch):
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops import w4a8
+
+    calls = {"fold": 0, "w4a8": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(dual_ar, "decode_attention_stream_fold",
+                        counted("fold", dual_ar.decode_attention_stream_fold))
+    monkeypatch.setattr(w4a8, "w4a8_matmul",
+                        counted("w4a8", w4a8.w4a8_matmul))
+    req = GenerateLongRequest(text="Hello there.", seed=5, max_new_tokens=8)
+    wav, codes, _ = engine_w4a8.tts_with_codes(req)
+    n = codes.shape[1]
+    cfg = engine_w4a8.cfg
+    assert 1 <= n <= 8
+    assert codes.min() >= 0 and codes.max() < cfg.codebook_size
+    assert wav.shape == (n * engine_w4a8.codec_cfg.frame_length,)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    # every decode step went through the fold (one a layer), and every
+    # slow-stack product through the W4A8 product (5 a layer, prefill too)
+    assert calls["fold"] >= (n - 1) * cfg.n_layer
+    assert calls["fold"] % cfg.n_layer == 0
+    assert calls["w4a8"] == 5 * (cfg.n_layer + calls["fold"])
+
+
 def test_tts_text_to_wav(engine):
     req = GenerateLongRequest(text="<|speaker:0|>Hello there.", seed=7,
                               max_new_tokens=12)

@@ -1,7 +1,8 @@
 """Port's Dual-AR LM vs the JAX package: weight carry, the unquantized path
-against the reference goldens, the serving configuration (int8 W8A8,
-position-major int8 KV cache, stream attention, fused fast head) on a tiny
-model, and sampling fed the same uniforms."""
+against the reference goldens, the serving configurations (int8 W8A8, or
+packed-int4 W4A8 with the KV-write fold; position-major int8 KV cache,
+stream attention, fused fast head) on a tiny model, and sampling fed the
+same uniforms."""
 
 import dataclasses
 from pathlib import Path
@@ -26,7 +27,7 @@ from fish_speech_tpu.models.init import (
 )
 from fish_speech_tpu.ops import sampling as jsamp
 from fish_speech_tpu.ops.fast_fused import enable_fused_fast_head
-from fish_speech_tpu.ops.quant import quantize_lm_params
+from fish_speech_tpu.ops.quant import pack_int4_params, quantize_lm_params
 from fish_speech_tpu_torch.models import decode as tdec
 from fish_speech_tpu_torch.models import dual_ar as tdual
 from fish_speech_tpu_torch.models.config import (
@@ -70,16 +71,25 @@ def test_config_copy_matches():
         tiny_dual_ar_config())
 
 
-@pytest.mark.parametrize("form", ["float", "int8", "fast_packed"])
+@pytest.mark.parametrize("form", ["float", "int8", "fast_packed", "w4a8",
+                                  "int4"])
 def test_weight_carry(form):
+    """"w4a8": the W4A8 serving tree (packed int4 slow stack, packed fast
+    stack), carried as it is; "int4": the native-int4 checkpoint form,
+    packed on the way in."""
     cfg = serving_cfg_jax()
     params = init_dual_ar_params(jax.random.key(0), cfg, dtype=jnp.bfloat16)
-    if form != "float":
+    if form in ("w4a8", "int4"):
+        params = quantize_lm_params(params, mode=form, groupsize=32)
+    elif form != "float":
         params = quantize_lm_params(params)
-    if form == "fast_packed":
+    if form in ("fast_packed", "w4a8"):
         params = enable_fused_fast_head(params)
     tree = _np(params)
     port = lm_params_from_jax(tree, device="cpu")
+    if form == "int4":
+        tree = _np(pack_int4_params(params))
+        assert "q4" in port["layers"]["attention"]["wqkv"]
     got = dict(_leaves(port))
     for path, a in _leaves(tree):
         t = got[path]
@@ -144,11 +154,11 @@ def _to_port_cfg(cfg):
     return T(**dataclasses.asdict(cfg))
 
 
-@pytest.fixture(scope="module")
-def serving():
-    cfg = serving_cfg_jax()
+def _serving_setup(quant: str = "int8", **cfg_kw):
+    cfg = serving_cfg_jax(**cfg_kw)
     params = enable_fused_fast_head(quantize_lm_params(
-        init_dual_ar_params(jax.random.key(3), cfg, dtype=jnp.bfloat16)))
+        init_dual_ar_params(jax.random.key(3), cfg, dtype=jnp.bfloat16),
+        mode=quant, groupsize=32))
     port = lm_params_from_jax(_np(params), device="cpu")
     rng = np.random.default_rng(4)
     t = 12
@@ -161,7 +171,23 @@ def serving():
     return cfg, params, port, prompt, starts
 
 
-def test_serving_decode_step_matches_jax(serving):
+@pytest.fixture(scope="module")
+def serving():
+    return _serving_setup()
+
+
+@pytest.fixture(scope="module")
+def serving_w4a8_fold():
+    """Packed int4 slow stack in groups of 32 with W4A8 products, and the
+    KV-write fold on the decode steps."""
+    return _serving_setup("w4a8", kv_fold_write=True)
+
+
+def _prefill_and_step(serving):
+    """The prefill column and one decode step, JAX and port, from the same
+    weights and prompt: {name: (JAX, port)} for the prefill's column
+    ("col0"), the int8 k cache after the prefill ("k") and after the step
+    ("k_step", "ks_step" its scales), and the step's logits."""
     cfg, params, port, prompt, starts = serving
     cfg_t = _to_port_cfg(cfg)
     b, _, t = prompt.shape
@@ -202,28 +228,65 @@ def test_serving_decode_step_matches_jax(serving):
         tdec.SamplingConfig.create(), None, top_k=8, greedy=True,
         rope_positions=torch.from_numpy(rope), key_valid_from=st,
         sample_support=support)
-    np.testing.assert_array_equal(col0_t.numpy(), np.asarray(col0))
-    # the prefill wrote the same int8 cache: layer 0 bit-equal; layer 1
-    # inherits bf16 roundings of layer 0's einsums taken in another f32
-    # summation order (measured: at most 3 int8 steps, mean ~0.1 step)
     k_j = np.asarray(cache.k, np.int32)
     k_t = cache_t.k.int().numpy()
-    np.testing.assert_array_equal(k_t[0], k_j[0])
-    d = np.abs(k_j - k_t)
-    assert d.max() <= 4 and d.mean() < 0.3, (d.max(), d.mean())
+    # the port's step runs on its own cache (the step writes it in place)
     slow_t = tdual.forward_generate(
         port, cfg_t, col0_t[:, :, None], cache_t, t, table_t,
         rope_positions=(t - st)[:, None], key_valid_from=st,
         logit_support=support)
-    ref = np.asarray(slow.logits, np.float32)
-    got = slow_t.logits.float().numpy()
+    return {"col0": (np.asarray(col0), col0_t.numpy()), "k": (k_j, k_t),
+            "k_step": (np.asarray(slow.cache.k, np.int32),
+                       cache_t.k.int().numpy()),
+            "ks_step": (np.asarray(slow.cache.ks), cache_t.ks.numpy()),
+            "logits": (np.asarray(slow.logits, np.float32),
+                       slow_t.logits.float().numpy())}
+
+
+def test_serving_decode_step_matches_jax(serving):
+    r = _prefill_and_step(serving)
+    col0, col0_t = r["col0"]
+    k_j, k_t = r["k"]
+    ref, got = r["logits"]
+    np.testing.assert_array_equal(col0_t, col0)
+    # the prefill wrote the same int8 cache: layer 0 bit-equal; layer 1
+    # inherits bf16 roundings of layer 0's einsums taken in another f32
+    # summation order (measured: at most 3 int8 steps, mean ~0.1 step)
+    np.testing.assert_array_equal(k_t[0], k_j[0])
+    d = np.abs(k_j - k_t)
+    assert d.max() <= 4 and d.mean() < 0.3, (d.max(), d.mean())
     # bf16 activations through two int8-quantized layers: logits of
     # magnitude ~0.1-0.5 agree to bf16 rounding of the hidden state
     np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
     assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
 
 
-def test_serving_greedy_generate_matches_jax(serving):
+def test_w4a8_fold_decode_step_matches_jax(serving_w4a8_fold):
+    """One W4A8 decode step with the fold (the port's plain fold, JAX's
+    Pallas fold in interpret mode) after the prefill."""
+    r = _prefill_and_step(serving_w4a8_fold)
+    col0, col0_t = r["col0"]
+    ref, got = r["logits"]
+    np.testing.assert_array_equal(col0_t, col0)
+    # the step's fold wrote its new k rows (slot t) in both caches: layer 0
+    # bit-equal up to the bf16 roundings of the products feeding it, whose
+    # f32 group sums run in another order; at most a few int8 steps after
+    t = serving_w4a8_fold[3].shape[-1]
+    k_j, k_t = r["k_step"]
+    ks_j, ks_t = r["ks_step"]
+    d = np.abs(k_j[:, t] - k_t[:, t])
+    assert d.max() <= 4 and d.mean() < 0.3, (d.max(), d.mean())
+    assert np.count_nonzero(k_t[:, t]) > 0 and np.count_nonzero(
+        k_t[:, t + 1:]) == 0
+    hkv = k_j.shape[3]
+    np.testing.assert_allclose(ks_t[:, :, t * hkv:(t + 1) * hkv],
+                               ks_j[:, :, t * hkv:(t + 1) * hkv], rtol=2e-2)
+    # as the int8 test: bf16 activations, f32 group sums in another order
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+    assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
+
+
+def _greedy_generate_check(serving):
     cfg, params, port, prompt, starts = serving
     support = (cfg.semantic_begin_id, cfg.semantic_end_id, IM_END_ID)
     codes_j, len_j = jdec.generate(
@@ -239,6 +302,14 @@ def test_serving_greedy_generate_matches_jax(serving):
         device="cpu")
     np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
     np.testing.assert_array_equal(len_t.numpy(), np.asarray(len_j))
+
+
+def test_serving_greedy_generate_matches_jax(serving):
+    _greedy_generate_check(serving)
+
+
+def test_w4a8_fold_greedy_generate_matches_jax(serving_w4a8_fold):
+    _greedy_generate_check(serving_w4a8_fold)
 
 
 # --- sampling with the same uniforms --------------------------------------

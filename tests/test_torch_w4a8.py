@@ -1,0 +1,157 @@
+"""Port's packed-int4 quantization and W4A8 products (plain versions) vs the
+JAX package: ops/quant.py int4 packing and leaf selection, and the Pallas
+W4A8 kernels in interpret mode on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from fish_speech_tpu.models.init import init_dual_ar_params
+from fish_speech_tpu.ops import quant as jq
+from fish_speech_tpu.ops.w4a8 import w4a8_matmul as jw4a8
+from fish_speech_tpu.ops.w4a8 import w4a8_matmul_pc as jw4a8_pc
+from fish_speech_tpu_torch.models.init import lm_params_from_jax
+from fish_speech_tpu_torch.ops import quant as tq
+from fish_speech_tpu_torch.ops import w4a8 as tw
+
+from test_torch_lm import serving_cfg_jax
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict) and not tq.is_quantized(tree):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("shape,gsz", [((48, 256), 32), ((2, 64, 512), 128)])
+def test_int4_packing_matches_jax(shape, gsz):
+    w = np.random.default_rng(1).standard_normal(shape).astype(np.float32)
+    ref = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
+    if len(shape) == 3:      # the port's layer-at-a-time path
+        got = tq._int4_by_layer(torch.from_numpy(w), gsz)
+    else:
+        got = tq.quantize_weight_int4_packed(torch.from_numpy(w), gsz)
+    # same f32 steps, same round-half-even: bit-equal
+    np.testing.assert_array_equal(got["q4"].numpy(), np.asarray(ref["q4"]))
+    np.testing.assert_array_equal(got["gs"].numpy(), np.asarray(ref["gs"]))
+    np.testing.assert_array_equal(tq.unpack_int4(got["q4"]).numpy(),
+                                  np.asarray(jq.unpack_int4(ref["q4"])))
+
+
+def test_pack_int4_params_matches_jax():
+    w = np.random.default_rng(2).standard_normal((2, 32, 128)).astype(
+        np.float32)
+    native = jq.quantize_weight_int4(jnp.asarray(w), 32)
+    ref = jq.pack_int4_params({"w": native})["w"]
+    got = tq.pack_int4_params({"w": {
+        "q": torch.from_numpy(np.asarray(native["q"]).astype(np.int8)),
+        "gs": torch.from_numpy(np.array(native["gs"]))}})["w"]
+    np.testing.assert_array_equal(got["q4"].numpy(), np.asarray(ref["q4"]))
+
+
+def test_quantize_lm_params_w4a8_matches_jax():
+    cfg = serving_cfg_jax()
+    params = init_dual_ar_params(jax.random.key(5), cfg, dtype=jnp.bfloat16)
+    ref = jq.quantize_lm_params(params, mode="w4a8", groupsize=32)
+    port = lm_params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    got = dict(_leaves(tq.quantize_lm_params(port, mode="w4a8",
+                                             groupsize=32)))
+    want = dict(_leaves(jax.tree.map(np.asarray, ref)))
+    assert got.keys() == want.keys()
+    n_int4 = 0
+    for path, a in want.items():
+        t = got[path]
+        if not isinstance(a, dict):
+            assert str(t.dtype).endswith(str(a.dtype)), path
+            np.testing.assert_array_equal(t.float().numpy(),
+                                          a.astype(np.float32), str(path))
+            continue
+        assert t.keys() == a.keys(), path
+        for k in a:
+            assert tuple(t[k].shape) == a[k].shape, (path, k)
+            assert str(t[k].dtype).endswith(str(a[k].dtype)), (path, k)
+        n_int4 += "q4" in a
+        # dequantized values within one quantization step (the JAX suite's
+        # bound between two quantizations of one tree, tests/test_quant.py)
+        step = float(np.asarray(a.get("s", a.get("gs"))).max())
+        da = np.asarray(jq.as_weight(jax.tree.map(jnp.asarray, a),
+                                     jnp.float32))
+        np.testing.assert_allclose(tq.as_weight(t, torch.float32).numpy(),
+                                   da, atol=1.01 * step, rtol=0)
+    # int4 on exactly the slow stack's five matrices
+    assert n_int4 == 5
+    assert all("q4" in want[("layers", *k)] for k in (
+        ("attention", "wqkv"), ("attention", "wo"), ("feed_forward", "w1"),
+        ("feed_forward", "w2"), ("feed_forward", "w3")))
+
+
+def _w4a8_inputs(m=32, n=256, k=512, gsz=64, seed=3):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    x8 = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    return w, x8, gsz
+
+
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+def test_plain_matches_pallas(kernel):
+    w, x8, gsz = _w4a8_inputs()
+    qj = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
+    jfn, tfn = ((jw4a8, tw.w4a8_matmul_plain) if kernel == "grouped"
+                else (jw4a8_pc, tw.w4a8_matmul_pc_plain))
+    ref = np.asarray(jfn(jnp.asarray(x8), qj["q4"], qj["gs"], gsz=gsz,
+                         n_tile=128, interpret=True))
+    got = tfn(torch.from_numpy(x8), torch.from_numpy(np.array(qj["q4"])),
+              torch.from_numpy(np.array(qj["gs"]))).numpy()
+    # the integer dots are exact; only the f32 rounding of the group sum
+    # may differ (XLA may contract the interpreter's multiply-add): 1e-5 of
+    # the output's scale
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_matmul_t_matches_jax(m):
+    w, _, gsz = _w4a8_inputs()
+    x = np.random.default_rng(m).standard_normal((m, w.shape[1])).astype(
+        np.float32)
+    qj = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
+    qt = tq.quantize_weight_int4_packed(torch.from_numpy(w), gsz)
+    # JAX takes its XLA grouped formulation off the TPU
+    ref = np.asarray(jq.matmul_t(jnp.asarray(x), qj, w8a8=True))
+    got = tq.matmul_t(torch.from_numpy(x), qt, w8a8=True).numpy()
+    # same int8 activations and exact int32 group dots; the f32 sum over
+    # groups is taken in another order (XLA reduce vs group order)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    # and it is the product it stands for: int4 rounding of gaussian
+    # weights (step max/7 per group) leaves ~10% rms error per output
+    exact = x @ w.T
+    assert np.corrcoef(got.ravel(), exact.ravel())[0, 1] > 0.98
+
+
+def test_wrappers_take_plain_path_on_cpu(monkeypatch):
+    w, x8, gsz = _w4a8_inputs(m=5)
+    qt = tq.quantize_weight_int4_packed(torch.from_numpy(w), gsz)
+    x8 = torch.from_numpy(x8)
+    before = (tw.KERNEL.launches, tw.KERNEL_PC.launches)
+    assert torch.equal(tw.w4a8_matmul(x8, qt["q4"], qt["gs"]),
+                       tw.w4a8_matmul_plain(x8, qt["q4"], qt["gs"]))
+    assert torch.equal(tw.w4a8_matmul_pc(x8, qt["q4"], qt["gs"]),
+                       tw.w4a8_matmul_pc_plain(x8, qt["q4"], qt["gs"]))
+    # W4A8_KERNEL=pc routes matmul_t to the per-channel product
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, w.shape[1])).astype(np.float32))
+    x8r, xs = tq.int8_rows(x)
+    monkeypatch.setenv("W4A8_KERNEL", "pc")
+    assert torch.equal(tq.matmul_t(x, qt, w8a8=True),
+                       tw.w4a8_matmul_pc_plain(x8r, qt["q4"], qt["gs"]) * xs)
+    monkeypatch.delenv("W4A8_KERNEL")
+    assert torch.equal(tq.matmul_t(x, qt, w8a8=True),
+                       tw.w4a8_matmul_plain(x8r, qt["q4"], qt["gs"]) * xs)
+    # a CPU call is not a kernel launch
+    assert (tw.KERNEL.launches, tw.KERNEL_PC.launches) == before
