@@ -13,6 +13,11 @@ Phases, in order; any failure exits non-zero:
   4. the int8 serving path: build_engine(serving=True) at full S2-Pro width
      with seeded random weights drawn on the card, then three `tts`
      requests;
+  4b. the head-major routes: the same engine and weights, its configuration
+     replaced by serving_config(kv_layout="head", ...) for each of six
+     routes (blocks16, blocks16-bf16, stream16 on the int8 cache; rows on the
+     native and the int8 cache; rows with the per-layer "scan" stack on the
+     native cache), one `tts` request each;
   5. the W4A8 serving path: that engine freed, build_engine(serving=True,
      quant="w4a8", kv_fold=True) from the same seed, then three `tts`
      requests, the last with W4A8_KERNEL=pc.
@@ -39,12 +44,13 @@ import torch
 
 # bytes/s and operations/s of one H100 SXM (dense, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 SM_CYCLES_PER_S = 2.0e9   # above the H100's 1.98 GHz boost clock
 
 SEED = 0
 MAX_NEW_TOKENS = 96   # frames per request, at most (~4.5 s of audio)
 W4A8_NEW_TOKENS = 64  # frames per request of the W4A8 path, at most
+HEAD_NEW_TOKENS = 32  # frames per request of a head-major route, at most
 FRAMES = 128          # codec frames for the vocoder kernel checks
 GROUPSIZE = 128       # int4 group size of the W4A8 path
 PREFILL_M = 256       # rows of a prefill product (a 256-token prompt bucket)
@@ -177,15 +183,18 @@ def check_attention(chk: Checks, cfg, dev, gen) -> list[dict]:
             lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
             starts = torch.zeros((b,), dtype=torch.int32, device=dev)
         layer = n_layer - 1
-        got = decode_attention_stream(q, k, v, ks, vs, layer, lengths, starts)
+        got = decode_attention_stream(q, k, v, ks, vs, layer, lengths, starts,
+                                      pos_major=True)
         ref = decode_attention_stream_plain(q, k, v, ks, vs, layer, lengths,
-                                            starts)
+                                            starts, pos_major=True)
         torch.cuda.synchronize()
         it = iter(range(10 ** 9))
         ms = time_ms(lambda: decode_attention_stream(
-            q, k, v, ks, vs, next(it) % n_layer, lengths, starts), n_layer)
+            q, k, v, ks, vs, next(it) % n_layer, lengths, starts,
+            pos_major=True), n_layer)
         plain_ms = time_ms(lambda: decode_attention_stream_plain(
-            q, k, v, ks, vs, next(it) % n_layer, lengths, starts), 6, 1)
+            q, k, v, ks, vs, next(it) % n_layer, lengths, starts,
+            pos_major=True), 6, 1)
         filled = int((lengths - starts).clamp_min(0).sum())
         row_bytes = hkv * d * 2 + hkv * 4 * 2        # int8 k+v, f32 scales
         b_ms, b_by = bound(filled * row_bytes + nbytes(q, q, lengths, starts),
@@ -200,6 +209,165 @@ def check_attention(chk: Checks, cfg, dev, gen) -> list[dict]:
                               filled_positions=filled))
         del k, v, ks, vs
         torch.cuda.empty_cache()
+    return cases
+
+
+# the head-major entries: (C entry, wrapper, replaces, (cache, int8_scores)
+# cases, the headline case at batch 1)
+_ATT = "fish_speech_tpu/ops/attention.py"
+HEAD_ENTRIES = (
+    ("decode_attention_stream_head", "stream", f"{_ATT}:910",
+     (("int8", True), ("int8", False), ("bf16", False)), ("int8", True)),
+    ("decode_attention_blocks", "blocks", f"{_ATT}:614",
+     (("int8", True), ("int8", False), ("bf16", False)), ("int8", True)),
+    ("decode_attention_stacked_rows", "stacked_rows", f"{_ATT}:432",
+     (("int8", False), ("bf16", False)), ("bf16", False)),
+    ("decode_attention_stacked", "stacked", f"{_ATT}:277",
+     (("int8", False), ("bf16", False)), ("bf16", False)),
+    ("decode_attention", "dense", f"{_ATT}:50", (("bf16", False),),
+     ("bf16", False)),
+    ("decode_attention_chunked", "chunked", f"{_ATT}:150",
+     (("bf16", False),), ("bf16", False)),
+)
+F32_ENTRIES = ("stacked", "dense", "chunked")
+
+
+def head_call(entry: str, plain: bool, q, k, v, ks, vs, layer: int,
+              lengths, starts, int8_scores: bool):
+    """One head-major entry (or its plain version) on layer `layer` of the
+    stacked cache; the per-layer entries get that layer's (B, Hkv, S, D)."""
+    from fish_speech_tpu_torch.ops import attention as ta
+
+    sfx = "_plain" if plain else ""
+    stacked = (q, k, v, ks, vs, layer, lengths, starts)
+    if entry == "stream":
+        return getattr(ta, "decode_attention_stream" + sfx)(
+            *stacked, int8_scores, pos_major=False)
+    if entry == "blocks":
+        return getattr(ta, "decode_attention_blocks" + sfx)(
+            *stacked, int8_scores=int8_scores)
+    if entry in ("stacked_rows", "stacked"):
+        return getattr(ta, f"decode_attention_{entry}{sfx}")(*stacked)
+    name = "decode_attention" if entry == "dense" else \
+        "decode_attention_chunked"
+    return getattr(ta, name + sfx)(q, k[layer], v[layer], lengths, starts)
+
+
+def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
+    """#1 head-major and #6-#10 at the main path's shape (B=1, S=2048,
+    full) and the bench shape (B=256, S=384, ragged), on the int8 and the
+    bf16 cache wherever the entry takes both, blocks and stream with and
+    without int8 scores. Timing walks the 36 layers. Library yardstick for
+    a bf16 cache: one scaled_dot_product_attention over the same q, k, v
+    and a boolean mask (GQA); none computes the int8 cache's function.
+    Also times the per-layer int8 route's eager dequantization of one
+    layer (k and v, bf16 products). Returns {C entry: cases}."""
+    n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
+    g = cfg.n_head // hkv
+    cases = {name: [] for name, *_ in HEAD_ENTRIES}
+    dequant = []
+    for b, s, ragged in ((1, 2048, False), (256, 384, True)):
+        q = torch.randn((b, hkv, g, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        if ragged:
+            lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            starts = torch.randint(0, s // 8, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        else:
+            lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+            starts = torch.zeros((b,), dtype=torch.int32, device=dev)
+        pos = torch.arange(s, device=dev)
+        mask = ((pos[None] >= starts[:, None])
+                & (pos[None] < lengths[:, None]))[:, None, None, :]
+        filled = int((lengths - starts).clamp_min(0).sum())
+        shape = (n_layer, b, hkv, s, d)
+        for kind in ("int8", "bf16"):
+            if kind == "int8":
+                k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                  dtype=torch.int8)
+                v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                  dtype=torch.int8)
+                ks = torch.rand(shape[:-1], generator=gen, device=dev)
+                ks = ks * 0.02 + 1e-3
+                vs = torch.rand(shape[:-1], generator=gen, device=dev)
+                vs = vs * 0.02 + 1e-3
+                row_bytes = hkv * (2 * d + 2 * 4)   # int8 k+v, f32 scales
+                library_ms = None
+                it = iter(range(10 ** 9))
+
+                def deq():
+                    li = next(it) % n_layer
+                    return (k[li].to(torch.bfloat16)
+                            * ks[li][..., None].to(torch.bfloat16),
+                            v[li].to(torch.bfloat16)
+                            * vs[li][..., None].to(torch.bfloat16))
+                dequant.append({"b": b, "s": s, "ms": time_ms(deq, n_layer)})
+                log(f"  per-layer int8 dequant (k and v, one layer) B={b} "
+                    f"S={s}: {dequant[-1]['ms']:.4g} ms")
+            else:
+                k = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                v = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                for li in range(n_layer):
+                    k[li] = torch.randn(shape[1:], generator=gen, device=dev)
+                    v[li] = torch.randn(shape[1:], generator=gen, device=dev)
+                ks = vs = None
+                row_bytes = hkv * 2 * 2 * d               # bf16 k+v
+                qh = q.reshape(b, hkv * g, 1, d)
+                it = iter(range(10 ** 9))
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+
+                def library(li):
+                    return sdpa(qh, k[li], v[li], attn_mask=mask,
+                                enable_gqa=True)
+                try:
+                    library_ms = time_ms(
+                        lambda: library(next(it) % n_layer), n_layer)
+                except TypeError as e:   # a PyTorch without enable_gqa
+                    log(f"  scaled_dot_product_attention: {e}")
+                    library_ms = None
+            for name, entry, _, kinds, _ in HEAD_ENTRIES:
+                for ck, i8 in kinds:
+                    if ck != kind:
+                        continue
+                    args = (q, k, v, ks, vs)
+                    got = head_call(entry, False, *args, n_layer - 1,
+                                    lengths, starts, i8)
+                    ref = head_call(entry, True, *args, n_layer - 1,
+                                    lengths, starts, i8)
+                    torch.cuda.synchronize()
+                    it = iter(range(10 ** 9))
+                    ms = time_ms(lambda: head_call(
+                        entry, False, *args, next(it) % n_layer, lengths,
+                        starts, i8), n_layer)
+                    plain_ms = time_ms(lambda: head_call(
+                        entry, True, *args, next(it) % n_layer, lengths,
+                        starts, i8), 4, 1)
+                    macs = 2 * filled * hkv * g * d    # scores + values
+                    if entry in F32_ENTRIES:
+                        ops = {"f32": 2 * macs}
+                    elif i8:
+                        ops = {"int8": macs, "bf16": macs}
+                    else:
+                        ops = {"bf16": 2 * macs}
+                    b_ms, b_by = bound(filled * row_bytes
+                                       + nbytes(q, q, lengths, starts), ops)
+                    # bf16 outputs: the value weights are rounded to bf16
+                    # at the kernel's running maxima and at the plain
+                    # version's exact one: 2 bf16 ulps of the largest
+                    # output (ulp = 2^-7 of its binade)
+                    top = ref.float().abs().max().item()
+                    tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+                    label = (f"{kind}{' int8 scores' if i8 else ''} B={b} "
+                             f"S={s}")
+                    cases[name].append(chk.case(
+                        name, label, max_err(got, ref), tol, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=library_ms, filled_positions=filled,
+                        cache=kind, int8_scores=i8, b=b))
+            del k, v, ks, vs
+            torch.cuda.empty_cache()
+    cases["decode_attention"][0]["int8_scan_dequant"] = dequant
     return cases
 
 
@@ -297,7 +465,8 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
         args = (n_layer - 1, lengths, starts)
         two = clone()
         _write_cache(two, args[0], wpos, nk[:, None], nv[:, None])
-        ref2 = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, *args)
+        ref2 = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, *args,
+                                       pos_major=True)
         pc = clone()
         ref = decode_attention_stream_fold_plain(
             q, pc.k, pc.v, pc.ks, pc.vs, *args, nk, nv, wpos)
@@ -525,6 +694,17 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
 # ---------------------------------------------------------------------------
 
 
+# (route, attention mode, kv cache, stack mode, the C entry it launches)
+HEAD_ROUTES = (
+    ("a", "blocks16", "int8", "carry", "decode_attention_blocks"),
+    ("b", "blocks16-bf16", "int8", "carry", "decode_attention_blocks"),
+    ("c", "stream16", "int8", "carry", "decode_attention_stream_head"),
+    ("d", "rows", "native", "carry", "decode_attention_stacked_rows"),
+    ("e", "rows", "int8", "carry", "decode_attention_stacked_rows"),
+    ("f", "rows", "native", "scan", "decode_attention"),
+)
+
+
 def run_path(engine, path: str, requests: list, kernels: dict,
              chk: Checks) -> dict:
     """Drive `requests` ((text, max_new_tokens, W4A8_KERNEL value or None,
@@ -621,7 +801,8 @@ def main() -> int:
                          "list its N costliest device kernels")
     args = ap.parse_args()
 
-    from fish_speech_tpu_torch.engine.generate import build_engine
+    from fish_speech_tpu_torch.engine.generate import (build_engine,
+                                                       serving_config)
     from fish_speech_tpu_torch.ops import _cuda
     from fish_speech_tpu_torch.ops import attention, fast_fused, voc_fused
     from fish_speech_tpu_torch.ops import w4a8
@@ -656,6 +837,24 @@ def main() -> int:
     chk = Checks()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     attn = check_attention(chk, engine.cfg, dev, gen)
+    kernels = {"decode_attention_stream": attention.KERNEL,
+               "decode_attention_stream_fold": attention.FOLD_KERNEL,
+               "decode_attention_stream_head": attention.STREAM_HEAD_KERNEL,
+               "decode_attention_blocks": attention.BLOCKS_KERNEL,
+               "decode_attention_stacked_rows": attention.ROWS_KERNEL,
+               "decode_attention": attention.DENSE_KERNEL,
+               "decode_attention_stacked": attention.STACKED_KERNEL,
+               "decode_attention_chunked": attention.CHUNKED_KERNEL,
+               "w4a8_matmul": w4a8.KERNEL,
+               "w4a8_matmul_pc": w4a8.KERNEL_PC,
+               "fast_sweep": fast_fused.KERNEL,
+               "voc_block": voc_fused.BLOCK,
+               "voc_res_stack": voc_fused.RES_STACK}
+    # #9 and #10 are on no serving path: their launches are these checks'
+    for k in kernels.values():
+        k.launches = 0
+    head = check_attention_head(chk, engine.cfg, dev, gen)
+    by_path = {"phase3_checks": {n: k.launches for n, k in kernels.items()}}
     fold = check_fold(chk, engine.cfg, dev, gen)
     w4a8_grouped, w4a8_pc = check_w4a8(chk, engine.cfg, dev, gen)
     sweep = check_fast_sweep(chk, engine.cfg, engine.params["fast_packed"],
@@ -663,22 +862,31 @@ def main() -> int:
     res, blk = check_vocoder(chk, engine, FRAMES, dev, gen)
     torch.cuda.empty_cache()
 
-    kernels = {"decode_attention_stream": attention.KERNEL,
-               "decode_attention_stream_fold": attention.FOLD_KERNEL,
-               "w4a8_matmul": w4a8.KERNEL,
-               "w4a8_matmul_pc": w4a8.KERNEL_PC,
-               "fast_sweep": fast_fused.KERNEL,
-               "voc_block": voc_fused.BLOCK,
-               "voc_res_stack": voc_fused.RES_STACK}
     shared = ("fast_sweep", "voc_block", "voc_res_stack")
 
     # phase 4: the int8 path
     int8_route = ("decode_attention_stream", *shared)
-    by_path = {"int8": run_path(
+    by_path["int8"] = run_path(
         engine, "int8", [(t, MAX_NEW_TOKENS, None, int8_route)
-                         for t in TEXTS], kernels, chk)}
+                         for t in TEXTS], kernels, chk)
     if args.profile:
         profile_request(engine, args.profile, "int8")
+
+    # phase 4b: the head-major routes, same engine and weights, one request
+    # each; every count is set to 0 before each route
+    base_cfg = engine.cfg
+    for i, (route, mode, kv_cache, stack_mode, kernel) in enumerate(
+            HEAD_ROUTES):
+        engine.cfg = serving_config(base_cfg, kv_layout="head",
+                                    kv_cache=kv_cache, attn=mode,
+                                    stack_mode=stack_mode)
+        path = f"head_{route}"
+        by_path[path] = run_path(engine, path, [
+            (TEXTS[i % len(TEXTS)], HEAD_NEW_TOKENS, None,
+             (kernel, *shared))], kernels, chk)
+        if args.profile and route in ("a", "d"):
+            profile_request(engine, args.profile, path)
+    engine.cfg = base_cfg
 
     # phase 5: the W4A8 path with the KV-write fold, same seed
     del engine
@@ -700,11 +908,14 @@ def main() -> int:
         profile_request(engine, args.profile, "w4a8_fold")
 
     def entry(name, replaces, cases, head, path):
-        """`head`: the cases whose times are summed into the headline."""
+        """`head`: the cases whose times are summed into the headline;
+        `path`: the path (or paths) whose launches are counted."""
         lib = [c.get("library_ms") for c in head]
+        paths = [path] if isinstance(path, str) else path
         return {"name": name, "route": "cuda",
                 "source": f"fish_speech_tpu_torch/csrc/{_cuda.SIGNATURES[name][0]}.cu",
-                "replaces": replaces, "launches": by_path[path][name],
+                "replaces": replaces,
+                "launches": sum(by_path[p][name] for p in paths),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 **{k: sum(c[k] for c in head)
                    for k in ("ms", "plain_ms", "bound_ms")},
@@ -737,6 +948,17 @@ def main() -> int:
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
               res[:1], "int8"),
     ]}
+    # the head-major entries; headline: the batch-1 case of the route's
+    # cache; launches: their routes' requests (#9, #10: the checks')
+    routes_of = {}
+    for route, _, _, _, kernel in HEAD_ROUTES:
+        routes_of.setdefault(kernel, []).append(f"head_{route}")
+    for name, _, replaces, _, (hk, hi8) in HEAD_ENTRIES:
+        cs = head[name]
+        hl = [c for c in cs if c["b"] == 1 and c["cache"] == hk
+              and c["int8_scores"] == hi8]
+        report["kernels"].append(entry(
+            name, replaces, cs, hl, routes_of.get(name, "phase3_checks")))
     print(json.dumps(report), flush=True)
     if chk.failed:
         log("chip_smoke FAILED: " + ", ".join(chk.failed))

@@ -239,20 +239,50 @@ class TTSEngine:
         return self.decode_codes(codes), codes, sum(r.wall_s for r in segs)
 
 
-def serving_config(cfg: DualARConfig, kv_fold: bool = False) -> DualARConfig:
-    """The serving configuration: W8A8 (or W4A8) products, position-major
-    int8 KV cache read by the stream attention kernel; kv_fold=True lets
-    that kernel also quantize and write each decode step's k/v rows."""
-    cfg = dataclasses.replace(cfg, w8a8_matmuls=True, kv_cache_dtype="int8",
-                              kv_cache_layout="pos", kv_fold_write=kv_fold)
-    return apply_pallas_attn_mode(cfg, "stream")
+def serving_config(cfg: DualARConfig, kv_fold: bool = False, *,
+                   kv_layout: str = "pos", kv_cache: str = "int8",
+                   attn: str = "stream",
+                   stack_mode: str = "carry") -> DualARConfig:
+    """The serving configuration: W8A8 (or W4A8) products and decode
+    attention through a kernel. The options are the JAX serving CLIs'
+    flags: kv_layout "pos" (L, S, B, Hkv, D) or "head" (L, B, Hkv, S, D);
+    kv_cache "int8" or "native" (the weights' activation type, bf16);
+    attn a mode of `apply_pallas_attn_mode` ("stream[N]", "blocks[N][-bf16]",
+    "rows"); stack_mode "carry", "scan" or "unrolled" (`run_stack`). The
+    defaults are the position-major int8 cache read by the stream kernel;
+    kv_fold=True lets that kernel also quantize and write each decode
+    step's k/v rows (it needs that cache)."""
+    if kv_layout not in ("pos", "head"):
+        raise ValueError(f"kv_layout must be 'pos' or 'head', not "
+                         f"{kv_layout!r}")
+    if kv_cache not in ("int8", "native"):
+        raise ValueError(f"kv_cache must be 'int8' or 'native', not "
+                         f"{kv_cache!r}")
+    if stack_mode not in ("", "carry", "scan", "unrolled"):
+        raise ValueError(f"unknown stack_mode {stack_mode!r}")
+    if attn in ("", "0"):
+        raise ValueError("the serving configuration decodes through a "
+                         "kernel: give an attention mode")
+    if kv_layout == "pos" and kv_cache == "native":
+        raise ValueError("the position-major native (bf16) cache is not "
+                         "ported: use kv_cache='int8' or kv_layout='head'")
+    if kv_fold and (kv_layout, kv_cache) != ("pos", "int8"):
+        raise ValueError("kv_fold needs the position-major int8 cache")
+    cfg = dataclasses.replace(cfg, w8a8_matmuls=True, kv_cache_dtype=kv_cache,
+                              kv_cache_layout=kv_layout,
+                              kv_fold_write=kv_fold,
+                              decode_stack_mode=stack_mode)
+    return apply_pallas_attn_mode(cfg, attn)
 
 
 def build_engine(device=None, serving: bool = True, *, seed: int = 0,
                  lm_cfg: DualARConfig | None = None,
                  codec_cfg: DACConfig | None = None,
                  cache_len: int = 2048, quant: str = "int8",
-                 groupsize: int = 128, kv_fold: bool = False) -> TTSEngine:
+                 groupsize: int = 128, kv_fold: bool = False,
+                 kv_layout: str = "pos", kv_cache: str = "int8",
+                 attn: str = "stream",
+                 stack_mode: str = "carry") -> TTSEngine:
     """An engine with seeded random weights drawn on `device` (CUDA by
     default): S2-Pro LM and codec unless configs are given, a byte
     tokenizer whose semantic ids span the codebook. serving=True applies
@@ -260,14 +290,22 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     W8A8 products; "w4a8": the slow stack's matrices as packed int4 in
     groups of `groupsize` with W4A8 products, everything else int8), the
     position-major int8 KV cache with stream attention (kv_fold=True: the
-    fold kernel writes the decode step's rows), and the fused fast head."""
+    fold kernel writes the decode step's rows), and the fused fast head.
+    kv_layout, kv_cache, attn and stack_mode select another cache and
+    decode attention kernel (`serving_config`); a native KV cache keeps
+    the quantized weights, whose activations are bf16."""
     from ..codec.init import init_dac_params
     from ..models.init import init_dual_ar_params
     from ..ops.fast_fused import enable_fused_fast_head
     from ..ops.quant import quantize_lm_params
 
-    if not serving and (quant != "int8" or kv_fold):
-        raise ValueError("quant and kv_fold select serving configurations")
+    serving_kw = dict(kv_layout=kv_layout, kv_cache=kv_cache, attn=attn,
+                      stack_mode=stack_mode)
+    if not serving and (quant != "int8" or kv_fold or serving_kw != dict(
+            kv_layout="pos", kv_cache="int8", attn="stream",
+            stack_mode="carry")):
+        raise ValueError("quant, kv_fold, kv_layout, kv_cache, attn and "
+                         "stack_mode select serving configurations")
     device = resolve_device(device)
     cfg = lm_cfg or s2_pro_lm_config(max_seq_len=cache_len)
     tokenizer = ByteTokenizer(n_semantic=cfg.codebook_size)
@@ -275,13 +313,15 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
         raise ValueError("the LM vocabulary is smaller than the tokenizer's")
     cfg = cfg.with_semantic_range(tokenizer.semantic_begin_id,
                                   tokenizer.semantic_end_id)
+    # refuse a configuration before drawing the weights
+    served = (serving_config(cfg, kv_fold=kv_fold, **serving_kw) if serving
+              else cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16, device=device)
     if serving:
         params = enable_fused_fast_head(quantize_lm_params(
             params, mode=quant, groupsize=groupsize))
-        cfg = serving_config(cfg, kv_fold=kv_fold)
     codec_cfg = codec_cfg or s2_pro_codec_config()
     codec_params = init_dac_params(gen, codec_cfg, device=device)
-    return TTSEngine(params, cfg, tokenizer, codec_params, codec_cfg,
+    return TTSEngine(params, served, tokenizer, codec_params, codec_cfg,
                      cache_len=min(cache_len, cfg.max_seq_len), device=device)

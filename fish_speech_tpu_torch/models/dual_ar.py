@@ -1,10 +1,12 @@
 """Dual-AR transformer (slow token decoder + fast residual-codebook head).
 
 Counterpart of `fish_speech_tpu/models/dual_ar.py`, for the branches the
-serving paths take (int8 W8A8 or packed-int4 W4A8 weights, position-major
-int8 KV cache read by the stream attention kernel, optionally written by it
-too (`kv_fold_write`), fused fast-head sweeps) and the unquantized
-head-major branch the parity goldens need.
+serving paths take (int8 W8A8 or packed-int4 W4A8 weights, fused fast-head
+sweeps; the position-major int8 KV cache read by the stream attention
+kernel, optionally written by it too (`kv_fold_write`), or the head-major
+int8 or native cache read by the stream, blocks, rows or per-layer kernel)
+and the unquantized head-major branch the parity goldens need. The
+tensor-parallel branches are not ported.
 
 Parameters are the nested dicts of models/init.py, layers stacked along a
 leading depth axis. Unlike the JAX package, which threads immutable caches
@@ -25,6 +27,9 @@ import numpy as np
 import torch
 
 from ..ops.attention import (
+    decode_attention,
+    decode_attention_blocks,
+    decode_attention_stacked_rows,
     decode_attention_stream,
     decode_attention_stream_fold,
     quantize_kv_rows,
@@ -115,6 +120,14 @@ class KVCache:
     def seq_len(self) -> int:
         return self.k.shape[1] if self.pos_major else self.k.shape[3]
 
+    def layer_view(self, i: int) -> "KVCache":
+        """Layer i as a depth-1 cache of views: writes through it land in
+        this cache (the per-layer stack modes' cache, kept in place)."""
+        def one(a):
+            return None if a is None else a[i:i + 1]
+        return KVCache(one(self.k), one(self.v), one(self.ks), one(self.vs),
+                       self.pos_major)
+
 
 def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor,
                  v: torch.Tensor) -> None:
@@ -171,14 +184,45 @@ class DecodeBounds(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def _decode_kernel(ad: AttnDims, q: torch.Tensor, cache: KVCache, layer: int,
+                   stacked: bool, bounds: DecodeBounds,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """A T=1 step's attention through the kernel the configuration selects
+    (the dispatch of the JAX function, without its TP branches). q (B, Hkv,
+    G, D) -> (B, Hkv, G, D)."""
+    lengths, starts = bounds
+    if not stacked:
+        # a per-layer cache: the dense kernel reads a float layer, so an
+        # int8 one is dequantized to the activation type first (bf16
+        # products, as the JAX function does)
+        k, v = cache.k[layer], cache.v[layer]
+        if cache.ks is not None:
+            k = k.to(dtype) * cache.ks[layer][..., None].to(dtype)
+            v = v.to(dtype) * cache.vs[layer][..., None].to(dtype)
+        return decode_attention(q, k, v, lengths, starts)
+    args = (q, cache.k, cache.v, cache.ks, cache.vs, layer, lengths, starts)
+    if ad.pallas_block_rows > 0 and (ad.pallas_stream or ad.kv_pos_major):
+        # a position-major cache is readable by the stream kernel only
+        return decode_attention_stream(*args, ad.pallas_int8_scores,
+                                       pos_major=ad.kv_pos_major)
+    if ad.pallas_block_rows > 0:
+        return decode_attention_blocks(*args, rows=ad.pallas_block_rows,
+                                       chunk=ad.pallas_chunk,
+                                       int8_scores=ad.pallas_int8_scores)
+    return decode_attention_stacked_rows(*args)
+
+
 def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
               mask: torch.Tensor, cache: KVCache | None = None,
               layer: int = 0, input_pos: int = 0,
-              bounds: DecodeBounds | None = None) -> torch.Tensor:
+              bounds: DecodeBounds | None = None,
+              stacked: bool = True) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D). mask: (B or 1, 1, T, S) bool. With
-    `bounds`, a T=1 step on a position-major int8 cache goes through the
-    stream attention kernel; with `ad.kv_fold` as well, the fold kernel
-    writes this step's k/v rows itself (the gate of the JAX function)."""
+    `bounds`, a T=1 step goes through the decode attention kernel the
+    configuration selects (`_decode_kernel`); with `ad.kv_fold` as well, on
+    a position-major int8 cache, the fold kernel writes this step's k/v rows
+    itself (the gate of the JAX function). stacked=False: `cache` is one
+    layer's depth-1 view (the per-layer stack modes)."""
     b, t, _ = x.shape
     h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
     qkv = matmul_t(x, p["wqkv"], w8a8=ad.w8a8)
@@ -199,16 +243,14 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     k_scale = v_scale = None
     if cache is not None:
-        fold = (ad.kv_fold and cache.pos_major and cache.ks is not None
+        fold = (ad.kv_fold and stacked and cache.pos_major
+                and cache.ks is not None
                 and ad.pallas_stream and ad.pallas_block_rows > 0
                 and ad.tp_shards == 1 and t == 1
                 and isinstance(input_pos, int) and bounds is not None)
         if not fold:
             _write_cache(cache, layer, input_pos, k, v)
         if bounds is not None and t == 1:
-            if not (cache.pos_major and cache.ks is not None):
-                raise ValueError("the decode kernel path needs the "
-                                 "position-major int8 cache")
             if fold:
                 # the raw post-RoPE rows; the kernel quantizes and writes
                 y = decode_attention_stream_fold(
@@ -217,10 +259,8 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
                     v[:, 0].contiguous(), input_pos,
                     int8_scores=ad.pallas_int8_scores)
             else:
-                y = decode_attention_stream(
-                    qg[:, 0], cache.k, cache.v, cache.ks, cache.vs, layer,
-                    bounds.lengths, bounds.starts,
-                    int8_scores=ad.pallas_int8_scores)
+                y = _decode_kernel(ad, qg[:, 0], cache, layer, stacked,
+                                   bounds, x.dtype)
             out = matmul_t(y.reshape(b, 1, h * d), p["wo"], w8a8=ad.w8a8)
             return out + p["wo_b"] if ad.o_bias else out
         k, v, k_scale, v_scale = _read_cache(cache, layer)
@@ -279,15 +319,30 @@ def _layer(layers: dict, i: int) -> dict:
 
 def run_stack(layers: dict, ad: AttnDims, eps: float, x: torch.Tensor,
               freqs_cis, mask, cache: KVCache | None = None,
-              input_pos: int = 0,
-              bounds: DecodeBounds | None = None) -> torch.Tensor:
-    """The layer stack in carry mode: one layer at a time, each writing its
-    own slab of the stacked cache in place."""
+              input_pos: int = 0, bounds: DecodeBounds | None = None,
+              mode: str = "") -> torch.Tensor:
+    """The layer stack, one layer at a time, each writing its own slab of
+    the stacked cache in place. `mode` is the JAX function's cached-decode
+    stack mode: "carry" (or "") hands every layer the stacked cache and its
+    index; "scan" and "unrolled" hand each layer its own cache (a depth-1
+    view), which the kernel path reads with the dense per-layer kernel.
+    "unrolled" on an int8 cache falls back to "carry", as in JAX."""
+    mode = mode or "carry"
+    if mode not in ("carry", "scan", "unrolled"):
+        raise ValueError(f"unknown decode stack mode {mode!r}")
+    if mode == "unrolled" and cache is not None and cache.k.dtype == torch.int8:
+        mode = "carry"
+    per_layer = cache is not None and mode != "carry"
+    if per_layer and cache.pos_major:
+        raise ValueError("kv_cache_layout='pos' needs the carry-mode "
+                         "stacked cache")
     n_layer = layers["attention_norm"].shape[0]
     for i in range(n_layer):
         p = _layer(layers, i)
+        c, li = (cache.layer_view(i), 0) if per_layer else (cache, i)
         a = attention(p["attention"], ad, rms_norm(x, p["attention_norm"], eps),
-                      freqs_cis, mask, cache, i, input_pos, bounds)
+                      freqs_cis, mask, c, li, input_pos, bounds,
+                      stacked=not per_layer)
         h = x + a
         x = h + _ffn(p["feed_forward"], rms_norm(h, p["ffn_norm"], eps),
                      w8a8=ad.w8a8)
@@ -387,7 +442,7 @@ def forward_generate(params: dict, cfg: DualARConfig, inp: torch.Tensor,
                              device=dev)
         bounds = DecodeBounds(lengths, starts)
     x = run_stack(params["layers"], cfg.slow_attn, cfg.norm_eps, x, freqs_cis,
-                  mask, cache, input_pos, bounds)
+                  mask, cache, input_pos, bounds, mode=cfg.decode_stack_mode)
     if last_only and t > 1:
         x = x[:, -1:, :]
     slow_normed = rms_norm(x, params["norm"], cfg.norm_eps)

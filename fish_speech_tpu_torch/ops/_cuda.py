@@ -24,7 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("decode_attention", "fast_sweep", "voc_fused", "w4a8")
+SOURCES = ("decode_attention", "decode_attention_head", "fast_sweep",
+           "voc_fused", "w4a8")
 # -fmad=false: no contraction of a*b + c into one rounding, so the kernels'
 # f32 epilogues round as their plain PyTorch twins do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,6 +46,14 @@ SIGNATURES = {
     # write_pos | scale | int8_scores | stream
     "decode_attention_stream_fold": ("decode_attention", [_P] * 10
                                      + [_I] * 8 + [_F, _I, _P]),
+    # the head-major entries, one per JAX entry: q k v ks vs lengths starts
+    # out | L S B Hkv G D layer | scale | int8_scores cache_kind q_f32 |
+    # stream
+    **{name: ("decode_attention_head", [_P] * 8 + [_I] * 7 + [_F]
+              + [_I] * 3 + [_P])
+       for name in ("decode_attention_stream_head", "decode_attention_blocks",
+                    "decode_attention_stacked_rows", "decode_attention",
+                    "decode_attention_stacked", "decode_attention_chunked")},
     # x8 q4 gs out | M N K G | stream
     "w4a8_matmul": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
     "w4a8_matmul_pc": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),

@@ -1,22 +1,35 @@
-"""Single-query GQA decode attention over the position-major int8 KV cache.
+"""Single-query GQA decode attention over the int8 or bf16 KV cache.
 
-Counterpart of `fish_speech_tpu/ops/attention.py::pallas_decode_attention_
-stream` with pos_major=True and an int8 cache: for each row b, attend the
-G query heads of each kv head over the filled key range [starts[b],
-lengths[b]) of one layer of the stacked (L, S, B, Hkv, D) cache, read in
-place. The int8 scales (flat (L, B, S*Hkv), element [l, b, s*Hkv + h]) are
-folded into the scores and the probabilities instead of dequantizing the
-cache; with int8_scores the query is quantized per (row, query head) and
-the score dot runs int8 x int8 -> int32.
+Counterparts of the decode-attention entries of
+`fish_speech_tpu/ops/attention.py`, each named after its JAX entry without
+the `pallas_` prefix. All take q (B, Hkv, G, D) and return (B, Hkv, G, D)
+in q.dtype: for each row b, the G query heads of each kv head attend over
+the filled key range [starts[b], lengths[b]).
 
-`decode_attention_stream_fold`, the counterpart of the JAX function of the
-same name with the `pallas_` prefix, first quantizes the decode step's new
-(B, Hkv, D) k and v rows to int8 per (row, kv head), writes them and their
-scales IN PLACE at `write_pos` of `layer`, then attends as above, the new
-row included.
+Position-major cache (L, S, B, Hkv, D), int8 with flat (L, B, S*Hkv)
+scales (element [l, b, s*Hkv + h]), csrc/decode_attention.cu:
+- `decode_attention_stream(..., pos_major=True)`: one layer read in place;
+  the scales are folded into the scores and the probabilities instead of
+  dequantizing the cache; with int8_scores the query is quantized per (row,
+  query head) and the score dot runs int8 x int8 -> int32;
+- `decode_attention_stream_fold`: first quantizes the decode step's new
+  (B, Hkv, D) k and v rows to int8 per (row, kv head), writes them and their
+  scales IN PLACE at `write_pos` of `layer`, then attends as above.
 
-Each wrapper launches its CUDA kernel (csrc/decode_attention.cu) for CUDA
-tensors and runs its plain version for CPU tensors.
+Head-major cache (L, B, Hkv, S, D), int8 with (L, B, Hkv, S) scales or bf16
+with none, csrc/decode_attention_head.cu (one C entry each):
+- `decode_attention_stream(..., pos_major=False)` and
+  `decode_attention_blocks`: the block-of-rows numerics (int8 scores
+  optional, scales folded, p * v_scale rounded to bf16);
+- `decode_attention_stacked_rows`: dequantizes k and v to bf16 first;
+- `decode_attention_stacked`: f32 throughout, scales folded unrounded;
+- `decode_attention` and `decode_attention_chunked`: one layer's
+  (B, Hkv, S, D) cache of any float type, f32 throughout.
+`rows` and `chunk` group the TPU kernels' work; the CUDA kernels take their
+own tiles, and the plain versions one exact softmax.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,6 +43,12 @@ from .quant import div_exact
 
 KERNEL = _cuda.Kernel("decode_attention_stream")
 FOLD_KERNEL = _cuda.Kernel("decode_attention_stream_fold")
+STREAM_HEAD_KERNEL = _cuda.Kernel("decode_attention_stream_head")
+BLOCKS_KERNEL = _cuda.Kernel("decode_attention_blocks")
+ROWS_KERNEL = _cuda.Kernel("decode_attention_stacked_rows")
+DENSE_KERNEL = _cuda.Kernel("decode_attention")
+STACKED_KERNEL = _cuda.Kernel("decode_attention_stacked")
+CHUNKED_KERNEL = _cuda.Kernel("decode_attention_chunked")
 
 
 def _int8_query(q: torch.Tensor):
@@ -41,12 +60,18 @@ def _int8_query(q: torch.Tensor):
 
 def decode_attention_stream_plain(q, k_full, v_full, ks_full, vs_full,
                                   layer: int, lengths, starts,
-                                  int8_scores: bool = True) -> torch.Tensor:
+                                  int8_scores: bool = True, *,
+                                  pos_major: bool = False) -> torch.Tensor:
     """Plain PyTorch version. q (B, Hkv, G, D) -> (B, Hkv, G, D) in q.dtype.
 
     One exact softmax over the key axis where the kernels run an online
     softmax over chunks; the probabilities times the value scales are
-    rounded to bf16 before the value product, as in both kernels."""
+    rounded to bf16 before the value product, as in both kernels. The
+    head-major form is `decode_attention_blocks_plain`'s arithmetic."""
+    if not pos_major:
+        return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full,
+                                         layer), lengths, starts, "blocks",
+                           int8_scores)
     b, hkv, g, d = q.shape
     s = k_full.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -90,14 +115,22 @@ def _check_stream_args(q, k_full, v_full, ks_full, vs_full, layer: int,
 
 
 def decode_attention_stream(q, k_full, v_full, ks_full, vs_full, layer: int,
-                            lengths, starts,
-                            int8_scores: bool = True) -> torch.Tensor:
-    """q (B, Hkv, G, D) bf16; k/v (L, S, B, Hkv, D) int8; ks/vs (L, B, S*Hkv)
-    f32; lengths/starts (B,) int32 -> (B, Hkv, G, D) bf16."""
+                            lengths, starts, int8_scores: bool = True, *,
+                            pos_major: bool = False) -> torch.Tensor:
+    """q (B, Hkv, G, D) bf16; lengths/starts (B,) int32 -> (B, Hkv, G, D)
+    bf16. pos_major: k/v (L, S, B, Hkv, D) int8, ks/vs (L, B, S*Hkv) f32.
+    Head-major: k/v (L, B, Hkv, S, D) int8 with ks/vs (L, B, Hkv, S) f32,
+    or bf16 with ks/vs None."""
+    if pos_major and ks_full is None:
+        raise ValueError("the position-major bf16 cache is not ported: the "
+                         "stream kernel reads a position-major int8 cache")
     if not q.is_cuda:
         return decode_attention_stream_plain(q, k_full, v_full, ks_full,
                                              vs_full, layer, lengths, starts,
-                                             int8_scores)
+                                             int8_scores, pos_major=pos_major)
+    if not pos_major:
+        return _launch_head(STREAM_HEAD_KERNEL, q, k_full, v_full, ks_full,
+                            vs_full, layer, lengths, starts, int8_scores)
     _check_stream_args(q, k_full, v_full, ks_full, vs_full, layer, lengths,
                        starts)
     b, hkv, g, d = q.shape
@@ -130,7 +163,8 @@ def decode_attention_stream_fold_plain(q, k_full, v_full, ks_full, vs_full,
     k_full[layer, write_pos], ks_full[layer, :, sl] = quantize_kv_rows(new_k)
     v_full[layer, write_pos], vs_full[layer, :, sl] = quantize_kv_rows(new_v)
     return decode_attention_stream_plain(q, k_full, v_full, ks_full, vs_full,
-                                         layer, lengths, starts, int8_scores)
+                                         layer, lengths, starts, int8_scores,
+                                         pos_major=True)
 
 
 def decode_attention_stream_fold(q, k_full, v_full, ks_full, vs_full,
@@ -159,3 +193,202 @@ def decode_attention_stream_fold(q, k_full, v_full, ks_full, vs_full,
                 new_v.data_ptr(), n_layer, s, b, hkv, g, d, layer, write_pos,
                 1.0 / math.sqrt(d), int(int8_scores))
     return out
+
+
+# --- the head-major entries ------------------------------------------------
+
+
+def _layer_of(k_full, v_full, ks_full, vs_full, layer: int):
+    """One layer of a stacked head-major cache: (B, Hkv, S, D) values and
+    (B, Hkv, S) scales (None for a bf16 cache)."""
+    if ks_full is None:
+        return k_full[layer], v_full[layer], None, None
+    return k_full[layer], v_full[layer], ks_full[layer], vs_full[layer]
+
+
+def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
+                int8_scores: bool = False) -> torch.Tensor:
+    """The head-major entries' arithmetic, with one exact softmax.
+
+    k/v (B, Hkv, S, D); ks/vs (B, Hkv, S) f32 for an int8 cache, else None.
+    variant "blocks" (stream, blocks), "rows" (stacked_rows) or "f32"
+    (dense, stacked, chunked) places the roundings as the TPU kernel of
+    that name does (csrc/decode_attention_head.cu lists them). Masked keys
+    score -1e30, as in the TPU kernels."""
+    d = q.shape[-1]
+    s = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    i8 = ks is not None
+    bf = torch.bfloat16
+    kt = k.float().transpose(-1, -2)
+    vf = v.float()
+    if variant == "f32":
+        sc = (q.float() @ kt) * scale
+        if i8:
+            sc = sc * ks[:, :, None, :]
+    elif variant == "rows" and i8:
+        kt = (k.float() * ks[..., None]).to(bf).float().transpose(-1, -2)
+        vf = (vf * vs[..., None]).to(bf).float()
+        sc = (q.to(bf).float() @ kt) * scale
+    else:
+        if i8 and int8_scores:
+            qi, qsc = _int8_query(q)
+            sc = (qi @ kt) * (qsc * scale)                  # exact int sums
+        else:
+            sc = (q.to(bf).float() @ kt) * scale
+        if i8:
+            sc = sc * ks[:, :, None, :]
+    pos = torch.arange(s, device=q.device)
+    valid = ((pos[None, :] < lengths[:, None])
+             & (pos[None, :] >= starts[:, None]))[:, None, None, :]
+    sc = torch.where(valid, sc, torch.full((), -1e30, device=q.device))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True)
+    if variant == "f32":
+        pv = p * vs[:, :, None, :] if i8 else p
+    elif variant == "blocks" and i8:
+        pv = (p * vs[:, :, None, :]).to(bf).float()
+    else:
+        pv = p.to(bf).float()
+    return ((pv @ vf) / den.clamp_min(1e-20)).to(q.dtype)
+
+
+_CACHE_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+def _launch_head(kernel: _cuda.Kernel, q, k_full, v_full, ks_full, vs_full,
+                 layer: int, lengths, starts,
+                 int8_scores: bool = False) -> torch.Tensor:
+    """Check the arguments and launch one of the head-major entries. k/v
+    (L, B, Hkv, S, D), or one layer's (B, Hkv, S, D) for the per-layer
+    entries (then `layer` is 0)."""
+    b, hkv, g, d = q.shape
+    if d != 128 or g not in (1, 2, 4, 8):
+        raise ValueError(f"decode attention kernel takes head_dim 128 and "
+                         f"1, 2, 4 or 8 query heads per kv head (got {d}, "
+                         f"{g})")
+    per_layer = k_full.dim() == 4
+    n_layer = 1 if per_layer else k_full.shape[0]
+    s = k_full.shape[-2]
+    if not 0 <= layer < n_layer:
+        raise ValueError(f"layer {layer} out of range")
+    kind = _CACHE_KIND.get(k_full.dtype)
+    if kind is None or (kind == 2 and not per_layer) or (
+            kind == 0 and ks_full is None):
+        raise ValueError(f"{kernel.name} does not take a {k_full.dtype} "
+                         f"cache{' without scales' if kind == 0 else ''}")
+    dev = q.device
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"q must be bf16 or f32, got {q.dtype}")
+    _cuda.check(q, "q", q.dtype, device=dev)
+    shape = tuple(k_full.shape[:-4]) + (b, hkv, s, d)
+    _cuda.check(k_full, "k", k_full.dtype, shape, dev)
+    _cuda.check(v_full, "v", k_full.dtype, shape, dev)
+    if kind == 0:
+        _cuda.check(ks_full, "ks", torch.float32, shape[:-1], dev)
+        _cuda.check(vs_full, "vs", torch.float32, shape[:-1], dev)
+    elif ks_full is not None or vs_full is not None:
+        raise ValueError("a bf16 or f32 cache takes no scales")
+    _cuda.check(lengths, "lengths", torch.int32, (b,), dev)
+    _cuda.check(starts, "starts", torch.int32, (b,), dev)
+    out = torch.empty_like(q)
+    kernel(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
+           _cuda.ptr(ks_full), _cuda.ptr(vs_full), lengths.data_ptr(),
+           starts.data_ptr(), out.data_ptr(), n_layer, s, b, hkv, g, d,
+           layer, 1.0 / math.sqrt(d), int(int8_scores), kind,
+           int(q.dtype == torch.float32))
+    return out
+
+
+def decode_attention_blocks_plain(q, k_full, v_full, ks_full, vs_full,
+                                  layer: int, lengths, starts, rows: int = 16,
+                                  chunk: int = 128,
+                                  int8_scores: bool = True) -> torch.Tensor:
+    return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full, layer),
+                       lengths, starts, "blocks", int8_scores)
+
+
+def decode_attention_blocks(q, k_full, v_full, ks_full, vs_full, layer: int,
+                            lengths, starts, rows: int = 16, chunk: int = 128,
+                            int8_scores: bool = True) -> torch.Tensor:
+    """One layer of the stacked head-major cache (L, B, Hkv, S, D), int8
+    with (L, B, Hkv, S) scales or bf16 with None; int8_scores quantizes q
+    per (row, query head) for an int8 cache. rows/chunk: the TPU kernel's
+    grouping, taken for its signature."""
+    if not q.is_cuda:
+        return decode_attention_blocks_plain(q, k_full, v_full, ks_full,
+                                             vs_full, layer, lengths, starts,
+                                             rows, chunk, int8_scores)
+    return _launch_head(BLOCKS_KERNEL, q, k_full, v_full, ks_full, vs_full,
+                        layer, lengths, starts, int8_scores)
+
+
+def decode_attention_stacked_rows_plain(q, k_full, v_full, ks_full, vs_full,
+                                        layer: int, lengths, starts,
+                                        chunk: int = 128) -> torch.Tensor:
+    return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full, layer),
+                       lengths, starts, "rows")
+
+
+def decode_attention_stacked_rows(q, k_full, v_full, ks_full, vs_full,
+                                  layer: int, lengths, starts,
+                                  chunk: int = 128) -> torch.Tensor:
+    """As `decode_attention_blocks`, with an int8 cache dequantized to bf16
+    (k8 * ks rounded) before the bf16 score and value products."""
+    if not q.is_cuda:
+        return decode_attention_stacked_rows_plain(
+            q, k_full, v_full, ks_full, vs_full, layer, lengths, starts, chunk)
+    return _launch_head(ROWS_KERNEL, q, k_full, v_full, ks_full, vs_full,
+                        layer, lengths, starts)
+
+
+def decode_attention_stacked_plain(q, k_full, v_full, ks_full, vs_full,
+                                   layer: int, lengths, starts,
+                                   chunk: int = 128) -> torch.Tensor:
+    return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full, layer),
+                       lengths, starts, "f32")
+
+
+def decode_attention_stacked(q, k_full, v_full, ks_full, vs_full, layer: int,
+                             lengths, starts,
+                             chunk: int = 128) -> torch.Tensor:
+    """As `decode_attention_blocks`, in f32 throughout (int8 scales folded
+    into scores and probabilities unrounded)."""
+    if not q.is_cuda:
+        return decode_attention_stacked_plain(q, k_full, v_full, ks_full,
+                                              vs_full, layer, lengths, starts,
+                                              chunk)
+    return _launch_head(STACKED_KERNEL, q, k_full, v_full, ks_full, vs_full,
+                        layer, lengths, starts)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths,
+                           starts) -> torch.Tensor:
+    return _head_plain(q, k_cache, v_cache, None, None, lengths, starts,
+                       "f32")
+
+
+def decode_attention(q, k_cache, v_cache, lengths, starts) -> torch.Tensor:
+    """One layer's (B, Hkv, S, D) cache, bf16 or f32 (an int8 layer is
+    dequantized by the caller); f32 arithmetic, output in q.dtype."""
+    if not q.is_cuda:
+        return decode_attention_plain(q, k_cache, v_cache, lengths, starts)
+    return _launch_head(DENSE_KERNEL, q, k_cache, v_cache, None, None, 0,
+                        lengths, starts)
+
+
+def decode_attention_chunked_plain(q, k_cache, v_cache, lengths, starts,
+                                   chunk: int = 128) -> torch.Tensor:
+    return _head_plain(q, k_cache, v_cache, None, None, lengths, starts,
+                       "f32")
+
+
+def decode_attention_chunked(q, k_cache, v_cache, lengths, starts,
+                             chunk: int = 128) -> torch.Tensor:
+    """`decode_attention` walking only the filled range (as every entry
+    here does); the TPU kernel's online softmax over `chunk`-row chunks."""
+    if not q.is_cuda:
+        return decode_attention_chunked_plain(q, k_cache, v_cache, lengths,
+                                              starts, chunk)
+    return _launch_head(CHUNKED_KERNEL, q, k_cache, v_cache, None, None, 0,
+                        lengths, starts)

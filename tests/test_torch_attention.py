@@ -49,7 +49,7 @@ def test_plain_matches_pallas_stream(int8_scores, layer):
     t = torch.from_numpy
     got = decode_attention_stream_plain(
         t(q).to(torch.bfloat16), t(k8), t(v8), t(ks), t(vs), layer,
-        t(lengths), t(starts), int8_scores=int8_scores)
+        t(lengths), t(starts), int8_scores=int8_scores, pos_major=True)
     assert got.dtype == torch.bfloat16
     # both round p * v_scale to bf16 before the value product, but at
     # different running maxima (the kernel's online softmax over 64-row
@@ -65,9 +65,11 @@ def test_wrapper_takes_plain_path_on_cpu():
     t = torch.from_numpy
     before = KERNEL.launches
     a = decode_attention_stream(t(q).to(torch.bfloat16), t(k8), t(v8), t(ks),
-                                t(vs), 1, t(lengths), t(starts))
+                                t(vs), 1, t(lengths), t(starts),
+                                pos_major=True)
     b = decode_attention_stream_plain(t(q).to(torch.bfloat16), t(k8), t(v8),
-                                      t(ks), t(vs), 1, t(lengths), t(starts))
+                                      t(ks), t(vs), 1, t(lengths), t(starts),
+                                      pos_major=True)
     assert torch.equal(a, b)
     assert KERNEL.launches == before   # a CPU call is not a kernel launch
 
@@ -142,7 +144,7 @@ def test_fold_plain_equals_write_then_stream(int8_scores):
     _write_cache(ref_cache, li, pos, tnk[:, None], tnv[:, None])
     ref = decode_attention_stream_plain(tq, ref_cache.k, ref_cache.v,
                                         ref_cache.ks, ref_cache.vs, li, tl,
-                                        ts, int8_scores)
+                                        ts, int8_scores, pos_major=True)
     got = decode_attention_stream_fold(tq, tk, tv, tks, tvs, li, tl, ts, tnk,
                                        tnv, pos, int8_scores)
     for a, b in ((got, ref), (tk, ref_cache.k), (tv, ref_cache.v),

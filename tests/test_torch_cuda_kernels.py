@@ -16,6 +16,7 @@ from fish_speech_tpu_torch.models.dual_ar import (
     _write_cache,
     precompute_freqs_cis,
 )
+from fish_speech_tpu_torch.ops import attention as ta
 from fish_speech_tpu_torch.ops import voc_fused as tv
 from fish_speech_tpu_torch.ops import w4a8 as tw
 from fish_speech_tpu_torch.ops.attention import (
@@ -66,9 +67,10 @@ def test_decode_attention_stream(dev, int8_scores):
     starts = torch.tensor([0, 5, 128, 0, 0, 300, 70, 0], dtype=torch.int32,
                           device=dev)
     got = decode_attention_stream(q, k8, v8, ks, vs, 1, lengths, starts,
-                                  int8_scores=int8_scores)
+                                  int8_scores=int8_scores, pos_major=True)
     ref = decode_attention_stream_plain(q, k8, v8, ks, vs, 1, lengths, starts,
-                                        int8_scores=int8_scores)
+                                        int8_scores=int8_scores,
+                                        pos_major=True)
     torch.cuda.synchronize()
     # outputs of magnitude <= ~1 in bf16; p * v_scale is rounded to bf16 at
     # the kernel's running maxima and at the plain version's exact maximum:
@@ -100,13 +102,93 @@ def test_decode_attention_stream_fold(dev, b):
                   pos_major=True)
     _write_cache(two, layer, wpos, nk[:, None], nv[:, None])
     ref = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, layer,
-                                  lengths, starts)
+                                  lengths, starts, pos_major=True)
     got = decode_attention_stream_fold(q, k8, v8, ks, vs, layer, lengths,
                                        starts, nk, nv, wpos)
     torch.cuda.synchronize()
     for a, r in ((got, ref), (k8, two.k), (v8, two.v), (ks, two.ks),
                  (vs, two.vs)):
         assert torch.equal(a, r)
+
+
+# (entry, cache, int8_scores) of the head-major kernels
+HEAD_CASES = [
+    ("stream", "int8", True), ("stream", "int8", False),
+    ("stream", "bf16", False),
+    ("blocks", "int8", True), ("blocks", "int8", False),
+    ("blocks", "bf16", False),
+    ("stacked_rows", "int8", False), ("stacked_rows", "bf16", False),
+    ("stacked", "int8", False), ("stacked", "bf16", False),
+    ("dense", "bf16", False), ("dense", "f32", False),
+    ("chunked", "bf16", False), ("chunked", "f32", False),
+]
+
+
+def _head_call(entry, plain, q, k, v, ks, vs, layer, lengths, starts,
+               int8_scores):
+    sfx = "_plain" if plain else ""
+    stacked = (q, k, v, ks, vs, layer, lengths, starts)
+    if entry == "stream":
+        return getattr(ta, "decode_attention_stream" + sfx)(
+            *stacked, int8_scores, pos_major=False)
+    if entry == "blocks":
+        return getattr(ta, "decode_attention_blocks" + sfx)(
+            *stacked, int8_scores=int8_scores)
+    if entry in ("stacked_rows", "stacked"):
+        return getattr(ta, f"decode_attention_{entry}{sfx}")(*stacked)
+    name = "decode_attention" if entry == "dense" else \
+        "decode_attention_chunked"
+    return getattr(ta, name + sfx)(q, k[layer].contiguous(),
+                                   v[layer].contiguous(), lengths, starts)
+
+
+@pytest.mark.parametrize("b", [1, 40])
+@pytest.mark.parametrize("entry,cache,int8_scores", HEAD_CASES,
+                         ids=[f"{e}-{c}{'-i8' if i else ''}"
+                              for e, c, i in HEAD_CASES])
+def test_decode_attention_head_major(dev, entry, cache, int8_scores, b):
+    """The head-major kernels (csrc/decode_attention_head.cu) against their
+    plain twins: batch 1 over the full cache, batch 40 over ragged rows."""
+    g = _gen(dev, 21 + b)
+    L, hkv, grp, d, s, layer = 2, 8, 4, 128, 384, 1
+    shape = (L, b, hkv, s, d)
+    if cache == "int8":
+        k = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand(shape[:-1], generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(shape[:-1], generator=g, device=dev) * 0.02 + 1e-3
+    else:
+        dt = torch.float32 if cache == "f32" else torch.bfloat16
+        k = torch.randn(shape, generator=g, device=dev).to(dt)
+        v = torch.randn(shape, generator=g, device=dev).to(dt)
+        ks = vs = None
+    q = torch.randn((b, hkv, grp, d), generator=g, device=dev).to(
+        torch.float32 if cache == "f32" else torch.bfloat16)
+    if b == 1:
+        lengths = torch.full((1,), s, dtype=torch.int32, device=dev)
+        starts = torch.zeros((1,), dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        starts = (torch.rand((b,), generator=g, device=dev)
+                  * lengths.float()).int()            # start < length
+    args = (q, k, v, ks, vs, layer, lengths, starts, int8_scores)
+    got = _head_call(entry, False, *args)
+    ref = _head_call(entry, True, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    if cache == "f32":
+        # f32 throughout; online against exact softmax, sums in another order
+        assert err <= 1e-5 * max(top, 1.0)
+    else:
+        # bf16 outputs; the value weights are rounded to bf16 at the
+        # kernel's running maxima and at the plain version's exact one:
+        # 2 bf16 ulps of the largest output (ulp = 2^-7 of its binade)
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
 # (N, K) of the S2-Pro slow stack's products: wqkv, wo, w1 and w3, w2

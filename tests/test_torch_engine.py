@@ -120,6 +120,72 @@ def test_tts_text_to_wav(engine):
     np.testing.assert_array_equal(engine.tts(req), wav)
 
 
+# route -> (attn, kv_cache, stack_mode, the dual_ar function it calls)
+HEAD_ROUTES = {
+    "a": ("blocks16", "int8", "carry", "decode_attention_blocks"),
+    "b": ("blocks16-bf16", "int8", "carry", "decode_attention_blocks"),
+    "c": ("stream16", "int8", "carry", "decode_attention_stream"),
+    "d": ("rows", "native", "carry", "decode_attention_stacked_rows"),
+    "e": ("rows", "int8", "carry", "decode_attention_stacked_rows"),
+    "f": ("rows", "native", "scan", "decode_attention"),
+}
+ATTN_FNS = ("decode_attention_blocks", "decode_attention_stream",
+            "decode_attention_stacked_rows", "decode_attention",
+            "decode_attention_stream_fold")
+
+
+@pytest.mark.parametrize("route", list(HEAD_ROUTES))
+def test_head_major_engine_route(route, monkeypatch):
+    """build_engine(kv_layout="head", ...) answers a request, and every
+    decode step's attention goes through the route's function (one call a
+    layer) and no other."""
+    from fish_speech_tpu_torch.models import dual_ar
+
+    attn, kv_cache, stack_mode, fn = HEAD_ROUTES[route]
+    engine = build_engine(device="cpu", seed=3, lm_cfg=tiny_lm_config(),
+                          codec_cfg=tiny_codec_config(), cache_len=256,
+                          kv_layout="head", kv_cache=kv_cache, attn=attn,
+                          stack_mode=stack_mode)
+    cfg = engine.cfg
+    assert cfg.kv_cache_layout == "head" and cfg.kv_cache_dtype == kv_cache
+    assert cfg.decode_stack_mode == stack_mode and "fast_packed" in \
+        engine.params
+    calls = dict.fromkeys(ATTN_FNS, 0)
+
+    def counted(name, f):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return f(*a, **kw)
+        return wrapped
+
+    for name in ATTN_FNS:
+        monkeypatch.setattr(dual_ar, name, counted(name,
+                                                   getattr(dual_ar, name)))
+    req = GenerateLongRequest(text="Hello there.", seed=5, max_new_tokens=6)
+    wav, codes, _ = engine.tts_with_codes(req)
+    n = codes.shape[1]
+    assert 1 <= n <= 6
+    assert codes.min() >= 0 and codes.max() < cfg.codebook_size
+    assert wav.shape == (n * engine.codec_cfg.frame_length,)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    assert calls[fn] >= (n - 1) * cfg.n_layer and calls[fn] % cfg.n_layer == 0
+    assert all(c == 0 for name, c in calls.items() if name != fn), calls
+
+
+def test_engine_refuses_unported_or_unreadable_configurations():
+    kw = dict(device="cpu", lm_cfg=tiny_lm_config(),
+              codec_cfg=tiny_codec_config(), cache_len=256)
+    # a position-major cache is readable by the stream kernel only
+    with pytest.raises(ValueError, match="streaming"):
+        build_engine(kv_layout="pos", attn="rows", **kw)
+    with pytest.raises(ValueError, match="not ported"):
+        build_engine(kv_layout="pos", kv_cache="native", **kw)
+    with pytest.raises(ValueError, match="kv_fold"):
+        build_engine(kv_layout="head", kv_fold=True, **kw)
+    with pytest.raises(ValueError, match="stack_mode"):
+        build_engine(kv_layout="head", stack_mode="loop", **kw)
+
+
 _HYGIENE = """
 import importlib, pkgutil, sys
 sys.path.insert(0, {root!r})

@@ -1,8 +1,9 @@
 """Port's Dual-AR LM vs the JAX package: weight carry, the unquantized path
 against the reference goldens, the serving configurations (int8 W8A8, or
 packed-int4 W4A8 with the KV-write fold; position-major int8 KV cache,
-stream attention, fused fast head) on a tiny model, and sampling fed the
-same uniforms."""
+stream attention, fused fast head; the head-major int8 or native cache
+through the stream, blocks, rows and per-layer kernels) on a tiny model,
+and sampling fed the same uniforms."""
 
 import dataclasses
 from pathlib import Path
@@ -135,18 +136,23 @@ def test_greedy_stream_matches_golden(golden, golden_params):
 # --- serving configuration on a tiny model --------------------------------
 
 
-def serving_cfg_jax(**kw) -> DualARConfig:
+def serving_cfg_jax(attn: str = "stream", **kw) -> DualARConfig:
     """Slow stack with GQA (4 query heads over 2 kv heads), fast stack in
-    the fused kernel's 3x family, serving flags."""
+    the fused kernel's 3x family, serving flags: by default the
+    position-major int8 cache read by the stream kernel; `attn` and
+    kv_cache_layout / kv_cache_dtype / decode_stack_mode in `kw` select
+    another route."""
+    flags = dict(w8a8_matmuls=True, kv_cache_dtype="int8",
+                 kv_cache_layout="pos")
+    flags.update(kw)
     cfg = DualARConfig(
         vocab_size=160, n_layer=2, n_head=4, n_local_heads=2, dim=128,
         head_dim=32, intermediate_size=256, max_seq_len=64,
         rope_base=10000.0, codebook_size=32, num_codebooks=4,
         n_fast_layer=2, fast_dim=128, fast_n_head=2, fast_n_local_heads=2,
         fast_head_dim=64, fast_intermediate_size=384, semantic_begin_id=64,
-        semantic_end_id=95, w8a8_matmuls=True, kv_cache_dtype="int8",
-        kv_cache_layout="pos", **kw)
-    return apply_pallas_attn_mode(cfg, "stream")
+        semantic_end_id=95, **flags)
+    return apply_pallas_attn_mode(cfg, attn)
 
 
 def _to_port_cfg(cfg):
@@ -154,8 +160,12 @@ def _to_port_cfg(cfg):
     return T(**dataclasses.asdict(cfg))
 
 
-def _serving_setup(quant: str = "int8", **cfg_kw):
-    cfg = serving_cfg_jax(**cfg_kw)
+def _serving_setup(quant: str = "int8", attn: str = "stream",
+                   kv_layout: str = "pos", kv_cache: str = "int8",
+                   stack_mode: str = "", **cfg_kw):
+    cfg = serving_cfg_jax(attn, kv_cache_layout=kv_layout,
+                          kv_cache_dtype=kv_cache,
+                          decode_stack_mode=stack_mode, **cfg_kw)
     params = enable_fused_fast_head(quantize_lm_params(
         init_dual_ar_params(jax.random.key(3), cfg, dtype=jnp.bfloat16),
         mode=quant, groupsize=32))
@@ -197,9 +207,12 @@ def _prefill_and_step(serving):
     table = jdual.precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base)
     ftable = jdual.precompute_freqs_cis(cfg.num_codebooks, cfg.fast_head_dim,
                                         cfg.rope_base)
+    int8 = cfg.kv_cache_dtype == "int8"
+    pos_major = cfg.kv_cache_layout == "pos"
     cache = jdual.KVCache.create(cfg.n_layer, b, s, cfg.n_local_heads,
-                                 cfg.head_dim, dtype=jnp.int8,
-                                 pos_major=True)
+                                 cfg.head_dim,
+                                 dtype=jnp.int8 if int8 else jnp.bfloat16,
+                                 pos_major=pos_major)
     rope = np.maximum(np.arange(t)[None] - starts[:, None], 0)
     kw = dict(top_k=8, greedy=True, key_valid_from=jnp.asarray(starts),
               sample_support=support)
@@ -216,8 +229,9 @@ def _prefill_and_step(serving):
 
     dev = "cpu"
     cache_t = tdual.KVCache.create(cfg.n_layer, b, s, cfg.n_local_heads,
-                                   cfg.head_dim, dtype=torch.int8,
-                                   pos_major=True, device=dev)
+                                   cfg.head_dim,
+                                   dtype=torch.int8 if int8 else torch.bfloat16,
+                                   pos_major=pos_major, device=dev)
     table_t = tdual.precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base)
     ftable_t = tdual.precompute_freqs_cis(cfg.num_codebooks,
                                           cfg.fast_head_dim, cfg.rope_base)
@@ -228,17 +242,18 @@ def _prefill_and_step(serving):
         tdec.SamplingConfig.create(), None, top_k=8, greedy=True,
         rope_positions=torch.from_numpy(rope), key_valid_from=st,
         sample_support=support)
-    k_j = np.asarray(cache.k, np.int32)
-    k_t = cache_t.k.int().numpy()
+    k_j = np.asarray(cache.k.astype(jnp.float32))
+    k_t = cache_t.k.float().numpy()
     # the port's step runs on its own cache (the step writes it in place)
     slow_t = tdual.forward_generate(
         port, cfg_t, col0_t[:, :, None], cache_t, t, table_t,
         rope_positions=(t - st)[:, None], key_valid_from=st,
         logit_support=support)
     return {"col0": (np.asarray(col0), col0_t.numpy()), "k": (k_j, k_t),
-            "k_step": (np.asarray(slow.cache.k, np.int32),
-                       cache_t.k.int().numpy()),
-            "ks_step": (np.asarray(slow.cache.ks), cache_t.ks.numpy()),
+            "k_step": (np.asarray(slow.cache.k.astype(jnp.float32)),
+                       cache_t.k.float().numpy()),
+            "ks_step": ((np.asarray(slow.cache.ks), cache_t.ks.numpy())
+                        if int8 else None),
             "logits": (np.asarray(slow.logits, np.float32),
                        slow_t.logits.float().numpy())}
 
@@ -310,6 +325,43 @@ def test_serving_greedy_generate_matches_jax(serving):
 
 def test_w4a8_fold_greedy_generate_matches_jax(serving_w4a8_fold):
     _greedy_generate_check(serving_w4a8_fold)
+
+
+# --- the head-major routes -------------------------------------------------
+
+# (attention mode, kv cache, stack mode): each route's decode attention
+# kernel, as the JAX function dispatches it
+HEAD_ROUTES = {
+    "blocks16-int8": ("blocks16", "int8", ""),           # #6, int8 scores
+    "blocks16-bf16-int8": ("blocks16-bf16", "int8", ""),  # #6
+    "stream16-int8": ("stream16", "int8", ""),           # #1 head-major
+    "rows-native": ("rows", "native", ""),               # #7, bf16 cache
+    "rows-int8": ("rows", "int8", ""),                   # #7, int8 cache
+    "rows-native-scan": ("rows", "native", "scan"),      # #8 per layer
+    "rows-int8-scan": ("rows", "int8", "scan"),          # dequant, then #8
+}
+
+
+@pytest.fixture(scope="module", params=list(HEAD_ROUTES))
+def head_route(request):
+    attn, kv_cache, stack_mode = HEAD_ROUTES[request.param]
+    return _serving_setup(attn=attn, kv_layout="head", kv_cache=kv_cache,
+                          stack_mode=stack_mode)
+
+
+def test_head_route_decode_step_matches_jax(head_route):
+    r = _prefill_and_step(head_route)
+    col0, col0_t = r["col0"]
+    ref, got = r["logits"]
+    np.testing.assert_array_equal(col0_t, col0)
+    # the int8 route's tolerance: bf16 activations, f32 sums in another
+    # order (the per-layer routes dequantize to bf16 or read bf16 as JAX)
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+    assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
+
+
+def test_head_route_greedy_generate_matches_jax(head_route):
+    _greedy_generate_check(head_route)
 
 
 # --- sampling with the same uniforms --------------------------------------
