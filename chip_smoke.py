@@ -18,12 +18,20 @@ Phases, in order; any failure exits non-zero:
      routes (blocks16, blocks16-bf16, stream16 on the int8 cache; rows on the
      native and the int8 cache; rows with the per-layer "scan" stack on the
      native cache), one `tts` request each;
+  4c. the position-major bf16 cache: the same engine, its configuration
+     replaced by serving_config(kv_layout="pos", kv_cache="native",
+     attn="stream"), one `tts` request;
+  4d. the int8 vocoder (VOC_QUANT): the same engine, its packed decoder
+     replaced by pack_decoder(quant=True) of the same weights, one `tts`
+     request;
   5. the W4A8 serving path: that engine freed, build_engine(serving=True,
      quant="w4a8", kv_fold=True) from the same seed, then three `tts`
      requests, the last with W4A8_KERNEL=pc.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
+Phase 3 also checks the position-major bf16 attention entry and the int8
+vocoder entries against their plain versions.
 
 Output: one JSON line per request, then the `{"kernels": [...]}` line, the
 card's name and power limit, and last the `{"ok": true, ...}` line.
@@ -153,16 +161,19 @@ class Checks:
 # ---------------------------------------------------------------------------
 
 
-def check_attention(chk: Checks, cfg, dev, gen) -> list[dict]:
-    """#1 at the bench shape (B=256, S=384, ragged rows) and at the main
-    path's (B=1, S=2048, full). Timing walks the 36 layers, as a decode step
-    does, so every launch reads its layer from device memory."""
+def check_attention(chk: Checks, cfg, dev,
+                    gen) -> tuple[list[dict], list[dict]]:
+    """#1 on the position-major cache at the bench shape (B=256, S=384,
+    ragged rows) and at the main path's (B=1, S=2048, full): the int8
+    cache (decode_attention_stream) and the bf16 cache
+    (decode_attention_stream_bf16). Timing walks the 36 layers, as a decode
+    step does, so every launch reads its layer from device memory."""
     from fish_speech_tpu_torch.ops.attention import (
         decode_attention_stream, decode_attention_stream_plain)
 
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
-    cases = []
+    cases, bf16_cases = [], []
     for b, s, ragged in ((256, 384, True), (1, 2048, False)):
         k = torch.randint(-127, 128, (n_layer, s, b, hkv, d), generator=gen,
                           device=dev, dtype=torch.int8)
@@ -209,7 +220,68 @@ def check_attention(chk: Checks, cfg, dev, gen) -> list[dict]:
                               filled_positions=filled))
         del k, v, ks, vs
         torch.cuda.empty_cache()
-    return cases
+        bf16_cases.append(check_attention_pos_bf16(
+            chk, q, lengths, starts, n_layer, s, dev, gen))
+    return cases, bf16_cases
+
+
+def check_attention_pos_bf16(chk: Checks, q, lengths, starts, n_layer: int,
+                             s: int, dev, gen) -> dict:
+    """#1 on a position-major bf16 cache (L, S, B, Hkv, D), the same q and
+    rows. Library yardstick: one scaled_dot_product_attention (GQA, boolean
+    mask) on the layer's (B, Hkv, S, D) views of k and v."""
+    from fish_speech_tpu_torch.ops.attention import (
+        decode_attention_stream, decode_attention_stream_plain)
+
+    b, hkv, g, d = q.shape
+    shape = (n_layer, s, b, hkv, d)
+    k = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    v = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    for li in range(n_layer):
+        k[li] = torch.randn(shape[1:], generator=gen, device=dev)
+        v[li] = torch.randn(shape[1:], generator=gen, device=dev)
+    pos = torch.arange(s, device=dev)
+    mask = ((pos[None] >= starts[:, None])
+            & (pos[None] < lengths[:, None]))[:, None, None, :]
+    layer = n_layer - 1
+    got = decode_attention_stream(q, k, v, None, None, layer, lengths, starts,
+                                  pos_major=True)
+    ref = decode_attention_stream_plain(q, k, v, None, None, layer, lengths,
+                                        starts, pos_major=True)
+    torch.cuda.synchronize()
+    it = iter(range(10 ** 9))
+    ms = time_ms(lambda: decode_attention_stream(
+        q, k, v, None, None, next(it) % n_layer, lengths, starts,
+        pos_major=True), n_layer)
+    plain_ms = time_ms(lambda: decode_attention_stream_plain(
+        q, k, v, None, None, next(it) % n_layer, lengths, starts,
+        pos_major=True), 4, 1)
+    qh = q.reshape(b, hkv * g, 1, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(li):
+        return sdpa(qh, k[li].permute(1, 2, 0, 3), v[li].permute(1, 2, 0, 3),
+                    attn_mask=mask, enable_gqa=True)
+    try:
+        library_ms = time_ms(lambda: library(next(it) % n_layer), n_layer)
+    except TypeError as e:   # a PyTorch without enable_gqa
+        log(f"  scaled_dot_product_attention: {e}")
+        library_ms = None
+    filled = int((lengths - starts).clamp_min(0).sum())
+    b_ms, b_by = bound(filled * hkv * 2 * 2 * d
+                       + nbytes(q, q, lengths, starts),
+                       {"bf16": 4 * filled * hkv * g * d})
+    # p is rounded to bf16 at the kernel's running maxima and at the plain
+    # version's exact one: 2 bf16 ulps of the largest output
+    top = ref.float().abs().max().item()
+    tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    case = chk.case("decode_attention_stream_bf16", f"B={b} S={s}",
+                    max_err(got, ref), tol, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                    filled_positions=filled, b=b)
+    del k, v
+    torch.cuda.empty_cache()
+    return case
 
 
 # the head-major entries: (C entry, wrapper, replaces, (cache, int8_scores)
@@ -611,16 +683,17 @@ def vocoder_inputs(engine, frames: int, dev, gen):
                                    stride=ccfg.decoder_rates[0])
 
 
-def res_stack_block0(x, pb, fn):
+def res_stack_block0(x, pb, fn, tt=None):
     """Block 0's residual units, one call per unit as decoder_fused runs
-    them; fn is fused_res_stack or its plain version."""
+    them; fn is fused_res_stack or its plain version (tt: an int8 pack's
+    tile)."""
     from fish_speech_tpu_torch.ops.voc_fused import DILATIONS
 
     for u, d in enumerate(DILATIONS):
         sub = {k: pb["res"][k][u:u + 1] for k in ("w7", "w1", "vec")}
         last = u == len(DILATIONS) - 1
         x = fn(x, sub, dilations=(d,), tail_vec=pb["tail_vec"] if last
-               else None)
+               else None, tt=tt)
     return x
 
 
@@ -685,6 +758,92 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
             "voc_block", f"block {bi} F={frames} T={t} C={c_in}->{c}",
             max_err(got, ref), 2 ** -5 * scale, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by))
+        x = ref
+    return res_cases, block_cases
+
+
+def i8_unit_ops(rows: int, n_tiles: int, c: int, dilations, v: int = 0
+                ) -> int:
+    """int8 operations of residual units over n_tiles tiles of `rows` rows
+    (the valid rows start at v): each unit's k7 and 1x1 convs on the rows it
+    keeps, the tile's halo recomputed, as the int8 function defines it."""
+    ops = 0
+    for d in dilations:
+        n = rows - v - 6 * d
+        ops += n_tiles * n * 2 * 8 * c * c
+        v += 6 * d
+    return ops
+
+
+def check_vocoder_i8(chk: Checks, engine, frames: int, dev,
+                     gen) -> tuple[list[dict], list[dict]]:
+    """#4 and #3 on the int8 pack (VOC_QUANT) of the engine's decoder
+    weights: block 0's three calls and blocks 1-3, in the JAX decoder's
+    tiles, against the tile-aware plain versions. Both quantize the same
+    activations to the same codes and sum them exactly, and the f32 steps
+    round alike (-fmad=false): bit-equal is expected; the tolerance is one
+    int8 step, 2^-7 of the largest output (2^-7 absolute for the
+    waveform)."""
+    from fish_speech_tpu_torch.codec.fastpath import (
+        RES_STACK_TILE_CAP, _tile_cap, _tile_for, pack_decoder)
+    from fish_speech_tpu_torch.ops.voc_fused import (
+        DILATIONS, fused_block, fused_block_plain, fused_res_stack,
+        fused_res_stack_plain, halo_for)
+
+    ccfg = engine.codec_cfg
+    packed = pack_decoder(engine.codec_params["decoder"], ccfg,
+                          dtype=torch.bfloat16, quant=True)
+    blocks = packed["blocks"]
+    x = vocoder_inputs(engine, frames, dev, gen)
+    res_cases, block_cases = [], []
+    pb = blocks[0]
+    t, c = x.shape[1], x.shape[2]
+    tt = _tile_for(t, RES_STACK_TILE_CAP)
+    got = res_stack_block0(x, pb, fused_res_stack, tt)
+    ref = res_stack_block0(x, pb, fused_res_stack_plain, tt)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: res_stack_block0(x, pb, fused_res_stack, tt), 3, 1)
+    plain_ms = time_ms(lambda: res_stack_block0(
+        x, pb, fused_res_stack_plain, tt), 2, 1)
+    ops = sum(i8_unit_ops(halo_for((d,)) + tt, t // tt, c, (d,))
+              for d in DILATIONS)
+    b_ms, b_by = bound(3 * nbytes(x, got) + nbytes(*(pb["res"][k] for k in (
+        "w7", "w1", "vec"))), {"int8": ops})
+    res_cases.append(chk.case(
+        "voc_res_stack_i8", f"block 0 F={frames} T={t} C={c} tt={tt}",
+        max_err(got, ref), 2 ** -7 * ref.float().abs().max().item(), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bit_equal=bool(torch.equal(got, ref))))
+    x = ref
+    for bi in range(1, len(blocks)):
+        pb, stride = blocks[bi], ccfg.decoder_rates[bi]
+        c_in, c = x.shape[2], pb["res"]["w1"].shape[-1]
+        t = x.shape[1] * stride
+        tt = _tile_for(t, _tile_cap(c))
+        final = bi == len(blocks) - 1 and tt % 128 == 0
+        kw = dict(stride=stride, dilations=DILATIONS, tail_vec=pb["tail_vec"],
+                  final_w=packed["final_fw"] if final else None, tt=tt)
+        got = fused_block(x, pb["res"], **kw)
+        ref = fused_block_plain(x, pb["res"], **kw)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: fused_block(x, pb["res"], **kw), 3, 1)
+        plain_ms = time_ms(lambda: fused_block_plain(x, pb["res"], **kw), 2,
+                           1)
+        rows = halo_for(DILATIONS, 6 if final else 0) + tt
+        n_tiles = t // tt
+        ops = {"int8": 2 * n_tiles * (rows // stride) * c_in * 2 * stride * c
+               + i8_unit_ops(rows, n_tiles, c, DILATIONS)}
+        if final:
+            ops["f32"] = 2 * 7 * c * t
+        wts = [pb["res"][k] for k in ("tconv_pw", "tconv_pb", "w7", "w1",
+                                      "vec")]
+        b_ms, b_by = bound(nbytes(x, got, *wts), ops)
+        scale = 1.0 if final else ref.float().abs().max().item()
+        block_cases.append(chk.case(
+            "voc_block_i8", f"block {bi} F={frames} T={t} C={c_in}->{c} "
+            f"tt={tt}{' final' if final else ''}", max_err(got, ref),
+            2 ** -7 * scale, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bit_equal=bool(torch.equal(got, ref))))
         x = ref
     return res_cases, block_cases
 
@@ -801,6 +960,7 @@ def main() -> int:
                          "list its N costliest device kernels")
     args = ap.parse_args()
 
+    from fish_speech_tpu_torch.codec.fastpath import pack_decoder
     from fish_speech_tpu_torch.engine.generate import (build_engine,
                                                        serving_config)
     from fish_speech_tpu_torch.ops import _cuda
@@ -836,8 +996,9 @@ def main() -> int:
     # phase 3: kernels against their plain versions
     chk = Checks()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    attn = check_attention(chk, engine.cfg, dev, gen)
+    attn, attn_bf16 = check_attention(chk, engine.cfg, dev, gen)
     kernels = {"decode_attention_stream": attention.KERNEL,
+               "decode_attention_stream_bf16": attention.BF16_KERNEL,
                "decode_attention_stream_fold": attention.FOLD_KERNEL,
                "decode_attention_stream_head": attention.STREAM_HEAD_KERNEL,
                "decode_attention_blocks": attention.BLOCKS_KERNEL,
@@ -849,7 +1010,9 @@ def main() -> int:
                "w4a8_matmul_pc": w4a8.KERNEL_PC,
                "fast_sweep": fast_fused.KERNEL,
                "voc_block": voc_fused.BLOCK,
-               "voc_res_stack": voc_fused.RES_STACK}
+               "voc_res_stack": voc_fused.RES_STACK,
+               "voc_block_i8": voc_fused.BLOCK_I8,
+               "voc_res_stack_i8": voc_fused.RES_STACK_I8}
     # #9 and #10 are on no serving path: their launches are these checks'
     for k in kernels.values():
         k.launches = 0
@@ -860,6 +1023,7 @@ def main() -> int:
     sweep = check_fast_sweep(chk, engine.cfg, engine.params["fast_packed"],
                              dev, gen)
     res, blk = check_vocoder(chk, engine, FRAMES, dev, gen)
+    res_i8, blk_i8 = check_vocoder_i8(chk, engine, FRAMES, dev, gen)
     torch.cuda.empty_cache()
 
     shared = ("fast_sweep", "voc_block", "voc_res_stack")
@@ -886,7 +1050,25 @@ def main() -> int:
              (kernel, *shared))], kernels, chk)
         if args.profile and route in ("a", "d"):
             profile_request(engine, args.profile, path)
+
+    # phase 4c: the position-major bf16 cache, same engine and weights
+    engine.cfg = serving_config(base_cfg, kv_layout="pos", kv_cache="native",
+                                attn="stream")
+    by_path["pos_native"] = run_path(engine, "pos_native", [
+        (TEXTS[0], HEAD_NEW_TOKENS, None,
+         ("decode_attention_stream_bf16", *shared))], kernels, chk)
     engine.cfg = base_cfg
+
+    # phase 4d: the int8 vocoder (VOC_QUANT), same engine and weights
+    bf16_decoder = engine.packed_decoder
+    engine.packed_decoder = pack_decoder(
+        engine.codec_params["decoder"], engine.codec_cfg,
+        dtype=torch.bfloat16, quant=True)
+    by_path["voc_quant"] = run_path(engine, "voc_quant", [
+        (TEXTS[1], HEAD_NEW_TOKENS, None,
+         ("decode_attention_stream", "fast_sweep", "voc_block_i8",
+          "voc_res_stack_i8"))], kernels, chk)
+    engine.packed_decoder = bf16_decoder
 
     # phase 5: the W4A8 path with the KV-write fold, same seed
     del engine
@@ -932,6 +1114,8 @@ def main() -> int:
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
               "int8"),
+        entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
+              attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
               "fish_speech_tpu/ops/attention.py:980", fold, fold[:1],
               "w4a8_fold"),
@@ -947,6 +1131,11 @@ def main() -> int:
               "int8"),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
               res[:1], "int8"),
+        # the int8 configurations (VOC_QUANT)
+        entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
+              blk_i8, "voc_quant"),
+        entry("voc_res_stack_i8", "fish_speech_tpu/ops/voc_fused.py:459",
+              res_i8, res_i8[:1], "voc_quant"),
     ]}
     # the head-major entries; headline: the batch-1 case of the route's
     # cache; launches: their routes' requests (#9, #10: the checks')

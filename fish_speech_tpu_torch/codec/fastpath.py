@@ -13,23 +13,47 @@ final conv and tanh), and a wider block (block 0, 768 channels) as a
 transposed conv in torch.matmul followed by ops/voc_fused.fused_res_stack,
 one unit per call. The convs the JAX package leaves outside its kernels
 (conv_in, block 0's transposed conv, the quantizer's) stay matmuls here.
-Channels are not padded to 128 (only the TPU compiler needed that).
+Channels are not padded to 128 (only the TPU compiler needed that), but
+the time tiles are the JAX package's, chosen by the padded width: the int8
+vocoder (`pack_decoder(quant=True)`, VOC_QUANT=1) takes one activation
+scale per tile, so its result depends on them.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.quant import div_exact
 from ..ops.voc_fused import DILATIONS, fused_block, fused_res_stack, pack_res_stack
 from .config import DACConfig, RVQConfig
 from .nn import codec_transformer, layer_norm, snake
 from .rvq import _vq_lookup_sum
 
 FUSED_BLOCK_MAX_C = 512
+RES_STACK_TILE_CAP = 256     # block 0's per-unit calls
+
+
+def _tile_for(t: int, cap: int = 512) -> int:
+    """Largest tile <= cap that divides t and is a multiple of 16 (the JAX
+    package's rule; 16, or t itself, when none is larger)."""
+    tt = min(cap, t)
+    while t % tt or tt % 16:
+        tt -= 16 if tt % 16 == 0 else tt % 16
+        if tt <= 16:
+            return 16 if t % 16 == 0 else t
+    return tt
+
+
+def _tile_cap(c: int) -> int:
+    """The fused kernels' tile cap by the channel count padded to 128 lanes,
+    as the JAX package pads it: small-C stages take larger tiles."""
+    cp = -(-c // 128) * 128
+    return 2048 if cp <= 128 else (1024 if cp <= 256 else 512)
 
 
 def conv1d_mm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, *,
@@ -136,23 +160,37 @@ def _tail(alpha: torch.Tensor) -> torch.Tensor:
     return torch.stack([a * (1.0 / math.pi), 1.0 / (a + 1e-9)]).contiguous()
 
 
-def pack_decoder(params: dict, cfg: DACConfig,
-                 dtype=torch.bfloat16) -> dict:
+def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
+                 quant: bool | None = None) -> dict:
     """Pre-pack the decoder for `decoder_fused`: per block the residual
     units (ops/voc_fused.pack_res_stack), the transposed conv as phase
     matrices (stacked for the fused block), and the next snake as the
     block's tail; the final conv as an (8, C) f32 block (7 taps + a bias
-    row) for the last block's kernel."""
+    row) for the last block's kernel.
+
+    quant=True (None: the VOC_QUANT environment variable, "1") packs the
+    fused kernels' convolutions as int8: the units per pack_res_stack, and
+    the fused block's stacked phases per output column (of the phases in
+    `dtype`), with a second tconv_pb row of the scales / 127."""
+    if quant is None:
+        quant = os.environ.get("VOC_QUANT", "0") == "1"
     out = {"conv_in_w": params["conv_in_w"].to(dtype),
            "conv_in_b": params["conv_in_b"].to(dtype), "blocks": []}
     blocks = params["blocks"]
     for i, (block, stride) in enumerate(zip(blocks, cfg.decoder_rates)):
         phases = [p.to(dtype) for p in tconv_phases(block["conv_w"], stride)]
         dim = block["conv_w"].shape[2]
-        res = pack_res_stack(block["res_units"], dtype=dtype)
+        res = pack_res_stack(block["res_units"], dtype=dtype, quant=quant)
         if dim <= FUSED_BLOCK_MAX_C and len(phases) == 2:
-            res["tconv_pw"] = torch.stack(phases).contiguous()
-            res["tconv_pb"] = block["conv_b"].float().repeat(stride)
+            pw = torch.stack(phases)
+            pb = block["conv_b"].float().repeat(stride)
+            if quant:
+                pwf = pw.float()
+                ps = pwf.abs().amax(dim=(0, 1)).clamp_min(1e-12)
+                pw = torch.round(pwf / ps * 127.0).to(torch.int8)
+                pb = torch.stack([pb, div_exact(ps, 127.0)])
+            res["tconv_pw"] = pw.contiguous()
+            res["tconv_pb"] = pb.contiguous()
         nxt = (blocks[i + 1]["snake_alpha"] if i + 1 < len(blocks)
                else params["snake_alpha"])
         out["blocks"].append({
@@ -175,7 +213,9 @@ def pack_decoder(params: dict, cfg: DACConfig,
 def decoder_fused(params: dict, cfg: DACConfig, z: torch.Tensor,
                   packed: dict | None = None) -> torch.Tensor:
     """model.decoder on the fused kernels. z: latents (B, Tz, latent_dim);
-    the decoder runs in the packed dtype. Returns (B, Tz*hop, 1)."""
+    the decoder runs in the packed dtype. Returns (B, Tz*hop, 1). The time
+    tiles, and whether the last block fuses the final conv (only when its
+    tile is a multiple of 128), are the JAX decoder's."""
     if packed is None:
         packed = pack_decoder(params, cfg, dtype=z.dtype)
     x = conv1d_mm(z.to(packed["conv_in_w"].dtype), packed["conv_in_w"],
@@ -187,21 +227,24 @@ def decoder_fused(params: dict, cfg: DACConfig, z: torch.Tensor,
                                           cfg.decoder_rates)):
         res = pb["res"]
         if "tconv_pw" in res:
-            if bi == n_blocks - 1 and "final_fw" in packed:
+            tt = _tile_for(x.shape[1] * stride, _tile_cap(res["w1"].shape[-1]))
+            if bi == n_blocks - 1 and "final_fw" in packed and tt % 128 == 0:
                 wave = fused_block(x, res, stride=stride, dilations=DILATIONS,
                                    tail_vec=pb["tail_vec"],
-                                   final_w=packed["final_fw"])
+                                   final_w=packed["final_fw"], tt=tt)
                 return wave[..., None]
             x = fused_block(x, res, stride=stride, dilations=DILATIONS,
-                            tail_vec=pb["tail_vec"])
+                            tail_vec=pb["tail_vec"], tt=tt)
             continue
         x = conv_transpose1d_phases(x, pb["tconv_phases"], pb["tconv_b"],
                                     stride=stride)
+        tt = _tile_for(x.shape[1], RES_STACK_TILE_CAP)
         for u, d in enumerate(DILATIONS):
             sub = {k: res[k][u:u + 1] for k in ("w7", "w1", "vec")}
             last = u == len(DILATIONS) - 1
             x = fused_res_stack(x, sub, dilations=(d,),
-                                tail_vec=pb["tail_vec"] if last else None)
+                                tail_vec=pb["tail_vec"] if last else None,
+                                tt=tt)
     x = conv1d_mm(x, packed["conv_out_w"], packed["conv_out_b"])
     return torch.tanh(x)
 

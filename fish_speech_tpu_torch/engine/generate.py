@@ -120,7 +120,8 @@ class TTSEngine:
     def __init__(self, params: dict, cfg: DualARConfig, tokenizer,
                  codec_params: dict | None = None,
                  codec_cfg: DACConfig | None = None,
-                 cache_len: int | None = None, device=None):
+                 cache_len: int | None = None, device=None,
+                 voc_quant: bool | None = None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -139,7 +140,8 @@ class TTSEngine:
             dtype = (torch.bfloat16 if self.device.type == "cuda"
                      else torch.float32)
             self.packed_decoder = pack_decoder(codec_params["decoder"],
-                                                codec_cfg, dtype=dtype)
+                                                codec_cfg, dtype=dtype,
+                                                quant=voc_quant)
 
     def _generate_codes(self, padded: np.ndarray, start: int, max_new: int,
                         req: GenerateLongRequest,
@@ -156,8 +158,12 @@ class TTSEngine:
 
     def decode_codes(self, codes: np.ndarray) -> np.ndarray:
         """(K, n) codes -> (n * frame_length,) f32 waveform. The frame count
-        is bucketed to a multiple of 64 (at least 32): the codec is causal,
-        so the right padding never changes the prefix."""
+        is bucketed to a multiple of 64 (at least 32), JAX's bucket rule.
+        The bf16 decoder is causal, so the right padding never changes the
+        prefix; the int8 decoder (VOC_QUANT) takes one activation scale per
+        time tile, and a tile that straddles the padding sees the padded
+        rows, so there the padding does change the prefix's last tiles, as
+        it does in JAX with the same buckets and tiles."""
         from ..codec.fastpath import dac_from_indices_fused
 
         if self.codec_params is None:
@@ -246,7 +252,8 @@ def serving_config(cfg: DualARConfig, kv_fold: bool = False, *,
     """The serving configuration: W8A8 (or W4A8) products and decode
     attention through a kernel. The options are the JAX serving CLIs'
     flags: kv_layout "pos" (L, S, B, Hkv, D) or "head" (L, B, Hkv, S, D);
-    kv_cache "int8" or "native" (the weights' activation type, bf16);
+    kv_cache "int8" or "native" (the weights' activation type, bf16), in
+    either layout;
     attn a mode of `apply_pallas_attn_mode` ("stream[N]", "blocks[N][-bf16]",
     "rows"); stack_mode "carry", "scan" or "unrolled" (`run_stack`). The
     defaults are the position-major int8 cache read by the stream kernel;
@@ -263,9 +270,6 @@ def serving_config(cfg: DualARConfig, kv_fold: bool = False, *,
     if attn in ("", "0"):
         raise ValueError("the serving configuration decodes through a "
                          "kernel: give an attention mode")
-    if kv_layout == "pos" and kv_cache == "native":
-        raise ValueError("the position-major native (bf16) cache is not "
-                         "ported: use kv_cache='int8' or kv_layout='head'")
     if kv_fold and (kv_layout, kv_cache) != ("pos", "int8"):
         raise ValueError("kv_fold needs the position-major int8 cache")
     cfg = dataclasses.replace(cfg, w8a8_matmuls=True, kv_cache_dtype=kv_cache,
@@ -282,7 +286,8 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
                  groupsize: int = 128, kv_fold: bool = False,
                  kv_layout: str = "pos", kv_cache: str = "int8",
                  attn: str = "stream",
-                 stack_mode: str = "carry") -> TTSEngine:
+                 stack_mode: str = "carry",
+                 voc_quant: bool | None = None) -> TTSEngine:
     """An engine with seeded random weights drawn on `device` (CUDA by
     default): S2-Pro LM and codec unless configs are given, a byte
     tokenizer whose semantic ids span the codebook. serving=True applies
@@ -293,7 +298,9 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     fold kernel writes the decode step's rows), and the fused fast head.
     kv_layout, kv_cache, attn and stack_mode select another cache and
     decode attention kernel (`serving_config`); a native KV cache keeps
-    the quantized weights, whose activations are bf16."""
+    the quantized weights, whose activations are bf16. voc_quant=True packs
+    the vocoder with int8 weights and per-tile activation scales (None:
+    the VOC_QUANT environment variable, "1" for int8)."""
     from ..codec.init import init_dac_params
     from ..models.init import init_dual_ar_params
     from ..ops.fast_fused import enable_fused_fast_head
@@ -324,4 +331,5 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     codec_cfg = codec_cfg or s2_pro_codec_config()
     codec_params = init_dac_params(gen, codec_cfg, device=device)
     return TTSEngine(params, served, tokenizer, codec_params, codec_cfg,
-                     cache_len=min(cache_len, cfg.max_seq_len), device=device)
+                     cache_len=min(cache_len, cfg.max_seq_len), device=device,
+                     voc_quant=voc_quant)

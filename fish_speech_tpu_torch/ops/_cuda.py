@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("decode_attention", "decode_attention_head", "fast_sweep",
-           "voc_fused", "w4a8")
+           "voc_fused", "voc_fused_i8", "w4a8")
 # -fmad=false: no contraction of a*b + c into one rounding, so the kernels'
 # f32 epilogues round as their plain PyTorch twins do
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,6 +42,9 @@ SIGNATURES = {
     # int8_scores | stream
     "decode_attention_stream": ("decode_attention", [_P] * 8 + [_I] * 7
                                 + [_F, _I, _P]),
+    # q k v lengths starts out | L S B Hkv G D layer | scale | stream
+    "decode_attention_stream_bf16": ("decode_attention", [_P] * 6 + [_I] * 7
+                                     + [_F, _P]),
     # q k v ks vs lengths starts out new_k new_v | L S B Hkv G D layer
     # write_pos | scale | int8_scores | stream
     "decode_attention_stream_fold": ("decode_attention", [_P] * 10
@@ -65,6 +68,12 @@ SIGNATURES = {
     # x y pw pb w7 w1 vec tail fw | B T_in C_in C stride d0 d1 d2 final |
     # stream
     "voc_block": ("voc_fused", [_P] * 9 + [_I] * 9 + [_P]),
+    # the int8 packs: x y w7t w1t vec tail st s2 amax | B T C d tt halo
+    # has_tail | stream
+    "voc_res_stack_i8": ("voc_fused_i8", [_P] * 9 + [_I] * 7 + [_P]),
+    # x y pwt pb w7t w1t vec tail fw st s2 amax | B T_in C_in C stride d0
+    # d1 d2 tt halo final | stream
+    "voc_block_i8": ("voc_fused_i8", [_P] * 12 + [_I] * 11 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -7,11 +7,14 @@ in q.dtype: for each row b, the G query heads of each kv head attend over
 the filled key range [starts[b], lengths[b]).
 
 Position-major cache (L, S, B, Hkv, D), int8 with flat (L, B, S*Hkv)
-scales (element [l, b, s*Hkv + h]), csrc/decode_attention.cu:
+scales (element [l, b, s*Hkv + h]) or bf16 with none,
+csrc/decode_attention.cu:
 - `decode_attention_stream(..., pos_major=True)`: one layer read in place;
-  the scales are folded into the scores and the probabilities instead of
-  dequantizing the cache; with int8_scores the query is quantized per (row,
-  query head) and the score dot runs int8 x int8 -> int32;
+  on an int8 cache the scales are folded into the scores and the
+  probabilities instead of dequantizing the cache, and with int8_scores the
+  query is quantized per (row, query head) and the score dot runs int8 x
+  int8 -> int32; a bf16 cache goes to its own C entry
+  (`decode_attention_stream_bf16`), bf16 products with f32 sums;
 - `decode_attention_stream_fold`: first quantizes the decode step's new
   (B, Hkv, D) k and v rows to int8 per (row, kv head), writes them and their
   scales IN PLACE at `write_pos` of `layer`, then attends as above.
@@ -42,6 +45,7 @@ from . import _cuda
 from .quant import div_exact
 
 KERNEL = _cuda.Kernel("decode_attention_stream")
+BF16_KERNEL = _cuda.Kernel("decode_attention_stream_bf16")
 FOLD_KERNEL = _cuda.Kernel("decode_attention_stream_fold")
 STREAM_HEAD_KERNEL = _cuda.Kernel("decode_attention_stream_head")
 BLOCKS_KERNEL = _cuda.Kernel("decode_attention_blocks")
@@ -67,11 +71,16 @@ def decode_attention_stream_plain(q, k_full, v_full, ks_full, vs_full,
     One exact softmax over the key axis where the kernels run an online
     softmax over chunks; the probabilities times the value scales are
     rounded to bf16 before the value product, as in both kernels. The
-    head-major form is `decode_attention_blocks_plain`'s arithmetic."""
+    head-major form, and the position-major bf16 cache (bf16 products, p
+    rounded to bf16), are `decode_attention_blocks_plain`'s arithmetic."""
     if not pos_major:
         return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full,
                                          layer), lengths, starts, "blocks",
                            int8_scores)
+    if ks_full is None:
+        return _head_plain(q, k_full[layer].permute(1, 2, 0, 3),
+                           v_full[layer].permute(1, 2, 0, 3), None, None,
+                           lengths, starts, "blocks")
     b, hkv, g, d = q.shape
     s = k_full.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -105,11 +114,15 @@ def _check_stream_args(q, k_full, v_full, ks_full, vs_full, layer: int,
     if not 0 <= layer < n_layer:
         raise ValueError(f"layer {layer} out of range")
     dev = q.device
+    kind = torch.int8 if ks_full is not None else torch.bfloat16
     _cuda.check(q, "q", torch.bfloat16, device=dev)
-    _cuda.check(k_full, "k", torch.int8, (n_layer, s, b, hkv, d), dev)
-    _cuda.check(v_full, "v", torch.int8, (n_layer, s, b, hkv, d), dev)
-    _cuda.check(ks_full, "ks", torch.float32, (n_layer, b, s * hkv), dev)
-    _cuda.check(vs_full, "vs", torch.float32, (n_layer, b, s * hkv), dev)
+    _cuda.check(k_full, "k", kind, (n_layer, s, b, hkv, d), dev)
+    _cuda.check(v_full, "v", kind, (n_layer, s, b, hkv, d), dev)
+    if ks_full is not None:
+        _cuda.check(ks_full, "ks", torch.float32, (n_layer, b, s * hkv), dev)
+        _cuda.check(vs_full, "vs", torch.float32, (n_layer, b, s * hkv), dev)
+    elif vs_full is not None:
+        raise ValueError("a bf16 cache takes no scales")
     _cuda.check(lengths, "lengths", torch.int32, (b,), dev)
     _cuda.check(starts, "starts", torch.int32, (b,), dev)
 
@@ -118,12 +131,10 @@ def decode_attention_stream(q, k_full, v_full, ks_full, vs_full, layer: int,
                             lengths, starts, int8_scores: bool = True, *,
                             pos_major: bool = False) -> torch.Tensor:
     """q (B, Hkv, G, D) bf16; lengths/starts (B,) int32 -> (B, Hkv, G, D)
-    bf16. pos_major: k/v (L, S, B, Hkv, D) int8, ks/vs (L, B, S*Hkv) f32.
-    Head-major: k/v (L, B, Hkv, S, D) int8 with ks/vs (L, B, Hkv, S) f32,
-    or bf16 with ks/vs None."""
-    if pos_major and ks_full is None:
-        raise ValueError("the position-major bf16 cache is not ported: the "
-                         "stream kernel reads a position-major int8 cache")
+    bf16. pos_major: k/v (L, S, B, Hkv, D) int8 with ks/vs (L, B, S*Hkv)
+    f32, or bf16 with ks/vs None (int8_scores does not apply). Head-major:
+    k/v (L, B, Hkv, S, D) int8 with ks/vs (L, B, Hkv, S) f32, or bf16 with
+    ks/vs None."""
     if not q.is_cuda:
         return decode_attention_stream_plain(q, k_full, v_full, ks_full,
                                              vs_full, layer, lengths, starts,
@@ -136,6 +147,11 @@ def decode_attention_stream(q, k_full, v_full, ks_full, vs_full, layer: int,
     b, hkv, g, d = q.shape
     n_layer, s = k_full.shape[:2]
     out = torch.empty_like(q)
+    if ks_full is None:
+        BF16_KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
+                    lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
+                    n_layer, s, b, hkv, g, d, layer, 1.0 / math.sqrt(d))
+        return out
     KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            ks_full.data_ptr(), vs_full.data_ptr(), lengths.data_ptr(),
            starts.data_ptr(), out.data_ptr(), n_layer, s, b, hkv, g, d,
@@ -174,6 +190,8 @@ def decode_attention_stream_fold(q, k_full, v_full, ks_full, vs_full,
     """`decode_attention_stream` after writing the new (B, Hkv, D) bf16 k/v
     rows, int8-quantized, at `write_pos` of `layer` (caches updated in
     place) -> (B, Hkv, G, D) bf16."""
+    if ks_full is None:
+        raise ValueError("the fold writes the int8 cache: give its scales")
     if not q.is_cuda:
         return decode_attention_stream_fold_plain(
             q, k_full, v_full, ks_full, vs_full, layer, lengths, starts,

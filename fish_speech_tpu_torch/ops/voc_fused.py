@@ -15,8 +15,16 @@ Semantics are the TPU kernel's, including its left context: units inside
 one call see the state that zero input before the sequence start produces
 (with zero biases, as the random init has, that state stays zero).
 
-The wrappers launch the CUDA kernels (csrc/voc_fused.cu) for CUDA tensors
-and run the plain versions for CPU tensors.
+int8 packs (`pack_res_stack(quant=True)`, the VOC_QUANT vocoder) are a
+different function: int8 weights per output channel, activations quantized
+with one scale per TPU-kernel tile (`quantize_tile`), int32 sums. The scale
+of a tile covers its halo rows too, so the result depends on the tiling:
+the int8 forms take the TPU kernel's time tile `tt` and reproduce its
+(batch row, tile) grid, each tile recomputing its halo with its own scales.
+
+The wrappers launch the CUDA kernels (csrc/voc_fused.cu for bf16 packs,
+csrc/voc_fused_i8.cu for int8 packs) for CUDA tensors and run the plain
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,11 +32,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda
+from .quant import div_exact
 
 RES_STACK = _cuda.Kernel("voc_res_stack")
 BLOCK = _cuda.Kernel("voc_block")
+RES_STACK_I8 = _cuda.Kernel("voc_res_stack_i8")
+BLOCK_I8 = _cuda.Kernel("voc_block_i8")
 
 DILATIONS = (1, 3, 9)
 _S2C = (9.86943246, -32.46507037, 42.68612315, -29.93828299, 12.78106835,
@@ -36,12 +48,23 @@ _S2C = (9.86943246, -32.46507037, 42.68612315, -29.93828299, 12.78106835,
 _INV_PI = 1.0 / math.pi
 
 
-def pack_res_stack(units: list[dict], dtype=torch.bfloat16) -> dict:
+def halo_for(dilations=DILATIONS, extra: int = 0) -> int:
+    """The TPU kernels' left context: 6*sum(dilations) (+ `extra` rows for a
+    fused final conv) rounded up to 16 rows. It sets the int8 tiles."""
+    return -(-(6 * sum(dilations) + extra) // 16) * 16
+
+
+def pack_res_stack(units: list[dict], dtype=torch.bfloat16,
+                   quant: bool = False) -> dict:
     """Stack per-unit params: w7 (U, 7, C, C), w1 (U, C, C) in `dtype`, and
     vec (U, 6, C) f32 rows [alpha1/pi, 1/(alpha1+eps), alpha2/pi,
-    1/(alpha2+eps), b1, b2] (eps = 1e-9)."""
-    w7 = torch.stack([u["conv1_w"] for u in units]).to(dtype)
-    w1 = torch.stack([u["conv2_w"][0] for u in units]).to(dtype)
+    1/(alpha2+eps), b1, b2] (eps = 1e-9).
+
+    quant=True: w7 and w1 int8, quantized per (unit, output channel) with
+    one scale shared by the 7 taps (so all taps sum in int32), rounded half
+    to even; vec gains two rows [s7/127, s1/127]."""
+    w7 = torch.stack([u["conv1_w"] for u in units])
+    w1 = torch.stack([u["conv2_w"][0] for u in units])
 
     def vec(u):
         a1 = u["snake1_alpha"].float()
@@ -50,8 +73,37 @@ def pack_res_stack(units: list[dict], dtype=torch.bfloat16) -> dict:
                             1.0 / (a2 + 1e-9), u["conv1_b"].float(),
                             u["conv2_b"].float()])
 
-    return {"w7": w7.contiguous(), "w1": w1.contiguous(),
-            "vec": torch.stack([vec(u) for u in units]).contiguous()}
+    vecs = torch.stack([vec(u) for u in units])
+    if not quant:
+        return {"w7": w7.to(dtype).contiguous(),
+                "w1": w1.to(dtype).contiguous(), "vec": vecs.contiguous()}
+    w7, w1 = w7.float(), w1.float()
+    s7 = w7.abs().amax(dim=(1, 2)).clamp_min(1e-12)                # (U, C)
+    s1 = w1.abs().amax(dim=1).clamp_min(1e-12)
+    return {
+        "w7": torch.round(w7 / s7[:, None, None, :] * 127.0).to(
+            torch.int8).contiguous(),
+        "w1": torch.round(w1 / s1[:, None, :] * 127.0).to(
+            torch.int8).contiguous(),
+        "vec": torch.cat([vecs, div_exact(s7, 127.0)[:, None],
+                          div_exact(s1, 127.0)[:, None]], dim=1).contiguous()}
+
+
+def quantize_tile(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The TPU kernel's per-tile activation quantization, one tile per
+    leading index: s (N, R, C) f32 -> int8 codes and the scales m (N, 1, 1),
+    m = max(max|s|, 1e-12), codes trunc(s * (127/m) +- 0.5) (half away from
+    zero; 127/m one true division)."""
+    m = s.abs().amax(dim=(-2, -1), keepdim=True).clamp_min(1e-12)
+    k = torch.full_like(m, 127.0) / m
+    q = torch.trunc(s * k + torch.where(s >= 0, 0.5, -0.5))
+    return q.to(torch.int8), m
+
+
+def _int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 products with exact sums (float64 holds every int32 sum
+    of these widths exactly, on the CPU and on the card)."""
+    return q.double() @ w.double()
 
 
 def snake_poly(x: torch.Tensor, alpha_pi, inv_alpha) -> torch.Tensor:
@@ -66,121 +118,257 @@ def snake_poly(x: torch.Tensor, alpha_pi, inv_alpha) -> torch.Tensor:
 
 
 def _run_units(cur: torch.Tensor, packed: dict, dilations, tail_vec,
-               extra: int = 0) -> torch.Tensor:
-    """cur: (B, n, C) state with 6*sum(dilations) + extra rows of left
-    context; returns the last n - 6*sum(dilations) rows (+ `extra`)."""
+               keep: int | None = None) -> torch.Tensor:
+    """cur: (N, n, C) state, its first rows left context; each unit drops
+    6*d rows. Returns the last `keep` rows (all by default). An int8 pack
+    quantizes each snake output with one scale per leading index (a TPU
+    kernel tile)."""
     w7, w1, vec = packed["w7"], packed["w1"], packed["vec"]
     wt = w7.dtype
+    quant = wt == torch.int8
     for u, d in enumerate(dilations):
         rf = 6 * d
         n = cur.shape[1] - rf
-        a1, ia1, a2, ia2, b1, b2 = vec[u]
-        s = snake_poly(cur.float(), a1, ia1).to(wt).float()
-        acc = b1.expand(cur.shape[0], n, -1)
-        for i in range(7):
-            acc = acc + s[:, i * d:i * d + n] @ w7[u, i].float()
-        s2 = snake_poly(acc, a2, ia2).to(w1.dtype).float()
-        y = s2 @ w1[u].float() + b2
+        a1, ia1, a2, ia2, b1, b2 = vec[u, :6]
+        s = snake_poly(cur.float(), a1, ia1)
+        if quant:
+            q, m = quantize_tile(s)
+            acc = sum(_int_dot(q[:, i * d:i * d + n], w7[u, i])
+                      for i in range(7)).float()
+            acc = acc * (vec[u, 6] * (m * (1.0 / 127.0))) + b1
+        else:
+            s = s.to(wt).float()
+            acc = b1.expand(cur.shape[0], n, -1)
+            for i in range(7):
+                acc = acc + s[:, i * d:i * d + n] @ w7[u, i].float()
+        s2 = snake_poly(acc, a2, ia2)
+        if quant:
+            q2, m2 = quantize_tile(s2)
+            y = (_int_dot(q2, w1[u]).float()
+                 * (vec[u, 7] * (m2 * (1.0 / 127.0))) + b2)
+        else:
+            y = s2.to(w1.dtype).float() @ w1[u].float() + b2
         cur = (cur[:, rf:].float() + y).to(cur.dtype)
-    out = cur
+    out = cur if keep is None else cur[:, cur.shape[1] - keep:]
     if tail_vec is not None:
         out = snake_poly(out.float(), tail_vec[0], tail_vec[1]).to(out.dtype)
     return out
 
 
+def _tiles(xp: torch.Tensor, rows: int, step: int) -> torch.Tensor:
+    """(B, L, C) -> (B*n, rows, C): the windows of `rows` rows starting
+    every `step` rows, ordered (batch row, tile) as the TPU kernel's grid."""
+    c = xp.shape[2]
+    return xp.unfold(1, rows, step).permute(0, 1, 3, 2).reshape(-1, rows, c)
+
+
+def _check_tile(t: int, tt: int | None) -> None:
+    if tt is None or tt < 1 or t % tt:
+        raise ValueError(f"an int8 pack runs in the TPU kernel's time tiles: "
+                         f"give tt dividing T={t} (got {tt})")
+
+
+def _final_conv(ext: torch.Tensor, final_w: torch.Tensor,
+                t: int) -> torch.Tensor:
+    """The decoder-final conv (C -> 1, k = final_w.shape[0] - 1 taps, bias
+    at final_w[k, 0]) and tanh over ext (N, t + k - 1, C): (N, t) f32."""
+    fk = final_w.shape[0] - 1
+    ext = ext.float()
+    m = ext[:, 0:t] * final_w[0]
+    for i in range(1, fk):
+        m = m + ext[:, i:i + t] * final_w[i]
+    return torch.tanh(m.sum(-1) + final_w[fk, 0])
+
+
 def fused_res_stack_plain(x: torch.Tensor, packed: dict, dilations=DILATIONS,
-                          tail_vec: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: x (B, T, C) -> (B, T, C) in x.dtype."""
-    halo = 6 * sum(dilations)
-    xp = torch.nn.functional.pad(x, (0, 0, halo, 0))
-    return _run_units(xp, packed, dilations, tail_vec)
+                          tail_vec: torch.Tensor | None = None,
+                          tt: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version: x (B, T, C) -> (B, T, C) in x.dtype. An int8
+    pack runs tile by tile (tt rows plus halo_for(dilations) rows of left
+    context each, T % tt == 0)."""
+    if packed["w7"].dtype != torch.int8:
+        xp = F.pad(x, (0, 0, 6 * sum(dilations), 0))
+        return _run_units(xp, packed, dilations, tail_vec)
+    b, t, c = x.shape
+    _check_tile(t, tt)
+    halo = halo_for(dilations)
+    tiles = _tiles(F.pad(x, (0, 0, halo, 0)), halo + tt, tt)
+    return _run_units(tiles, packed, dilations, tail_vec,
+                      keep=tt).reshape(b, t, c)
+
+
+def _check_weights(packed: dict, c: int, n_units: int, quant: bool,
+                   dev) -> None:
+    wt = torch.int8 if quant else torch.bfloat16
+    _cuda.check(packed["w7"], "w7", wt, (n_units, 7, c, c), dev)
+    _cuda.check(packed["w1"], "w1", wt, (n_units, c, c), dev)
+    _cuda.check(packed["vec"], "vec", torch.float32,
+                (n_units, 8 if quant else 6, c), dev)
 
 
 def fused_res_stack(x: torch.Tensor, packed: dict, dilations=DILATIONS,
-                    tail_vec: torch.Tensor | None = None) -> torch.Tensor:
-    """The residual units of `packed` over x (B, T, C). The CUDA kernel
-    takes one unit per call (the 768-channel decoder block's use)."""
+                    tail_vec: torch.Tensor | None = None,
+                    tt: int | None = None) -> torch.Tensor:
+    """The residual units of `packed` over x (B, T, C). The CUDA kernels
+    take one unit per call (the 768-channel decoder block's use); an int8
+    pack needs the tile `tt` (see fused_res_stack_plain)."""
     if not x.is_cuda:
-        return fused_res_stack_plain(x, packed, dilations, tail_vec)
+        return fused_res_stack_plain(x, packed, dilations, tail_vec, tt)
     b, t, c = x.shape
-    if len(dilations) != 1 or c % 16:
-        raise ValueError("the residual-stack kernel takes one unit per call "
-                         "and channels a multiple of 16")
+    quant = packed["w7"].dtype == torch.int8
+    align = 32 if quant else 16
+    if len(dilations) != 1 or c % align:
+        raise ValueError(f"the residual-stack kernel takes one unit per call "
+                         f"and channels a multiple of {align}")
     dev = x.device
     _cuda.check(x, "x", torch.bfloat16, device=dev)
-    _cuda.check(packed["w7"], "w7", torch.bfloat16, (1, 7, c, c), dev)
-    _cuda.check(packed["w1"], "w1", torch.bfloat16, (1, c, c), dev)
-    _cuda.check(packed["vec"], "vec", torch.float32, (1, 6, c), dev)
+    _check_weights(packed, c, 1, quant, dev)
     if tail_vec is not None:
         _cuda.check(tail_vec, "tail_vec", torch.float32, (2, c), dev)
     y = torch.empty_like(x)
-    RES_STACK(x.data_ptr(), y.data_ptr(), packed["w7"].data_ptr(),
-              packed["w1"].data_ptr(), packed["vec"].data_ptr(),
-              _cuda.ptr(tail_vec), b, t, c, 1, dilations[0], 0, 0,
-              int(tail_vec is not None))
+    if not quant:
+        RES_STACK(x.data_ptr(), y.data_ptr(), packed["w7"].data_ptr(),
+                  packed["w1"].data_ptr(), packed["vec"].data_ptr(),
+                  _cuda.ptr(tail_vec), b, t, c, 1, dilations[0], 0, 0,
+                  int(tail_vec is not None))
+        return y
+    _check_tile(t, tt)
+    halo = halo_for(dilations)
+    n = b * (t // tt)
+    # per-tile state and second-snake scratch, the tiles' scales (zeroed:
+    # the kernels take their maxima with atomics), weights as (out, in)
+    st = torch.empty((n, halo + tt, c), dtype=torch.bfloat16, device=dev)
+    s2 = torch.empty((n, halo + tt, c), dtype=torch.float32, device=dev)
+    amax = torch.zeros((2, n), dtype=torch.float32, device=dev)
+    w7t = packed["w7"][0].transpose(1, 2).contiguous()
+    w1t = packed["w1"][0].t().contiguous()
+    RES_STACK_I8(x.data_ptr(), y.data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
+                 packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
+                 st.data_ptr(), s2.data_ptr(), amax.data_ptr(), b, t, c,
+                 dilations[0], tt, halo, int(tail_vec is not None))
     return y
+
+
+def _block_i8_plain(x: torch.Tensor, packed: dict, stride: int, dilations,
+                    tail_vec, final_w, tt) -> torch.Tensor:
+    """fused_block_plain of an int8 pack, tile by tile as the TPU kernel:
+    each tile quantizes its transposed conv's input slab ((halo+tt)/stride
+    + 1 rows, zero before the sequence start) with one scale, zeroes the
+    state rows before the sequence start, then runs the units on its own
+    halo+tt rows."""
+    b, t_in, _ = x.shape
+    pw, pb = packed["tconv_pw"], packed["tconv_pb"]
+    c = pw.shape[2] // stride
+    t = t_in * stride
+    _check_tile(t, tt)
+    fk = 0 if final_w is None else final_w.shape[0] - 1
+    extra = max(fk - 1, 0)
+    halo = halo_for(dilations, extra)
+    if tt % stride or halo % stride:
+        raise ValueError(f"stride {stride} must divide tt={tt} and the "
+                         f"halo {halo}")
+    n_in, tt_in = (halo + tt) // stride, tt // stride
+    slab = _tiles(F.pad(x, (0, 0, halo // stride + 1, 0)), n_in + 1,
+                  tt_in).float()
+    q, m = quantize_tile(slab)
+    acc = (_int_dot(q[:, 1:], pw[0]) + _int_dot(q[:, :-1], pw[1])).float()
+    acc = acc * (pb[1] * (m * (1.0 / 127.0))) + pb[0]
+    cur = acc.reshape(-1, halo + tt, c)
+    j = torch.arange(t // tt, device=x.device).repeat(b)
+    row = torch.arange(halo + tt, device=x.device)
+    real = (row[None, :] >= halo - j[:, None] * tt)[..., None]
+    cur = torch.where(real, cur, 0.0).to(x.dtype)
+    out = _run_units(cur, packed, dilations, tail_vec, keep=tt + extra)
+    if final_w is None:
+        return out.reshape(b, t, c)
+    return _final_conv(out, final_w, tt).reshape(b, t).to(x.dtype)
 
 
 def fused_block_plain(x: torch.Tensor, packed: dict, *, stride: int,
                       dilations=DILATIONS,
                       tail_vec: torch.Tensor | None = None,
-                      final_w: torch.Tensor | None = None) -> torch.Tensor:
+                      final_w: torch.Tensor | None = None,
+                      tt: int | None = None) -> torch.Tensor:
     """Plain PyTorch version. x: (B, T_in, C_in) pre-tconv activation.
     Returns (B, T_in*stride, C) in x.dtype, or with final_w ((8, C) f32:
-    7 conv taps and a bias row) the (B, T_in*stride) waveform."""
-    b, t_in, _ = x.shape
+    7 conv taps and a bias row) the (B, T_in*stride) waveform. An int8 pack
+    (tconv_pb then (2, stride*C): the bias and the phase scales / 127) runs
+    in the TPU kernel's tiles of `tt` rows."""
     pw, pb = packed["tconv_pw"], packed["tconv_pb"]
+    if pw.dtype == torch.int8:
+        return _block_i8_plain(x, packed, stride, dilations, tail_vec,
+                               final_w, tt)
+    b, t_in, _ = x.shape
     c = pw.shape[2] // stride
     xf = x.float()
-    lag = torch.nn.functional.pad(xf, (0, 0, 1, 0))[:, :-1]
+    lag = F.pad(xf, (0, 0, 1, 0))[:, :-1]
     acc = xf @ pw[0].float() + lag @ pw[1].float() + pb
     cur = acc.reshape(b, t_in * stride, c)
     extra = 0 if final_w is None else final_w.shape[0] - 2
     halo = 6 * sum(dilations) + extra
-    cur = torch.nn.functional.pad(cur, (0, 0, halo, 0)).to(x.dtype)
+    cur = F.pad(cur, (0, 0, halo, 0)).to(x.dtype)
     out = _run_units(cur, packed, dilations, tail_vec)
     if final_w is None:
         return out
-    ext = out.float()                                   # (B, T + extra, C)
-    t = t_in * stride
-    m = ext[:, 0:t] * final_w[0]
-    for i in range(1, extra + 1):
-        m = m + ext[:, i:i + t] * final_w[i]
-    return torch.tanh(m.sum(-1) + final_w[extra + 1, 0]).to(x.dtype)
+    return _final_conv(out, final_w, t_in * stride).to(x.dtype)
 
 
 def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
                 dilations=DILATIONS, tail_vec: torch.Tensor | None = None,
-                final_w: torch.Tensor | None = None) -> torch.Tensor:
-    """One decoder block; see fused_block_plain for shapes."""
+                final_w: torch.Tensor | None = None,
+                tt: int | None = None) -> torch.Tensor:
+    """One decoder block; see fused_block_plain for shapes. The bf16 kernel
+    takes its own tiles; an int8 pack needs the TPU kernel's `tt`."""
     if not x.is_cuda:
         return fused_block_plain(x, packed, stride=stride,
                                  dilations=dilations, tail_vec=tail_vec,
-                                 final_w=final_w)
+                                 final_w=final_w, tt=tt)
     b, t_in, c_in = x.shape
     pw = packed["tconv_pw"]
     c = pw.shape[2] // stride
-    if len(dilations) != 3 or c % 16 or c_in % 16 or 16 % stride:
-        raise ValueError("the block kernel takes three units, channels a "
-                         "multiple of 16 and a stride dividing 16")
+    quant = pw.dtype == torch.int8
+    align = 32 if quant else 16
+    if len(dilations) != 3 or c % align or c_in % align or 16 % stride:
+        raise ValueError(f"the block kernel takes three units, channels a "
+                         f"multiple of {align} and a stride dividing 16")
     dev = x.device
     _cuda.check(x, "x", torch.bfloat16, device=dev)
-    _cuda.check(pw, "tconv_pw", torch.bfloat16, (2, c_in, stride * c), dev)
+    _cuda.check(pw, "tconv_pw", torch.int8 if quant else torch.bfloat16,
+                (2, c_in, stride * c), dev)
     _cuda.check(packed["tconv_pb"], "tconv_pb", torch.float32,
-                (stride * c,), dev)
-    _cuda.check(packed["w7"], "w7", torch.bfloat16, (3, 7, c, c), dev)
-    _cuda.check(packed["w1"], "w1", torch.bfloat16, (3, c, c), dev)
-    _cuda.check(packed["vec"], "vec", torch.float32, (3, 6, c), dev)
+                (2, stride * c) if quant else (stride * c,), dev)
+    _check_weights(packed, c, 3, quant, dev)
     if tail_vec is not None:
         _cuda.check(tail_vec, "tail_vec", torch.float32, (2, c), dev)
+    t = t_in * stride
     if final_w is not None:
         _cuda.check(final_w, "final_w", torch.float32, (8, c), dev)
-        y = torch.empty((b, t_in * stride), dtype=x.dtype, device=dev)
+        y = torch.empty((b, t), dtype=x.dtype, device=dev)
     else:
-        y = torch.empty((b, t_in * stride, c), dtype=x.dtype, device=dev)
-    BLOCK(x.data_ptr(), y.data_ptr(), pw.data_ptr(),
-          packed["tconv_pb"].data_ptr(), packed["w7"].data_ptr(),
-          packed["w1"].data_ptr(), packed["vec"].data_ptr(),
-          _cuda.ptr(tail_vec), _cuda.ptr(final_w), b, t_in, c_in, c, stride,
-          *dilations, int(final_w is not None))
+        y = torch.empty((b, t, c), dtype=x.dtype, device=dev)
+    if not quant:
+        BLOCK(x.data_ptr(), y.data_ptr(), pw.data_ptr(),
+              packed["tconv_pb"].data_ptr(), packed["w7"].data_ptr(),
+              packed["w1"].data_ptr(), packed["vec"].data_ptr(),
+              _cuda.ptr(tail_vec), _cuda.ptr(final_w), b, t_in, c_in, c,
+              stride, *dilations, int(final_w is not None))
+        return y
+    _check_tile(t, tt)
+    halo = halo_for(dilations, 6 if final_w is not None else 0)
+    if tt % stride:
+        raise ValueError(f"stride {stride} must divide tt={tt}")
+    n = b * (t // tt)
+    st = torch.empty((n, halo + tt, c), dtype=torch.bfloat16, device=dev)
+    s2 = torch.empty((n, halo + tt, c), dtype=torch.float32, device=dev)
+    amax = torch.zeros((1 + 2 * len(dilations), n), dtype=torch.float32,
+                       device=dev)
+    pwt = pw.transpose(1, 2).contiguous()
+    w7t = packed["w7"].transpose(2, 3).contiguous()
+    w1t = packed["w1"].transpose(1, 2).contiguous()
+    BLOCK_I8(x.data_ptr(), y.data_ptr(), pwt.data_ptr(),
+             packed["tconv_pb"].data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
+             packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
+             _cuda.ptr(final_w), st.data_ptr(), s2.data_ptr(),
+             amax.data_ptr(), b, t_in, c_in, c, stride, *dilations, tt, halo,
+             int(final_w is not None))
     return y

@@ -1,6 +1,6 @@
 """Port's stream decode attention and its KV-write fold (plain versions) vs
 the JAX Pallas kernels (interpret mode on the CPU), position-major int8
-layout."""
+and bf16 layouts."""
 
 import numpy as np
 import pytest
@@ -14,6 +14,7 @@ from fish_speech_tpu.ops.attention import (
 )
 from fish_speech_tpu_torch.models.dual_ar import KVCache, _write_cache
 from fish_speech_tpu_torch.ops.attention import (
+    BF16_KERNEL,
     FOLD_KERNEL,
     KERNEL,
     decode_attention_stream,
@@ -72,6 +73,61 @@ def test_wrapper_takes_plain_path_on_cpu():
                                       pos_major=True)
     assert torch.equal(a, b)
     assert KERNEL.launches == before   # a CPU call is not a kernel launch
+
+
+# --- the position-major bf16 cache ------------------------------------------
+
+
+def _bf16_inputs(seed=19):
+    """Shapes of tests/test_pallas_attention.py::test_stream_kernel_pos_major
+    with its bf16 cache (values rounded to bf16 once, shared by both)."""
+    rng = np.random.default_rng(seed)
+    L, b, hkv, g, d, s = 2, 4, 8, 4, 32, 128
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+    q = bf(rng.standard_normal((b, hkv, g, d)))
+    k = bf(rng.standard_normal((L, s, b, hkv, d)))
+    v = bf(rng.standard_normal((L, s, b, hkv, d)))
+    lengths = np.asarray([100, 128, 37, 64], np.int32)
+    starts = np.asarray([0, 30, 5, 0], np.int32)
+    return q, k, v, lengths, starts
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_plain_matches_pallas_stream_bf16_cache(layer):
+    q, k, v, lengths, starts = _bf16_inputs()
+    ref = pallas_decode_attention_stream(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), None, None, jnp.int32(layer),
+        jnp.asarray(lengths), jnp.asarray(starts), rows=2, chunk=64,
+        pos_major=True)
+    b16 = torch.bfloat16
+    t = torch.from_numpy
+    got = decode_attention_stream_plain(
+        t(q).to(b16), t(k).to(b16), t(v).to(b16), None, None, layer,
+        t(lengths), t(starts), pos_major=True)
+    assert got.dtype == b16
+    ref = np.asarray(ref, np.float32)
+    # p is rounded to bf16 at the kernel's running maxima (64-row chunks)
+    # and at the plain version's exact one: 2 bf16 ulps of the largest
+    # output (ulp = 2^-7 of its binade)
+    tol = 2 * 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=tol, rtol=0)
+
+
+def test_bf16_wrapper_takes_plain_path_on_cpu():
+    q, k, v, lengths, starts = _bf16_inputs(5)
+    b16 = torch.bfloat16
+    t = torch.from_numpy
+    args = (t(q).to(b16), t(k).to(b16), t(v).to(b16), None, None, 1,
+            t(lengths), t(starts))
+    before = (KERNEL.launches, BF16_KERNEL.launches)
+    a = decode_attention_stream(*args, pos_major=True)
+    assert torch.equal(a, decode_attention_stream_plain(*args,
+                                                        pos_major=True))
+    assert (KERNEL.launches, BF16_KERNEL.launches) == before
+    # the fold writes the int8 cache only
+    with pytest.raises(ValueError, match="int8"):
+        decode_attention_stream_fold(*args, args[1][1, 0], args[2][1, 0], 3)
 
 
 

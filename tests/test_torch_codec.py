@@ -131,3 +131,17 @@ def test_fused_matches_plain_path_on_port_init():
         device="cpu")
     np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+def test_tiles_follow_jax():
+    """The fused kernels' time tiles and tile caps are JAX's (the int8
+    vocoder's result depends on them)."""
+    for t in (16, 24, 48, 96, 100, 256, 384, 640, 2048, 2176, 4096, 6144,
+              65536, 262144):
+        for cap in (256, 512, 1024, 2048):
+            assert tfast._tile_for(t, cap) == jfast._tile_for(t, cap), (t,
+                                                                       cap)
+    for c in (8, 64, 96, 128, 192, 256, 384, 512, 768):
+        cp = jfast._lane_pad(c)
+        assert tfast._tile_cap(c) == (2048 if cp <= 128 else
+                                      (1024 if cp <= 256 else 512))

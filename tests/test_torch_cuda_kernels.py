@@ -191,6 +191,40 @@ def test_decode_attention_head_major(dev, entry, cache, int8_scores, b):
         assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
+@pytest.mark.parametrize("b", [1, 40])
+def test_decode_attention_stream_bf16(dev, b):
+    """#1 on a position-major bf16 cache: batch 1 over the full cache,
+    batch 40 over ragged rows."""
+    g = _gen(dev, 31 + b)
+    L, hkv, grp, d, s, layer = 2, 8, 4, 128, 384, 1
+    k = torch.randn((L, s, b, hkv, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((L, s, b, hkv, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    if b == 1:
+        lengths = torch.full((1,), s, dtype=torch.int32, device=dev)
+        starts = torch.zeros((1,), dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        starts = (torch.rand((b,), generator=g, device=dev)
+                  * lengths.float()).int()
+    before = ta.BF16_KERNEL.launches
+    got = decode_attention_stream(q, k, v, None, None, layer, lengths, starts,
+                                  pos_major=True)
+    ref = decode_attention_stream_plain(q, k, v, None, None, layer, lengths,
+                                        starts, pos_major=True)
+    torch.cuda.synchronize()
+    assert ta.BF16_KERNEL.launches == before + 1
+    err = (got.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    # p rounded to bf16 at the kernel's running maxima and at the plain
+    # version's exact one: 2 bf16 ulps of the largest output
+    assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
 # (N, K) of the S2-Pro slow stack's products: wqkv, wo, w1 and w3, w2
 S2_PRO_PRODUCTS = {"wqkv": (6144, 2560), "wo": (2560, 4096),
                    "w1": (9728, 2560), "w2": (2560, 9728)}
@@ -259,7 +293,7 @@ def test_fast_sweep(dev, pos, b):
                           rtol=2 ** -7)
 
 
-def _units(c, n, seed, dev):
+def _units(c, n, seed, dev, quant=False):
     g = np.random.default_rng(seed)
     units = []
     for _ in range(n):
@@ -271,7 +305,8 @@ def _units(c, n, seed, dev):
             "snake1_alpha": torch.from_numpy(g.uniform(0.5, 2.0, c)),
             "snake2_alpha": torch.from_numpy(g.uniform(0.5, 2.0, c)),
         })
-    return {k: v.to(dev) for k, v in tv.pack_res_stack(units).items()}
+    return {k: v.to(dev)
+            for k, v in tv.pack_res_stack(units, quant=quant).items()}
 
 
 def _tail(c, seed, dev):
@@ -317,3 +352,59 @@ def test_block(dev, stride, final):
     assert got.shape == ref.shape
     scale = 1.0 if final else ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+
+
+# the int8 packs (VOC_QUANT): the same codes and exact int32 sums on both
+# sides, and the f32 steps round alike (-fmad=false), so they agree bit for
+# bit unless a sum order moves the final conv's f32 sum; the bound is one
+# int8 step, 2^-7 of the output's scale. Several tiles each, batch 1 and 2.
+
+
+def _close_i8(got, ref, scale=None):
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    scale = ref.float().abs().max().item() if scale is None else scale
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -7 * scale
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("d,tail", [(1, False), (3, False), (9, True)])
+def test_res_stack_i8(dev, d, tail, b):
+    c, tt = 64, 64
+    packed = _units(c, 1, 22 + d, dev, quant=True)
+    tv_ = _tail(c, 24, dev) if tail else None
+    x = torch.randn(b, 3 * tt, c, device=dev).to(torch.bfloat16)
+    before = tv.RES_STACK_I8.launches
+    got = tv.fused_res_stack(x, packed, dilations=(d,), tail_vec=tv_, tt=tt)
+    ref = tv.fused_res_stack_plain(x, packed, dilations=(d,), tail_vec=tv_,
+                                   tt=tt)
+    torch.cuda.synchronize()
+    assert tv.RES_STACK_I8.launches == before + 1
+    _close_i8(got, ref)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("stride,final,tt", [(8, False, 64), (4, False, 32),
+                                             (2, True, 128)])
+def test_block_i8(dev, stride, final, tt, b):
+    c, c_in = 64, 128
+    g = np.random.default_rng(23)
+    packed = _units(c, 3, 25, dev, quant=True)
+    pwf = torch.from_numpy(g.normal(0, 0.05, (2, c_in, stride * c))).float()
+    ps = pwf.abs().amax(dim=(0, 1)).clamp_min(1e-12)
+    packed["tconv_pw"] = torch.round(pwf / ps * 127.0).to(dev, torch.int8)
+    bias = torch.from_numpy(np.tile(g.normal(0, 0.1, c), stride)).float()
+    packed["tconv_pb"] = torch.stack([bias, ps / 127.0]).to(dev)
+    fw = None
+    if final:
+        fwn = g.normal(0, 0.1, (8, c))
+        fwn[7] = 0.0
+        fwn[7, 0] = 0.03
+        fw = torch.from_numpy(fwn).to(dev, torch.float32)
+    kw = dict(stride=stride, tail_vec=_tail(c, 26, dev), final_w=fw, tt=tt)
+    x = torch.randn(b, 3 * tt // stride, c_in, device=dev).to(torch.bfloat16)
+    before = tv.BLOCK_I8.launches
+    got = tv.fused_block(x, packed, **kw)
+    ref = tv.fused_block_plain(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert tv.BLOCK_I8.launches == before + 1
+    _close_i8(got, ref, 1.0 if final else None)

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from fish_speech_tpu_torch.codec.config import tiny_codec_config
 from fish_speech_tpu_torch.engine.generate import (
@@ -172,14 +173,66 @@ def test_head_major_engine_route(route, monkeypatch):
     assert all(c == 0 for name, c in calls.items() if name != fn), calls
 
 
+def test_pos_native_engine_route(monkeypatch):
+    """build_engine(kv_layout="pos", kv_cache="native", attn="stream")
+    answers a request; every decode step's attention goes through the stream
+    function on the position-major bf16 cache, one call a layer."""
+    from fish_speech_tpu_torch.models import dual_ar
+
+    engine = build_engine(device="cpu", seed=3, lm_cfg=tiny_lm_config(),
+                          codec_cfg=tiny_codec_config(), cache_len=256,
+                          kv_layout="pos", kv_cache="native", attn="stream")
+    cfg = engine.cfg
+    assert cfg.kv_cache_layout == "pos" and cfg.kv_cache_dtype == "native"
+    seen = []
+
+    def stream(q, k, *a, **kw):
+        seen.append((k.dtype, k.dim(), kw.get("pos_major")))
+        return fn(q, k, *a, **kw)
+    fn = dual_ar.decode_attention_stream
+    monkeypatch.setattr(dual_ar, "decode_attention_stream", stream)
+    req = GenerateLongRequest(text="Hello there.", seed=5, max_new_tokens=6)
+    wav, codes, _ = engine.tts_with_codes(req)
+    n = codes.shape[1]
+    assert 1 <= n <= 6
+    assert codes.min() >= 0 and codes.max() < cfg.codebook_size
+    assert wav.shape == (n * engine.codec_cfg.frame_length,)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    assert len(seen) >= (n - 1) * cfg.n_layer and len(seen) % cfg.n_layer == 0
+    assert set(seen) == {(torch.bfloat16, 5, True)}
+
+
+def test_voc_quant_engine(monkeypatch):
+    """build_engine(voc_quant=True) packs the int8 vocoder and answers a
+    request; voc_quant=None reads VOC_QUANT, as the JAX packer does."""
+    kw = dict(device="cpu", seed=3, lm_cfg=tiny_lm_config(),
+              codec_cfg=tiny_codec_config(), cache_len=256)
+    engine = build_engine(voc_quant=True, **kw)
+    res = engine.packed_decoder["blocks"][0]["res"]
+    assert res["w7"].dtype == torch.int8 and res["vec"].shape[1] == 8
+    req = GenerateLongRequest(text="Hello there.", seed=5, max_new_tokens=6)
+    wav, codes, _ = engine.tts_with_codes(req)
+    n = codes.shape[1]
+    assert 1 <= n <= 6
+    assert wav.shape == (n * engine.codec_cfg.frame_length,)
+    assert np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+    monkeypatch.setenv("VOC_QUANT", "1")
+    assert build_engine(**kw).packed_decoder["blocks"][0]["res"][
+        "w7"].dtype == torch.int8
+    monkeypatch.delenv("VOC_QUANT")
+    assert build_engine(**kw).packed_decoder["blocks"][0]["res"][
+        "w7"].dtype == torch.float32
+
+
 def test_engine_refuses_unported_or_unreadable_configurations():
     kw = dict(device="cpu", lm_cfg=tiny_lm_config(),
               codec_cfg=tiny_codec_config(), cache_len=256)
     # a position-major cache is readable by the stream kernel only
     with pytest.raises(ValueError, match="streaming"):
         build_engine(kv_layout="pos", attn="rows", **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        build_engine(kv_layout="pos", kv_cache="native", **kw)
+    # the fold writes the position-major int8 cache only
+    with pytest.raises(ValueError, match="kv_fold"):
+        build_engine(kv_layout="pos", kv_cache="native", kv_fold=True, **kw)
     with pytest.raises(ValueError, match="kv_fold"):
         build_engine(kv_layout="head", kv_fold=True, **kw)
     with pytest.raises(ValueError, match="stack_mode"):

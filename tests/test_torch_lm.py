@@ -327,6 +327,31 @@ def test_w4a8_fold_greedy_generate_matches_jax(serving_w4a8_fold):
     _greedy_generate_check(serving_w4a8_fold)
 
 
+# --- the position-major native (bf16) cache --------------------------------
+
+
+@pytest.fixture(scope="module")
+def serving_pos_native():
+    """The position-major bf16 cache read by the stream kernel (the JAX
+    serving CLIs' --kv-cache native --kv-layout pos --pallas-attn stream)."""
+    return _serving_setup(kv_cache="native")
+
+
+def test_pos_native_decode_step_matches_jax(serving_pos_native):
+    r = _prefill_and_step(serving_pos_native)
+    col0, col0_t = r["col0"]
+    ref, got = r["logits"]
+    np.testing.assert_array_equal(col0_t, col0)
+    # the head-major routes' tolerance: bf16 activations, f32 sums in
+    # another order
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+    assert np.corrcoef(got.ravel(), ref.ravel())[0, 1] > 0.999
+
+
+def test_pos_native_greedy_generate_matches_jax(serving_pos_native):
+    _greedy_generate_check(serving_pos_native)
+
+
 # --- the head-major routes -------------------------------------------------
 
 # (attention mode, kv cache, stack mode): each route's decode attention
