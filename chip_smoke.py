@@ -327,28 +327,37 @@ def head_call(entry: str, plain: bool, q, k, v, ks, vs, layer: int,
 
 def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
     """#1 head-major and #6-#10 at the main path's shape (B=1, S=2048,
-    full) and the bench shape (B=256, S=384, ragged), on the int8 and the
-    bf16 cache wherever the entry takes both, blocks and stream with and
-    without int8 scores. Timing walks the 36 layers. Library yardstick for
-    a bf16 cache: one scaled_dot_product_attention over the same q, k, v
-    and a boolean mask (GQA); none computes the int8 cache's function.
-    Also times the per-layer int8 route's eager dequantization of one
-    layer (k and v, bf16 products). Returns {C entry: cases}."""
+    full), early in such a request (B=1, S=2048, keys 0-255: the kernel's
+    split over CTAs leaves most splits empty) and the bench shape (B=256,
+    S=384, ragged), on the int8 and the bf16 cache wherever the entry
+    takes both, blocks and stream with and without int8 scores. Timing
+    walks the 36 layers. Library yardstick for a bf16 cache: one
+    scaled_dot_product_attention over the same q, k, v and a boolean mask
+    (GQA); none computes the int8 cache's function. Also times the
+    per-layer int8 route's eager dequantization of one layer (k and v,
+    bf16 products). Returns {C entry: cases}."""
+    from fish_speech_tpu_torch.ops.attention import _sm_count, head_split
+
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
     cases = {name: [] for name, *_ in HEAD_ENTRIES}
     dequant = []
-    for b, s, ragged in ((1, 2048, False), (256, 384, True)):
+    for b, s, fill in ((1, 2048, "full"), (1, 2048, "early"),
+                       (256, 384, "ragged")):
         q = torch.randn((b, hkv, g, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        if ragged:
+        if fill == "ragged":
             lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
                                     device=dev, dtype=torch.int32)
             starts = torch.randint(0, s // 8, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
         else:
-            lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+            lengths = torch.full((b,), s if fill == "full" else 256,
+                                 dtype=torch.int32, device=dev)
             starts = torch.zeros((b,), dtype=torch.int32, device=dev)
+        n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index or 0))
+        log(f"  head-major B={b} S={s} {fill}: n_split={n_split} "
+            f"chunk={chunk} ({n_split * b * hkv} CTAs)")
         pos = torch.arange(s, device=dev)
         mask = ((pos[None] >= starts[:, None])
                 & (pos[None] < lengths[:, None]))[:, None, None, :]
@@ -374,9 +383,10 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
                             * ks[li][..., None].to(torch.bfloat16),
                             v[li].to(torch.bfloat16)
                             * vs[li][..., None].to(torch.bfloat16))
-                dequant.append({"b": b, "s": s, "ms": time_ms(deq, n_layer)})
+                dequant.append({"b": b, "s": s, "fill": fill,
+                                "ms": time_ms(deq, n_layer)})
                 log(f"  per-layer int8 dequant (k and v, one layer) B={b} "
-                    f"S={s}: {dequant[-1]['ms']:.4g} ms")
+                    f"S={s} {fill}: {dequant[-1]['ms']:.4g} ms")
             else:
                 k = torch.empty(shape, dtype=torch.bfloat16, device=dev)
                 v = torch.empty(shape, dtype=torch.bfloat16, device=dev)
@@ -431,12 +441,13 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
                     top = ref.float().abs().max().item()
                     tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
                     label = (f"{kind}{' int8 scores' if i8 else ''} B={b} "
-                             f"S={s}")
+                             f"S={s} {fill}")
                     cases[name].append(chk.case(
                         name, label, max_err(got, ref), tol, ms=ms,
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=library_ms, filled_positions=filled,
-                        cache=kind, int8_scores=i8, b=b))
+                        cache=kind, int8_scores=i8, b=b, fill=fill,
+                        n_split=n_split, chunk=chunk))
             del k, v, ks, vs
             torch.cuda.empty_cache()
     cases["decode_attention"][0]["int8_scan_dequant"] = dequant
@@ -1137,15 +1148,16 @@ def main() -> int:
         entry("voc_res_stack_i8", "fish_speech_tpu/ops/voc_fused.py:459",
               res_i8, res_i8[:1], "voc_quant"),
     ]}
-    # the head-major entries; headline: the batch-1 case of the route's
-    # cache; launches: their routes' requests (#9, #10: the checks')
+    # the head-major entries; headline: the batch-1 case over the full
+    # cache of the route's cache; launches: their routes' requests (#9,
+    # #10: the checks')
     routes_of = {}
     for route, _, _, _, kernel in HEAD_ROUTES:
         routes_of.setdefault(kernel, []).append(f"head_{route}")
     for name, _, replaces, _, (hk, hi8) in HEAD_ENTRIES:
         cs = head[name]
-        hl = [c for c in cs if c["b"] == 1 and c["cache"] == hk
-              and c["int8_scores"] == hi8]
+        hl = [c for c in cs if c["b"] == 1 and c["fill"] == "full"
+              and c["cache"] == hk and c["int8_scores"] == hi8]
         report["kernels"].append(entry(
             name, replaces, cs, hl, routes_of.get(name, "phase3_checks")))
     print(json.dumps(report), flush=True)

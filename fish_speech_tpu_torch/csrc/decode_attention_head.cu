@@ -42,20 +42,39 @@
 // per (row, kv head): 2 x 128 B of int8 k and v and two f32 scales, or
 // 2 x 256 B of bf16, against 2 x G x 128 multiply-adds of each. At the
 // engine's batch 1 and S = 2048 an int8 layer is ~4.3 MB, ~1.3 us at
-// 3.35 TB/s.
+// 3.35 TB/s. A CTA walks its keys in tiles, and each tile costs a copy's
+// latency plus three barriers and the softmax step's shuffles whatever its
+// bytes: with one CTA per (kv head, row), batch 1 gave 8 CTAs on 132 SMs,
+// each walking 64 tiles in series, and that walk set the time.
 //
-// Design (simple first): one CTA of 128 threads per (kv head, row), as the
-// position-major kernel in decode_attention.cu. In the head-major layout a
-// (row, kv head)'s keys are one contiguous S x D stripe and its scales one
-// contiguous S-vector, so the CTA stages TP = 32 positions of k and v at a
-// time into shared memory with 16-byte loads over a contiguous block. Each
-// warp scores positions with its lanes over D (four elements a lane:
-// __dp4a on the int8 query for int8 scores), reduced by shuffles; one warp
-// per query head then takes the tile's max and sum with one lane per
-// position (TP = 32) and writes the value weights; thread d accumulates
-// output column d. A grid over (Hkv, B) replaces the TPU kernels' row
-// blocks. Not yet done: splitting one row's key range over several CTAs,
-// which batch 1 needs to fill the card (8 CTAs on 132 SMs).
+// Design. The grid is (n_split, Hkv, B): split c of a row takes the keys
+// [c * chunk, (c + 1) * chunk) within [start, length), so at batch 1 each
+// of ~256 CTAs walks two tiles (the wrapper picks n_split and chunk from
+// the shapes and the SM count, ops/attention.py::head_split). A split
+// keeps the online softmax's running max m, sum l and unnormalised
+// accumulator for its keys and writes them, in f32, to scratch laid out
+// (B, Hkv, n_split, G, D) for the accumulators, then (B, Hkv, n_split, G)
+// for m and for l; a split with no key writes m = -inf, l = 0, acc = 0. A
+// second kernel of one CTA per (query head, kv head, row), launched from
+// the same entry on the same stream, combines them in split order (no
+// atomics: the result does not depend on which CTA ran first):
+// M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-20).
+// With n_split = 1 (large batches fill the card) the first kernel writes
+// the output itself and the second is not launched. The value weights are
+// rounded where the TPU kernels round them, at the split's running maximum;
+// the combine rescales them in f32, as the online softmax rescales its
+// accumulator.
+//
+// Inside a CTA of 128 threads the tile's k and v rows (one contiguous block
+// of the (row, kv head) stripe) and its scales are copied into shared
+// memory with cp.async, double-buffered: the next tile's copy is issued as
+// soon as the current one has landed and overlaps the current tile's work,
+// and three barriers a tile remain. Each warp scores positions with its
+// lanes over D (four elements a lane: __dp4a on the int8 query for int8
+// scores), reduced by shuffles; one warp per query head then takes the
+// tile's max and sum with one lane per position and writes the value
+// weights; thread d accumulates output column d. Tiles are 32 positions
+// (16 for an f32 cache, so that two buffers fit static shared memory).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +87,18 @@ namespace {
 
 constexpr int NT = 128;        // threads; thread d owns output column d
 constexpr int D = 128;         // head dim
-constexpr int TP = 32;         // key positions per tile, one per lane
 constexpr int NW = NT / 32;
+constexpr int CHUNK_ALIGN = 32;  // a split's keys: a multiple of every TP
 
 enum Variant { BLOCKS = 0, ROWS = 1, F32 = 2 };
 enum CacheKind { KIND_INT8 = 0, KIND_BF16 = 1, KIND_F32 = 2 };
+
+// key positions per tile, at most one per lane; two tiles of k and v stay
+// within the 48 KB of static shared memory
+template <typename CT>
+struct Tile {
+  static constexpr int P = sizeof(CT) == 4 ? 16 : 32;
+};
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -101,6 +127,35 @@ __device__ __forceinline__ void load4(const float* p, float* f) {
   f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
 
+// asynchronous copies into shared memory: 16 bytes bypassing L1 (rows),
+// 4 bytes (a scale: a tile's scales need not be 16-byte aligned)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void store_out(void* out, size_t i, float o,
+                                          int q_f32) {
+  if (q_f32)
+    reinterpret_cast<float*>(out)[i] = o;
+  else
+    reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(o);
+}
+
 template <typename CT, int V, int G>
 __global__ void __launch_bounds__(NT) head_attn_kernel(
     const void* __restrict__ q,            // (B, Hkv, G, D) bf16 or f32
@@ -110,27 +165,79 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
     const float* __restrict__ vs,
     const int* __restrict__ lengths, const int* __restrict__ starts,
     void* __restrict__ out,                // (B, Hkv, G, D) as q
-    int S, int B, int Hkv, int layer, float scale, int int8_scores,
-    int q_f32) {
+    float* __restrict__ part,              // partials, n_split > 1 only
+    int S, int B, int Hkv, int layer, int chunk, float scale,
+    int int8_scores, int q_f32) {
   constexpr bool I8 = std::is_same<CT, int8_t>::value;
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  constexpr int TP = Tile<CT>::P;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const bool use_i8 = I8 && V == BLOCKS && int8_scores;
+  const size_t row = (size_t)b * Hkv + h;
 
-  __shared__ __align__(16) CT sk[TP * D];
-  __shared__ __align__(16) CT sv[TP * D];
+  // the query (thread tid loads column tid of each head), read alongside
+  // the row's range
+  float qg[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const size_t i = (row * G + g) * D + tid;
+    qg[g] = q_f32 ? reinterpret_cast<const float*>(q)[i]
+                  : __bfloat162float(
+                        reinterpret_cast<const __nv_bfloat16*>(q)[i]);
+  }
+  // this split's keys
+  const int lo = max(starts[b], c * chunk);
+  const int hi = min(min(lengths[b], S), (c + 1) * chunk);
+  const size_t n_part = (size_t)B * Hkv * n_split * G;    // (m or l) count
+  const size_t pi = (row * n_split + c) * G;              // this split's
+  if (lo >= hi) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (n_split == 1)
+        store_out(out, (row * G + g) * D + tid, 0.f, q_f32);
+      else
+        part[(pi + g) * D + tid] = 0.f;
+    }
+    if (n_split > 1 && tid < G) {
+      part[n_part * D + pi + tid] = -INFINITY;
+      part[n_part * (D + 1) + pi + tid] = 0.f;
+    }
+    return;
+  }
+
+  __shared__ __align__(16) CT sk[2][TP * D];
+  __shared__ __align__(16) CT sv[2][TP * D];
+  __shared__ float ksc[2][TP], vsc[2][TP];
   __shared__ float qf[G][D];
   __shared__ float ss[G][TP];          // scores, then value weights
-  __shared__ float ksc[TP], vsc[TP];
   __shared__ float qsc[G];
   __shared__ float m_s[G], l_s[G], corr_s[G];
 
-  const size_t row = (size_t)b * Hkv + h;
-  for (int i = tid; i < G * D; i += NT)
-    qf[i / D][i % D] =
-        q_f32 ? reinterpret_cast<const float*>(q)[row * G * D + i]
-              : __bfloat162float(
-                    reinterpret_cast<const __nv_bfloat16*>(q)[row * G * D + i]);
+  const size_t stripe = (((size_t)layer * B + b) * Hkv + h) * (size_t)S;
+  const CT* kb = k + stripe * D;
+  const CT* vb = v + stripe * D;
+  constexpr int CH = D * (int)sizeof(CT) / 16;     // 16-byte chunks a row
+
+  // issue the copies of the tile at t0 into buffer `buf`, as one group
+  auto stage = [&](int t0, int buf) {
+    const int n = min(TP, hi - t0);
+    const int4* ksrc = reinterpret_cast<const int4*>(kb + (size_t)t0 * D);
+    const int4* vsrc = reinterpret_cast<const int4*>(vb + (size_t)t0 * D);
+    for (int i = tid; i < n * CH; i += NT) {
+      cp_async16(reinterpret_cast<int4*>(sk[buf]) + i, ksrc + i);
+      cp_async16(reinterpret_cast<int4*>(sv[buf]) + i, vsrc + i);
+    }
+    if (I8 && tid < n) {
+      cp_async4(&ksc[buf][tid], ks + stripe + t0 + tid);
+      cp_async4(&vsc[buf][tid], vs + stripe + t0 + tid);
+    }
+    cp_async_commit();
+  };
+  stage(lo, 0);          // the first tile's copy overlaps the query's setup
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) qf[g][tid] = qg[g];
   if (tid < G) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -166,34 +273,25 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
     }
   }
 
-  const int length = lengths[b], start = starts[b];
-  const size_t stripe = (((size_t)layer * B + b) * Hkv + h) * (size_t)S;
-  const CT* kb = k + stripe * D;
-  const CT* vb = v + stripe * D;
-
   float acc[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
 
-  constexpr int CH = D * (int)sizeof(CT) / 16;     // 16-byte chunks a row
-  for (int t0 = start; t0 < length; t0 += TP) {
-    const int n = min(TP, length - t0);
-    // the tile's rows are one contiguous block of the stripe
-    const int4* ksrc = reinterpret_cast<const int4*>(kb + (size_t)t0 * D);
-    const int4* vsrc = reinterpret_cast<const int4*>(vb + (size_t)t0 * D);
-    for (int c = tid; c < n * CH; c += NT) {
-      reinterpret_cast<int4*>(sk)[c] = ksrc[c];
-      reinterpret_cast<int4*>(sv)[c] = vsrc[c];
-    }
-    if (I8 && tid < n) {
-      ksc[tid] = ks[stripe + t0 + tid];
-      vsc[tid] = vs[stripe + t0 + tid];
-    }
+  for (int t0 = lo, it = 0; t0 < hi; t0 += TP, ++it) {
+    const int n = min(TP, hi - t0), buf = it & 1;
+    const CT* tk = sk[buf];
+    const CT* tv = sv[buf];
+    const float* tks = ksc[buf];
+    const float* tvs = vsc[buf];
+    cp_async_wait_all();
+    // the tile is visible to every thread, and every thread is done with
+    // the previous tile: its buffer, ss and corr_s may be written again
     __syncthreads();
+    if (t0 + TP < hi) stage(t0 + TP, buf ^ 1);
 
     // scores: each warp takes positions, its lanes split D
     for (int p = warp; p < n; p += NW) {
-      const CT* kr = sk + p * D + 4 * lane;
+      const CT* kr = tk + p * D + 4 * lane;
       float s[G];
       if (use_i8) {
         const int kw = *reinterpret_cast<const int*>(kr);
@@ -205,13 +303,13 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
           for (int o = 16; o > 0; o >>= 1)
             dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
 #pragma unroll
-        for (int g = 0; g < G; ++g) s[g] = (float)dot[g] * qmul[g] * ksc[p];
+        for (int g = 0; g < G; ++g) s[g] = (float)dot[g] * qmul[g] * tks[p];
       } else {
         float kf[4];
         load4(kr, kf);
         if (I8 && V == ROWS) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) kf[j] = bf16r(kf[j] * ksc[p]);
+          for (int j = 0; j < 4; ++j) kf[j] = bf16r(kf[j] * tks[p]);
         }
 #pragma unroll
         for (int g = 0; g < G; ++g)
@@ -224,7 +322,7 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           s[g] = s[g] * scale;
-          if (I8 && V != ROWS) s[g] = s[g] * ksc[p];
+          if (I8 && V != ROWS) s[g] = s[g] * tks[p];
         }
       }
       if (lane == 0) {
@@ -247,14 +345,16 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
       float sum = p;
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      float w;
-      if (V == F32)
-        w = I8 ? p * vsc[lane] : p;
-      else if (V == BLOCKS && I8)
-        w = bf16r(p * vsc[lane]);
-      else
-        w = bf16r(p);
-      ss[g][lane] = ok ? w : 0.f;
+      float w = 0.f;
+      if (ok) {
+        if (V == F32)
+          w = I8 ? p * tvs[lane] : p;
+        else if (V == BLOCKS && I8)
+          w = bf16r(p * tvs[lane]);
+        else
+          w = bf16r(p);
+        ss[g][lane] = w;
+      }
       __syncwarp();
       if (lane == 0) {
         const float corr = expf(m_old - m_new);
@@ -269,35 +369,85 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[g] *= corr_s[g];
     for (int p = 0; p < n; ++p) {
-      float vv = to_f(sv[p * D + tid]);
-      if (I8 && V == ROWS) vv = bf16r(vv * vsc[p]);
+      float vv = to_f(tv[p * D + tid]);
+      if (I8 && V == ROWS) vv = bf16r(vv * tvs[p]);
 #pragma unroll
       for (int g = 0; g < G; ++g) acc[g] += ss[g][p] * vv;
     }
-    __syncthreads();
+  }
+  // l_s and m_s were last written before the last tile's third barrier
+  if (n_split == 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      store_out(out, (row * G + g) * D + tid, acc[g] / fmaxf(l_s[g], 1e-20f),
+                q_f32);
+    return;
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float o = acc[g] / fmaxf(l_s[g], 1e-20f);
-    const size_t i = (row * G + g) * D + tid;
-    if (q_f32)
-      reinterpret_cast<float*>(out)[i] = o;
-    else
-      reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(o);
+  for (int g = 0; g < G; ++g) part[(pi + g) * D + tid] = acc[g];
+  if (tid < G) {
+    part[n_part * D + pi + tid] = m_s[tid];
+    part[n_part * (D + 1) + pi + tid] = l_s[tid];
   }
+}
+
+// One CTA per (query head, kv head, row); thread d owns column d. The
+// splits' m and l go to shared memory with one load each, then their
+// weights e^(m_i - M); the sums run in split order: deterministic.
+__global__ void __launch_bounds__(NT) head_combine_kernel(
+    const float* __restrict__ part, void* __restrict__ out, int B, int Hkv,
+    int G, int n_split, int q_f32) {
+  extern __shared__ float cs[];   // m then weights, and l: n_split each
+  __shared__ float mx_s;
+  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const size_t row = (size_t)b * Hkv + h;
+  const size_t n_part = (size_t)B * Hkv * n_split * G;
+  const size_t e0 = row * n_split * G + g;     // split i: entry e0 + i * G
+  float* ws = cs;
+  float* ls = cs + n_split;
+  for (int i = tid; i < n_split; i += NT) {
+    ws[i] = part[n_part * D + e0 + (size_t)i * G];
+    ls[i] = part[n_part * (D + 1) + e0 + (size_t)i * G];
+  }
+  __syncthreads();
+  if (tid < 32) {
+    float mx = -INFINITY;
+    for (int i = tid; i < n_split; i += 32) mx = fmaxf(mx, ws[i]);
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (tid == 0) mx_s = mx;
+  }
+  __syncthreads();
+  const float mx = mx_s;
+  for (int i = tid; i < n_split; i += NT) {
+    // an empty split (m = -inf) weighs 0; so does every split of an empty
+    // row, where mx = -inf too and e^(m - mx) would be NaN
+    const float m = ws[i];
+    ws[i] = m == -INFINITY ? 0.f : expf(m - mx);
+  }
+  __syncthreads();
+  const float* acc = part + e0 * D + tid;
+  float num = 0.f, den = 0.f;
+#pragma unroll 16
+  for (int i = 0; i < n_split; ++i) {
+    num += acc[(size_t)i * G * D] * ws[i];
+    den += ls[i] * ws[i];
+  }
+  store_out(out, (row * G + g) * D + tid, num / fmaxf(den, 1e-20f), q_f32);
 }
 
 template <typename CT, int V>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* lengths, const void* starts,
-           void* out, int S, int B, int Hkv, int G, int layer, float scale,
-           int int8_scores, int q_f32, cudaStream_t st) {
-  dim3 grid(Hkv, B);
+           void* out, void* part, int S, int B, int Hkv, int G, int layer,
+           int n_split, int chunk, float scale, int int8_scores, int q_f32,
+           cudaStream_t st) {
+  dim3 grid(n_split, Hkv, B);
 #define HEAD_ATTN_LAUNCH(GG)                                               \
   head_attn_kernel<CT, V, GG><<<grid, NT, 0, st>>>(                        \
       q, (const CT*)k, (const CT*)v, (const float*)ks, (const float*)vs,   \
-      (const int*)lengths, (const int*)starts, out, S, B, Hkv, layer,      \
-      scale, int8_scores, q_f32)
+      (const int*)lengths, (const int*)starts, out, (float*)part, S, B,    \
+      Hkv, layer, chunk, scale, int8_scores, q_f32)
   switch (G) {
     case 1: HEAD_ATTN_LAUNCH(1); break;
     case 2: HEAD_ATTN_LAUNCH(2); break;
@@ -306,30 +456,43 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef HEAD_ATTN_LAUNCH
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  head_combine_kernel<<<dim3(G, Hkv, B), NT, 2 * sizeof(float) * n_split,
+                        st>>>((const float*)part, out, B, Hkv, G, n_split,
+                              q_f32);
   return (int)cudaGetLastError();
 }
 
 template <int V>
 int entry(const void* q, const void* k, const void* v, const void* ks,
           const void* vs, const void* lengths, const void* starts, void* out,
-          int L, int S, int B, int Hkv, int G, int Dh, int layer, float scale,
-          int int8_scores, int cache_kind, int q_f32, void* stream) {
-  if (Dh != D || layer < 0 || layer >= L) return (int)cudaErrorInvalidValue;
+          void* part, int L, int S, int B, int Hkv, int G, int Dh, int layer,
+          int n_split, int chunk, float scale, int int8_scores,
+          int cache_kind, int q_f32, void* stream) {
+  if (Dh != D || layer < 0 || layer >= L || n_split < 1 || chunk < 1
+      || (long long)n_split * chunk < S)
+    return (int)cudaErrorInvalidValue;
+  // the combine keeps 2 * n_split floats in (default-limit) shared memory
+  if (n_split > 1 && (part == nullptr || chunk % CHUNK_ALIGN != 0
+                      || n_split > 6 * 1024))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (cache_kind) {
     case KIND_INT8:
       if (ks == nullptr || vs == nullptr) return (int)cudaErrorInvalidValue;
-      return launch<int8_t, V>(q, k, v, ks, vs, lengths, starts, out, S, B,
-                               Hkv, G, layer, scale, int8_scores, q_f32, st);
+      return launch<int8_t, V>(q, k, v, ks, vs, lengths, starts, out, part,
+                               S, B, Hkv, G, layer, n_split, chunk, scale,
+                               int8_scores, q_f32, st);
     case KIND_BF16:
       return launch<__nv_bfloat16, V>(q, k, v, nullptr, nullptr, lengths,
-                                      starts, out, S, B, Hkv, G, layer, scale,
-                                      0, q_f32, st);
+                                      starts, out, part, S, B, Hkv, G, layer,
+                                      n_split, chunk, scale, 0, q_f32, st);
     case KIND_F32:
       if constexpr (V == F32)
         return launch<float, V>(q, k, v, nullptr, nullptr, lengths, starts,
-                                out, S, B, Hkv, G, layer, scale, 0, q_f32,
-                                st);
+                                out, part, S, B, Hkv, G, layer, n_split,
+                                chunk, scale, 0, q_f32, st);
       return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
@@ -338,19 +501,20 @@ int entry(const void* q, const void* k, const void* v, const void* ks,
 
 }  // namespace
 
-// All six: q k v ks vs lengths starts out | L S B Hkv G D layer | scale |
-// int8_scores cache_kind (0 int8, 1 bf16, 2 f32) q_f32 | stream.
-// ks and vs are null for a bf16 or f32 cache.
+// All six: q k v ks vs lengths starts out part | L S B Hkv G D layer
+// n_split chunk | scale | int8_scores cache_kind (0 int8, 1 bf16, 2 f32)
+// q_f32 | stream. ks and vs are null for a bf16 or f32 cache; part (f32
+// scratch of B * Hkv * n_split * G * (D + 2)) is null when n_split is 1.
 #define HEAD_ATTN_ENTRY(NAME, V)                                           \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const void* ks, const void* vs, const void* lengths,  \
-                      const void* starts, void* out, int L, int S, int B,   \
-                      int Hkv, int G, int Dh, int layer, float scale,       \
-                      int int8_scores, int cache_kind, int q_f32,           \
-                      void* stream) {                                       \
-    return entry<V>(q, k, v, ks, vs, lengths, starts, out, L, S, B, Hkv, G, \
-                    Dh, layer, scale, int8_scores, cache_kind, q_f32,       \
-                    stream);                                                \
+                      const void* starts, void* out, void* part, int L,     \
+                      int S, int B, int Hkv, int G, int Dh, int layer,      \
+                      int n_split, int chunk, float scale, int int8_scores, \
+                      int cache_kind, int q_f32, void* stream) {            \
+    return entry<V>(q, k, v, ks, vs, lengths, starts, out, part, L, S, B,   \
+                    Hkv, G, Dh, layer, n_split, chunk, scale, int8_scores,  \
+                    cache_kind, q_f32, stream);                             \
   }
 
 HEAD_ATTN_ENTRY(decode_attention_stream_head, BLOCKS)

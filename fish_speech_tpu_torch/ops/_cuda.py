@@ -50,9 +50,9 @@ SIGNATURES = {
     "decode_attention_stream_fold": ("decode_attention", [_P] * 10
                                      + [_I] * 8 + [_F, _I, _P]),
     # the head-major entries, one per JAX entry: q k v ks vs lengths starts
-    # out | L S B Hkv G D layer | scale | int8_scores cache_kind q_f32 |
-    # stream
-    **{name: ("decode_attention_head", [_P] * 8 + [_I] * 7 + [_F]
+    # out part | L S B Hkv G D layer n_split chunk | scale | int8_scores
+    # cache_kind q_f32 | stream
+    **{name: ("decode_attention_head", [_P] * 9 + [_I] * 9 + [_F]
               + [_I] * 3 + [_P])
        for name in ("decode_attention_stream_head", "decode_attention_blocks",
                     "decode_attention_stacked_rows", "decode_attention",

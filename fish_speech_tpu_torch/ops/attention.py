@@ -29,7 +29,11 @@ with none, csrc/decode_attention_head.cu (one C entry each):
 - `decode_attention` and `decode_attention_chunked`: one layer's
   (B, Hkv, S, D) cache of any float type, f32 throughout.
 `rows` and `chunk` group the TPU kernels' work; the CUDA kernels take their
-own tiles, and the plain versions one exact softmax.
+own tiles, and the plain versions one exact softmax. The head-major kernel
+splits each row's key range over `head_split`'s n_split CTAs when the batch
+alone would not fill the card, and combines the splits' partial softmax
+results in a second pass over f32 scratch the wrapper allocates; one call
+is then two device launches (and one count of `launches`).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.
@@ -37,6 +41,7 @@ version for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -224,18 +229,11 @@ def _layer_of(k_full, v_full, ks_full, vs_full, layer: int):
     return k_full[layer], v_full[layer], ks_full[layer], vs_full[layer]
 
 
-def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
-                int8_scores: bool = False) -> torch.Tensor:
-    """The head-major entries' arithmetic, with one exact softmax.
-
-    k/v (B, Hkv, S, D); ks/vs (B, Hkv, S) f32 for an int8 cache, else None.
-    variant "blocks" (stream, blocks), "rows" (stacked_rows) or "f32"
-    (dense, stacked, chunked) places the roundings as the TPU kernel of
-    that name does (csrc/decode_attention_head.cu lists them). Masked keys
-    score -1e30, as in the TPU kernels."""
-    d = q.shape[-1]
-    s = k.shape[2]
-    scale = 1.0 / math.sqrt(d)
+def _head_scores(q, k, v, ks, vs, variant: str, int8_scores: bool = False):
+    """The head-major entries' scores (B, Hkv, G, S) and the values the
+    weights multiply (B, Hkv, S, D), both f32 and unmasked; arguments as
+    `_head_plain`'s."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
     i8 = ks is not None
     bf = torch.bfloat16
     kt = k.float().transpose(-1, -2)
@@ -256,19 +254,68 @@ def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
             sc = (q.to(bf).float() @ kt) * scale
         if i8:
             sc = sc * ks[:, :, None, :]
-    pos = torch.arange(s, device=q.device)
-    valid = ((pos[None, :] < lengths[:, None])
-             & (pos[None, :] >= starts[:, None]))[:, None, None, :]
+    return sc, vf
+
+
+def _head_weights(p, vs, variant: str) -> torch.Tensor:
+    """The value weights of probabilities p (B, Hkv, G, S'), rounded as the
+    variant's TPU kernel rounds them; vs: the keys' (B, Hkv, S') value
+    scales of an int8 cache, else None."""
+    if variant == "f32":
+        return p * vs[:, :, None, :] if vs is not None else p
+    if variant == "blocks" and vs is not None:
+        return (p * vs[:, :, None, :]).to(torch.bfloat16).float()
+    return p.to(torch.bfloat16).float()
+
+
+def _head_valid(lengths, starts, s: int, device) -> torch.Tensor:
+    """(B, 1, 1, S): the keys in [starts[b], lengths[b])."""
+    pos = torch.arange(s, device=device)
+    return ((pos[None, :] < lengths[:, None])
+            & (pos[None, :] >= starts[:, None]))[:, None, None, :]
+
+
+def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
+                int8_scores: bool = False) -> torch.Tensor:
+    """The head-major entries' arithmetic, with one exact softmax.
+
+    k/v (B, Hkv, S, D); ks/vs (B, Hkv, S) f32 for an int8 cache, else None.
+    variant "blocks" (stream, blocks), "rows" (stacked_rows) or "f32"
+    (dense, stacked, chunked) places the roundings as the TPU kernel of
+    that name does (csrc/decode_attention_head.cu lists them). Masked keys
+    score -1e30, as in the TPU kernels."""
+    sc, vf = _head_scores(q, k, v, ks, vs, variant, int8_scores)
+    valid = _head_valid(lengths, starts, k.shape[2], q.device)
     sc = torch.where(valid, sc, torch.full((), -1e30, device=q.device))
     p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
-    if variant == "f32":
-        pv = p * vs[:, :, None, :] if i8 else p
-    elif variant == "blocks" and i8:
-        pv = (p * vs[:, :, None, :]).to(bf).float()
-    else:
-        pv = p.to(bf).float()
+    pv = _head_weights(p, vs, variant)
     return ((pv @ vf) / den.clamp_min(1e-20)).to(q.dtype)
+
+
+# key positions a tile of csrc/decode_attention_head.cu takes (16 for an
+# f32 cache, which divides it): a split's keys are a multiple of this
+HEAD_TP = 32
+
+
+def head_split(s: int, b: int, hkv: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, chunk) of the head-major kernel for a cache of S positions
+    at batch B with Hkv kv heads on a card of n_sm SMs: split c of a row
+    takes keys [c * chunk, (c + 1) * chunk), chunk a multiple of HEAD_TP,
+    and n_split * chunk >= S. It aims at about two CTAs an SM: B * Hkv
+    CTAs that already fill the card take one split (the kernel then writes
+    the output directly). Shapes only, never the lengths: no host sync,
+    and a fixed launch for a captured step."""
+    s = max(s, 1)
+    tiles = -(-s // HEAD_TP)
+    n = max(1, min(-(-2 * n_sm // (b * hkv)), tiles))
+    chunk = -(-tiles // n) * HEAD_TP
+    return -(-s // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _CACHE_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -309,12 +356,16 @@ def _launch_head(kernel: _cuda.Kernel, q, k_full, v_full, ks_full, vs_full,
         raise ValueError("a bf16 or f32 cache takes no scales")
     _cuda.check(lengths, "lengths", torch.int32, (b,), dev)
     _cuda.check(starts, "starts", torch.int32, (b,), dev)
+    n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index))
     out = torch.empty_like(q)
+    # per split: unnormalised accumulators (G, D), then running max and sum
+    part = None if n_split == 1 else torch.empty(
+        b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=dev)
     kernel(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            _cuda.ptr(ks_full), _cuda.ptr(vs_full), lengths.data_ptr(),
-           starts.data_ptr(), out.data_ptr(), n_layer, s, b, hkv, g, d,
-           layer, 1.0 / math.sqrt(d), int(int8_scores), kind,
-           int(q.dtype == torch.float32))
+           starts.data_ptr(), out.data_ptr(), _cuda.ptr(part), n_layer, s, b,
+           hkv, g, d, layer, n_split, chunk, 1.0 / math.sqrt(d),
+           int(int8_scores), kind, int(q.dtype == torch.float32))
     return out
 
 

@@ -1,7 +1,9 @@
 """Port's decode attention over the head-major KV cache (plain versions) vs
 the JAX Pallas kernels (interpret mode on the CPU): the stream kernel with
 pos_major=False, blocks, stacked_rows, stacked, and the per-layer dense and
-chunked kernels, on int8 and bf16 (or f32) caches."""
+chunked kernels, on int8 and bf16 (or f32) caches; the CUDA kernel's
+split of the key range and combine pass (in torch) against the same
+kernels, and the split rule `head_split`."""
 
 import numpy as np
 import pytest
@@ -117,6 +119,10 @@ def test_plain_matches_pallas(entry, cache, int8_scores):
     ref = np.asarray(_jax(entry, j, int8_scores), np.float32)
     got = _port(entry, p, int8_scores)
     assert got.dtype == p["q"].dtype and got.shape == p["q"].shape
+    _assert_close(got, ref, cache)
+
+
+def _assert_close(got: torch.Tensor, ref: np.ndarray, cache: str) -> None:
     got = got.float().numpy()
     if cache == "f32":
         # f32 throughout: one exact softmax against the TPU kernel's online
@@ -130,6 +136,85 @@ def test_plain_matches_pallas(entry, cache, int8_scores):
     top = np.abs(ref).max()
     ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
     np.testing.assert_allclose(got, ref, atol=2 * ulp, rtol=0)
+
+
+VARIANT = {"stream": "blocks", "blocks": "blocks", "stacked_rows": "rows",
+           "stacked": "f32", "dense": "f32", "chunked": "f32"}
+
+
+def _split_combine(entry: str, a: dict, int8_scores: bool,
+                   n_split: int) -> torch.Tensor:
+    """The CUDA kernel's split-and-combine arithmetic, in torch: the key
+    range cut into n_split chunks, each chunk's softmax taken at its own
+    maximum (an empty chunk: m = -inf, l = 0, acc = 0) with the value
+    weights rounded there, then the combine in split order: M = max m_i,
+    out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-20)."""
+    q = a["q"]
+    k, v = a["k"][LAYER], a["v"][LAYER]
+    ks = None if a["ks"] is None else a["ks"][LAYER]
+    vs = None if a["vs"] is None else a["vs"][LAYER]
+    variant = VARIANT[entry]
+    sc, vf = ta._head_scores(q, k, v, ks, vs, variant, int8_scores)
+    valid = ta._head_valid(a["lengths"], a["starts"], S, q.device)
+    chunk = S // n_split
+    assert chunk % ta.HEAD_TP == 0
+    # every row of the file has keys; with more than one split, some of
+    # its chunks lie wholly outside [start, length)
+    has_keys = valid.reshape(B, n_split, chunk).any(-1)
+    assert bool(has_keys.all()) == (n_split == 1)
+    parts = []
+    for c in range(n_split):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ok = valid[..., sl]
+        m = torch.where(ok, sc[..., sl], -torch.inf).amax(-1, keepdim=True)
+        p = torch.where(ok, torch.exp(sc[..., sl] - m), 0.0)
+        w = ta._head_weights(p, None if vs is None else vs[..., sl], variant)
+        parts.append((m, p.sum(-1, keepdim=True), w @ vf[:, :, sl]))
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = den = 0.0
+    for m, l, acc in parts:
+        e = torch.where(m == -torch.inf, 0.0, torch.exp(m - top))
+        num = num + acc * e
+        den = den + l * e
+    return (num / den.clamp_min(1e-20)).to(q.dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 4, 8])
+@pytest.mark.parametrize("entry,cache,int8_scores", CASES,
+                         ids=[f"{e}-{c}{'-i8' if i else ''}"
+                              for e, c, i in CASES])
+def test_split_combine_matches_pallas(entry, cache, int8_scores, n_split):
+    """The CUDA kernel splits each row's keys over CTAs and combines the
+    partial softmax results: that arithmetic, at the ragged rows of this
+    file, within the plain version's tolerance of the TPU kernels."""
+    j, p = _both(cache, seed=len(entry) + 7 * len(cache) + int8_scores)
+    ref = np.asarray(_jax(entry, j, int8_scores), np.float32)
+    got = _split_combine(entry, p, int8_scores, n_split)
+    assert got.dtype == p["q"].dtype and got.shape == p["q"].shape
+    _assert_close(got, ref, cache)
+
+
+# (S, B, Hkv) -> (n_split, chunk) on a card of 132 SMs: the engine's batch
+# 1 at S = 2048 (the stacked cache, and one layer of it for the per-layer
+# entries), the bench's batch 256 at S = 384, the card test's batch 3 at
+# S = 384, and an S that is not a multiple of the chunk
+SPLITS = {"b1-s2048": ((2048, 1, 8), (32, 64)),
+          "b256-s384": ((384, 256, 8), (1, 384)),
+          "b3-s384": ((384, 3, 8), (6, 64)),
+          "b1-s1000": ((1000, 1, 8), (32, 32))}
+
+
+@pytest.mark.parametrize("shape", list(SPLITS))
+def test_head_split(shape):
+    (s, b, hkv), want = SPLITS[shape]
+    n_split, chunk = ta.head_split(s, b, hkv, 132)
+    assert (n_split, chunk) == want
+    # the chunks cover S, none lies wholly beyond it, and each is whole tiles
+    assert n_split * chunk >= s > (n_split - 1) * chunk
+    assert chunk % ta.HEAD_TP == 0
+    # about two CTAs an SM, or one split where the rows already fill them
+    ctas = n_split * b * hkv
+    assert ctas <= 2 * 132 + b * hkv and (n_split == 1 or ctas >= 132)
 
 
 ENTRIES = ["stream", "blocks", "stacked_rows", "stacked", "dense",

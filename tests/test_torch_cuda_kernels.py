@@ -124,6 +124,11 @@ HEAD_CASES = [
 ]
 
 
+KERNEL_OF = {"stream": ta.STREAM_HEAD_KERNEL, "blocks": ta.BLOCKS_KERNEL,
+             "stacked_rows": ta.ROWS_KERNEL, "stacked": ta.STACKED_KERNEL,
+             "dense": ta.DENSE_KERNEL, "chunked": ta.CHUNKED_KERNEL}
+
+
 def _head_call(entry, plain, q, k, v, ks, vs, layer, lengths, starts,
                int8_scores):
     sfx = "_plain" if plain else ""
@@ -142,15 +147,26 @@ def _head_call(entry, plain, q, k, v, ks, vs, layer, lengths, starts,
                                    v[layer].contiguous(), lengths, starts)
 
 
-@pytest.mark.parametrize("b", [1, 40])
+# (b, S, rows) of the head-major cases: batch 1 over the full cache and
+# batch 40 over ragged rows at S = 384; batch 1 at the engine's S = 2048,
+# where the kernel splits each row's keys over CTAs, over the full cache
+# and early in a request (keys 0-255: most splits hold none); batch 3 with
+# a row whose start is past its length
+HEAD_ROWS = {1: (1, 384, "full"), 40: (40, 384, "ragged"),
+             "1-s2048": (1, 2048, "full"), "1-s2048-len256": (1, 2048, 256),
+             "3-empty-row": (3, 384, "empty")}
+
+
+@pytest.mark.parametrize("b", list(HEAD_ROWS))
 @pytest.mark.parametrize("entry,cache,int8_scores", HEAD_CASES,
                          ids=[f"{e}-{c}{'-i8' if i else ''}"
                               for e, c, i in HEAD_CASES])
 def test_decode_attention_head_major(dev, entry, cache, int8_scores, b):
     """The head-major kernels (csrc/decode_attention_head.cu) against their
-    plain twins: batch 1 over the full cache, batch 40 over ragged rows."""
+    plain twins, with one launch count per call; an empty row gives 0."""
+    b, s, rows = HEAD_ROWS[b]
     g = _gen(dev, 21 + b)
-    L, hkv, grp, d, s, layer = 2, 8, 4, 128, 384, 1
+    L, hkv, grp, d, layer = 2, 8, 4, 128, 1
     shape = (L, b, hkv, s, d)
     if cache == "int8":
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -166,19 +182,31 @@ def test_decode_attention_head_major(dev, entry, cache, int8_scores, b):
         ks = vs = None
     q = torch.randn((b, hkv, grp, d), generator=g, device=dev).to(
         torch.float32 if cache == "f32" else torch.bfloat16)
-    if b == 1:
-        lengths = torch.full((1,), s, dtype=torch.int32, device=dev)
-        starts = torch.zeros((1,), dtype=torch.int32, device=dev)
-    else:
+    starts = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if rows == "ragged":
         lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
                                 dtype=torch.int32)
         starts = (torch.rand((b,), generator=g, device=dev)
                   * lengths.float()).int()            # start < length
+    elif rows == "empty":
+        lengths = torch.tensor([s, 300, 50], dtype=torch.int32, device=dev)
+        starts = torch.tensor([0, 7, 60], dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.full((b,), s if rows == "full" else rows,
+                             dtype=torch.int32, device=dev)
+    kernel = KERNEL_OF[entry]
+    before = kernel.launches
     args = (q, k, v, ks, vs, layer, lengths, starts, int8_scores)
     got = _head_call(entry, False, *args)
     ref = _head_call(entry, True, *args)
     torch.cuda.synchronize()
+    assert kernel.launches == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
+    if rows == "empty":
+        # the row with no key gives 0 (the plain version, one softmax over
+        # the -1e30 masked scores, averages v there); the others as below
+        assert torch.count_nonzero(got[2]).item() == 0
+        got, ref = got[:2], ref[:2]
     err = (got.float() - ref.float()).abs().max().item()
     top = ref.float().abs().max().item()
     if cache == "f32":
