@@ -161,20 +161,34 @@ class Checks:
 # ---------------------------------------------------------------------------
 
 
+def pos_split(b: int, s: int, hkv: int, dtype, dev) -> dict:
+    """The position-major kernel's split of a row's keys at these shapes
+    (logged with each case)."""
+    from fish_speech_tpu_torch.ops.attention import (POS_TP, _sm_count,
+                                                     head_split)
+
+    n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index or 0),
+                                POS_TP[dtype])
+    return {"n_split": n_split, "chunk": chunk}
+
+
 def check_attention(chk: Checks, cfg, dev,
                     gen) -> tuple[list[dict], list[dict]]:
     """#1 on the position-major cache at the bench shape (B=256, S=384,
-    ragged rows) and at the main path's (B=1, S=2048, full): the int8
-    cache (decode_attention_stream) and the bf16 cache
-    (decode_attention_stream_bf16). Timing walks the 36 layers, as a decode
-    step does, so every launch reads its layer from device memory."""
+    ragged rows), at the main path's (B=1, S=2048, full) and early in such
+    a request (B=1, S=2048, keys 0-255: the kernel's split over CTAs leaves
+    most splits empty): the int8 cache (decode_attention_stream) and the
+    bf16 cache (decode_attention_stream_bf16). Timing walks the 36 layers,
+    as a decode step does, so every launch reads its layer from device
+    memory."""
     from fish_speech_tpu_torch.ops.attention import (
         decode_attention_stream, decode_attention_stream_plain)
 
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
     cases, bf16_cases = [], []
-    for b, s, ragged in ((256, 384, True), (1, 2048, False)):
+    for b, s, fill in ((256, 384, "ragged"), (1, 2048, "full"),
+                       (1, 2048, "early")):
         k = torch.randint(-127, 128, (n_layer, s, b, hkv, d), generator=gen,
                           device=dev, dtype=torch.int8)
         v = torch.randint(-127, 128, (n_layer, s, b, hkv, d), generator=gen,
@@ -185,13 +199,14 @@ def check_attention(chk: Checks, cfg, dev,
         vs = vs * 0.02 + 1e-3
         q = torch.randn((b, hkv, g, d), generator=gen,
                         device=dev).to(torch.bfloat16)
-        if ragged:
+        if fill == "ragged":
             lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
                                     device=dev, dtype=torch.int32)
             starts = torch.randint(0, s // 8, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
         else:
-            lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+            lengths = torch.full((b,), s if fill == "full" else 256,
+                                 dtype=torch.int32, device=dev)
             starts = torch.zeros((b,), dtype=torch.int32, device=dev)
         layer = n_layer - 1
         got = decode_attention_stream(q, k, v, ks, vs, layer, lengths, starts,
@@ -214,19 +229,21 @@ def check_attention(chk: Checks, cfg, dev,
         # outputs have magnitude <= ~1: the kernel and the plain version
         # round p * v_scale to bf16 at different running maxima and the
         # result is bf16, so they agree to a few bf16 ulps (2^-7 each)
-        cases.append(chk.case("decode_attention_stream", f"B={b} S={s}",
-                              max_err(got, ref), 1.5e-2, ms=ms,
-                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                              filled_positions=filled))
+        cases.append(chk.case("decode_attention_stream",
+                              f"B={b} S={s} {fill}", max_err(got, ref),
+                              1.5e-2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, filled_positions=filled,
+                              fill=fill, **pos_split(b, s, hkv, k.dtype,
+                                                     dev)))
         del k, v, ks, vs
         torch.cuda.empty_cache()
         bf16_cases.append(check_attention_pos_bf16(
-            chk, q, lengths, starts, n_layer, s, dev, gen))
+            chk, q, lengths, starts, n_layer, s, fill, dev, gen))
     return cases, bf16_cases
 
 
 def check_attention_pos_bf16(chk: Checks, q, lengths, starts, n_layer: int,
-                             s: int, dev, gen) -> dict:
+                             s: int, fill: str, dev, gen) -> dict:
     """#1 on a position-major bf16 cache (L, S, B, Hkv, D), the same q and
     rows. Library yardstick: one scaled_dot_product_attention (GQA, boolean
     mask) on the layer's (B, Hkv, S, D) views of k and v."""
@@ -275,10 +292,11 @@ def check_attention_pos_bf16(chk: Checks, q, lengths, starts, n_layer: int,
     # version's exact one: 2 bf16 ulps of the largest output
     top = ref.float().abs().max().item()
     tol = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
-    case = chk.case("decode_attention_stream_bf16", f"B={b} S={s}",
+    case = chk.case("decode_attention_stream_bf16", f"B={b} S={s} {fill}",
                     max_err(got, ref), tol, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                    filled_positions=filled, b=b)
+                    filled_positions=filled, b=b, fill=fill,
+                    **pos_split(b, s, hkv, k.dtype, dev))
     del k, v
     torch.cuda.empty_cache()
     return case
@@ -509,11 +527,15 @@ def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
 
 
 def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
-    """#5 at the main path's shape (B=1, S=2048) and the bench shape (B=256,
-    S=384, mixed starts), writing at the last slot. It must equal writing
-    the rows with the model's _write_cache and then launching #1, bit for
-    bit (output, int8 rows, scales); its error against its plain version
-    has #1's tolerance. Timing walks the 36 layers, as a decode step does."""
+    """#5 at the main path's shape (B=1, S=2048, writing the last slot: the
+    last of the kernel's splits), the bench shape (B=256, S=384, mixed
+    starts, the last slot; one split), and at B=1, S=2048 early in a
+    request (keys 0-255, writing slot 255: a middle split) and at its start
+    (keys 0-39: the first split). The keys end at the written slot. It must
+    equal writing the rows with the model's _write_cache and then launching
+    #1, bit for bit (output, int8 rows, scales); its error against its
+    plain version has #1's tolerance. Timing walks the 36 layers, as a
+    decode step does."""
     from fish_speech_tpu_torch.models.dual_ar import KVCache, _write_cache
     from fish_speech_tpu_torch.ops.attention import (
         decode_attention_stream, decode_attention_stream_fold,
@@ -522,7 +544,9 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
     cases = []
-    for b, s in ((1, 2048), (256, 384)):
+    for b, s, fill, wpos in ((1, 2048, "full", 2047),
+                             (256, 384, "ragged", 383),
+                             (1, 2048, "early", 255), (1, 2048, "first", 39)):
         kv = [torch.randint(-127, 128, (n_layer, s, b, hkv, d), generator=gen,
                             device=dev, dtype=torch.int8) for _ in range(2)]
         sc = [torch.rand((n_layer, b, s * hkv), generator=gen, device=dev)
@@ -540,8 +564,7 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
                          device=dev).to(torch.bfloat16)
         nv = torch.randn((b, hkv, d), generator=gen,
                          device=dev).to(torch.bfloat16)
-        wpos = s - 1
-        lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+        lengths = torch.full((b,), wpos + 1, dtype=torch.int32, device=dev)
         starts = torch.randint(0, s // 2, (b,), generator=gen, device=dev,
                                dtype=torch.int32)
         starts[0] = 0
@@ -562,8 +585,10 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
             (c.vs, two.vs)))
         del two
         torch.cuda.empty_cache()
+        split = pos_split(b, s, hkv, torch.int8, dev)
+        label = f"B={b} S={s} {fill} write_pos={wpos}"
         if not same:
-            chk.failed.append(f"decode_attention_stream_fold [B={b} S={s}]: "
+            chk.failed.append(f"decode_attention_stream_fold [{label}]: "
                               f"not bit-equal to _write_cache + #1")
         it = iter(range(10 ** 9))
         ms = time_ms(lambda: decode_attention_stream_fold(
@@ -580,11 +605,13 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
                            {"int8": 2 * filled * hkv * g * d,
                             "bf16": 2 * filled * hkv * g * d})
         # #1's tolerance: the plain version takes one exact softmax
-        cases.append(chk.case("decode_attention_stream_fold",
-                              f"B={b} S={s}", max_err(got, ref), 1.5e-2,
-                              ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, filled_positions=filled,
-                              two_step_bit_equal=same))
+        cases.append(chk.case("decode_attention_stream_fold", label,
+                              max_err(got, ref), 1.5e-2, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              filled_positions=filled, fill=fill,
+                              write_pos=wpos,
+                              write_split=wpos // split["chunk"],
+                              two_step_bit_equal=same, **split))
         del c
         torch.cuda.empty_cache()
     return cases

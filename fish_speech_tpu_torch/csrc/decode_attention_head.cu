@@ -56,7 +56,8 @@
 // (B, Hkv, n_split, G, D) for the accumulators, then (B, Hkv, n_split, G)
 // for m and for l; a split with no key writes m = -inf, l = 0, acc = 0. A
 // second kernel of one CTA per (query head, kv head, row), launched from
-// the same entry on the same stream, combines them in split order (no
+// the same entry on the same stream (split_combine_kernel, decode_split.cuh,
+// shared with the position-major kernel), combines them in split order (no
 // atomics: the result does not depend on which CTA ran first):
 // M = max m_i, out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-20).
 // With n_split = 1 (large batches fill the card) the first kernel writes
@@ -83,6 +84,8 @@
 
 #include <type_traits>
 
+#include "decode_split.cuh"
+
 namespace {
 
 constexpr int NT = 128;        // threads; thread d owns output column d
@@ -100,61 +103,11 @@ struct Tile {
   static constexpr int P = sizeof(CT) == 4 ? 16 : 32;
 };
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f(float x) { return x; }
-
-// four consecutive cache elements as floats
-__device__ __forceinline__ void load4(const int8_t* p, float* f) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* f) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  f[0] = __low2float(a); f[1] = __high2float(a);
-  f[2] = __low2float(b); f[3] = __high2float(b);
-}
-__device__ __forceinline__ void load4(const float* p, float* f) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-}
-
-// asynchronous copies into shared memory: 16 bytes bypassing L1 (rows),
-// 4 bytes (a scale: a tile's scales need not be 16-byte aligned)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void store_out(void* out, size_t i, float o,
-                                          int q_f32) {
-  if (q_f32)
-    reinterpret_cast<float*>(out)[i] = o;
-  else
-    reinterpret_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(o);
-}
 
 template <typename CT, int V, int G>
 __global__ void __launch_bounds__(NT) head_attn_kernel(
@@ -189,20 +142,8 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
   // this split's keys
   const int lo = max(starts[b], c * chunk);
   const int hi = min(min(lengths[b], S), (c + 1) * chunk);
-  const size_t n_part = (size_t)B * Hkv * n_split * G;    // (m or l) count
-  const size_t pi = (row * n_split + c) * G;              // this split's
   if (lo >= hi) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (n_split == 1)
-        store_out(out, (row * G + g) * D + tid, 0.f, q_f32);
-      else
-        part[(pi + g) * D + tid] = 0.f;
-    }
-    if (n_split > 1 && tid < G) {
-      part[n_part * D + pi + tid] = -INFINITY;
-      part[n_part * (D + 1) + pi + tid] = 0.f;
-    }
+    store_empty<G>(out, part, row, c, n_split, B, Hkv, tid, q_f32);
     return;
   }
 
@@ -376,64 +317,8 @@ __global__ void __launch_bounds__(NT) head_attn_kernel(
     }
   }
   // l_s and m_s were last written before the last tile's third barrier
-  if (n_split == 1) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      store_out(out, (row * G + g) * D + tid, acc[g] / fmaxf(l_s[g], 1e-20f),
-                q_f32);
-    return;
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) part[(pi + g) * D + tid] = acc[g];
-  if (tid < G) {
-    part[n_part * D + pi + tid] = m_s[tid];
-    part[n_part * (D + 1) + pi + tid] = l_s[tid];
-  }
-}
-
-// One CTA per (query head, kv head, row); thread d owns column d. The
-// splits' m and l go to shared memory with one load each, then their
-// weights e^(m_i - M); the sums run in split order: deterministic.
-__global__ void __launch_bounds__(NT) head_combine_kernel(
-    const float* __restrict__ part, void* __restrict__ out, int B, int Hkv,
-    int G, int n_split, int q_f32) {
-  extern __shared__ float cs[];   // m then weights, and l: n_split each
-  __shared__ float mx_s;
-  const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const size_t row = (size_t)b * Hkv + h;
-  const size_t n_part = (size_t)B * Hkv * n_split * G;
-  const size_t e0 = row * n_split * G + g;     // split i: entry e0 + i * G
-  float* ws = cs;
-  float* ls = cs + n_split;
-  for (int i = tid; i < n_split; i += NT) {
-    ws[i] = part[n_part * D + e0 + (size_t)i * G];
-    ls[i] = part[n_part * (D + 1) + e0 + (size_t)i * G];
-  }
-  __syncthreads();
-  if (tid < 32) {
-    float mx = -INFINITY;
-    for (int i = tid; i < n_split; i += 32) mx = fmaxf(mx, ws[i]);
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (tid == 0) mx_s = mx;
-  }
-  __syncthreads();
-  const float mx = mx_s;
-  for (int i = tid; i < n_split; i += NT) {
-    // an empty split (m = -inf) weighs 0; so does every split of an empty
-    // row, where mx = -inf too and e^(m - mx) would be NaN
-    const float m = ws[i];
-    ws[i] = m == -INFINITY ? 0.f : expf(m - mx);
-  }
-  __syncthreads();
-  const float* acc = part + e0 * D + tid;
-  float num = 0.f, den = 0.f;
-#pragma unroll 16
-  for (int i = 0; i < n_split; ++i) {
-    num += acc[(size_t)i * G * D] * ws[i];
-    den += ls[i] * ws[i];
-  }
-  store_out(out, (row * G + g) * D + tid, num / fmaxf(den, 1e-20f), q_f32);
+  store_split<G>(acc, m_s, l_s, out, part, row, c, n_split, B, Hkv, tid,
+                 q_f32);
 }
 
 template <typename CT, int V>
@@ -457,11 +342,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   }
 #undef HEAD_ATTN_LAUNCH
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  head_combine_kernel<<<dim3(G, Hkv, B), NT, 2 * sizeof(float) * n_split,
-                        st>>>((const float*)part, out, B, Hkv, G, n_split,
-                              q_f32);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_combine((const float*)part, out, B, Hkv, G, n_split,
+                             q_f32, st);
 }
 
 template <int V>
@@ -473,9 +356,8 @@ int entry(const void* q, const void* k, const void* v, const void* ks,
   if (Dh != D || layer < 0 || layer >= L || n_split < 1 || chunk < 1
       || (long long)n_split * chunk < S)
     return (int)cudaErrorInvalidValue;
-  // the combine keeps 2 * n_split floats in (default-limit) shared memory
   if (n_split > 1 && (part == nullptr || chunk % CHUNK_ALIGN != 0
-                      || n_split > 6 * 1024))
+                      || n_split > COMBINE_MAX_SPLIT))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (cache_kind) {

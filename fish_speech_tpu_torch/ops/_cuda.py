@@ -38,17 +38,18 @@ _F = ctypes.c_float
 # C signatures: name -> (source, argtypes); every function returns the
 # cudaError_t of its launches as an int
 SIGNATURES = {
-    # q k v ks vs lengths starts out | L S B Hkv G D layer | scale |
-    # int8_scores | stream
-    "decode_attention_stream": ("decode_attention", [_P] * 8 + [_I] * 7
+    # q k v ks vs lengths starts out part | L S B Hkv G D layer n_split
+    # chunk | scale | int8_scores | stream
+    "decode_attention_stream": ("decode_attention", [_P] * 9 + [_I] * 9
                                 + [_F, _I, _P]),
-    # q k v lengths starts out | L S B Hkv G D layer | scale | stream
-    "decode_attention_stream_bf16": ("decode_attention", [_P] * 6 + [_I] * 7
+    # q k v lengths starts out part | L S B Hkv G D layer n_split chunk |
+    # scale | stream
+    "decode_attention_stream_bf16": ("decode_attention", [_P] * 7 + [_I] * 9
                                      + [_F, _P]),
-    # q k v ks vs lengths starts out new_k new_v | L S B Hkv G D layer
-    # write_pos | scale | int8_scores | stream
-    "decode_attention_stream_fold": ("decode_attention", [_P] * 10
-                                     + [_I] * 8 + [_F, _I, _P]),
+    # q k v ks vs lengths starts out part new_k new_v | L S B Hkv G D layer
+    # write_pos n_split chunk | scale | int8_scores | stream
+    "decode_attention_stream_fold": ("decode_attention", [_P] * 11
+                                     + [_I] * 10 + [_F, _I, _P]),
     # the head-major entries, one per JAX entry: q k v ks vs lengths starts
     # out part | L S B Hkv G D layer n_split chunk | scale | int8_scores
     # cache_kind q_f32 | stream

@@ -29,9 +29,9 @@ with none, csrc/decode_attention_head.cu (one C entry each):
 - `decode_attention` and `decode_attention_chunked`: one layer's
   (B, Hkv, S, D) cache of any float type, f32 throughout.
 `rows` and `chunk` group the TPU kernels' work; the CUDA kernels take their
-own tiles, and the plain versions one exact softmax. The head-major kernel
-splits each row's key range over `head_split`'s n_split CTAs when the batch
-alone would not fill the card, and combines the splits' partial softmax
+own tiles, and the plain versions one exact softmax. Both CUDA kernels
+split each row's key range over `head_split`'s n_split CTAs when the batch
+alone would not fill the card, and combine the splits' partial softmax
 results in a second pass over f32 scratch the wrapper allocates; one call
 is then two device launches (and one count of `launches`).
 
@@ -76,46 +76,39 @@ def decode_attention_stream_plain(q, k_full, v_full, ks_full, vs_full,
     One exact softmax over the key axis where the kernels run an online
     softmax over chunks; the probabilities times the value scales are
     rounded to bf16 before the value product, as in both kernels. The
-    head-major form, and the position-major bf16 cache (bf16 products, p
-    rounded to bf16), are `decode_attention_blocks_plain`'s arithmetic."""
-    if not pos_major:
-        return _head_plain(q, *_layer_of(k_full, v_full, ks_full, vs_full,
-                                         layer), lengths, starts, "blocks",
-                           int8_scores)
+    head-major form and both position-major caches are
+    `decode_attention_blocks_plain`'s arithmetic, the position-major layer
+    read through head-major views (`_pos_layer`)."""
+    layer_of = _pos_layer if pos_major else _layer_of
+    return _head_plain(q, *layer_of(k_full, v_full, ks_full, vs_full, layer),
+                       lengths, starts, "blocks", int8_scores)
+
+
+def _pos_layer(k_full, v_full, ks_full, vs_full, layer: int):
+    """One layer of a position-major cache (L, S, B, Hkv, D) with flat
+    (L, B, S*Hkv) scales, as head-major views: (B, Hkv, S, D) values and
+    (B, Hkv, S) scales (None for a bf16 cache)."""
+    k = k_full[layer].permute(1, 2, 0, 3)
+    v = v_full[layer].permute(1, 2, 0, 3)
     if ks_full is None:
-        return _head_plain(q, k_full[layer].permute(1, 2, 0, 3),
-                           v_full[layer].permute(1, 2, 0, 3), None, None,
-                           lengths, starts, "blocks")
-    b, hkv, g, d = q.shape
-    s = k_full.shape[1]
-    scale = 1.0 / math.sqrt(d)
-    k = k_full[layer].permute(1, 2, 0, 3).float()          # (B, Hkv, S, D)
-    v = v_full[layer].permute(1, 2, 0, 3).float()
-    ks = ks_full[layer].reshape(b, s, hkv).transpose(1, 2)  # (B, Hkv, S)
-    vs = vs_full[layer].reshape(b, s, hkv).transpose(1, 2)
-    if int8_scores:
-        qi, qsc = _int8_query(q)
-        sc = (qi @ k.transpose(-1, -2)) * (qsc * scale)     # exact int sums
-    else:
-        sc = (q.float() @ k.transpose(-1, -2)) * scale
-    sc = sc * ks[:, :, None, :]
-    pos = torch.arange(s, device=q.device)
-    valid = ((pos[None, :] < lengths[:, None])
-             & (pos[None, :] >= starts[:, None]))[:, None, None, :]
-    sc = torch.where(valid, sc, torch.tensor(-torch.inf, device=q.device))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    den = p.sum(dim=-1, keepdim=True)
-    pv = (p * vs[:, :, None, :]).to(torch.bfloat16).float()
-    return ((pv @ v) / den.clamp_min(1e-20)).to(q.dtype)
+        return k, v, None, None
+    s, b, hkv = k_full.shape[1:4]
+    return (k, v, ks_full[layer].reshape(b, s, hkv).transpose(1, 2),
+            vs_full[layer].reshape(b, s, hkv).transpose(1, 2))
+
+
+def _check_query(d: int, g: int) -> None:
+    if d != 128 or g not in (1, 2, 4, 8):
+        raise ValueError(f"decode attention kernel takes head_dim 128 and "
+                         f"1, 2, 4 or 8 query heads per kv head (got {d}, "
+                         f"{g})")
 
 
 def _check_stream_args(q, k_full, v_full, ks_full, vs_full, layer: int,
                        lengths, starts) -> None:
     b, hkv, g, d = q.shape
     n_layer, s = k_full.shape[:2]
-    if d != 128 or g > 8:
-        raise ValueError(f"decode attention kernel takes head_dim 128 and "
-                         f"at most 8 query heads per kv head (got {d}, {g})")
+    _check_query(d, g)
     if not 0 <= layer < n_layer:
         raise ValueError(f"layer {layer} out of range")
     dev = q.device
@@ -152,15 +145,18 @@ def decode_attention_stream(q, k_full, v_full, ks_full, vs_full, layer: int,
     b, hkv, g, d = q.shape
     n_layer, s = k_full.shape[:2]
     out = torch.empty_like(q)
+    n_split, chunk, part = _split(q, s, POS_TP[k_full.dtype])
     if ks_full is None:
         BF16_KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
                     lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                    n_layer, s, b, hkv, g, d, layer, 1.0 / math.sqrt(d))
+                    _cuda.ptr(part), n_layer, s, b, hkv, g, d, layer,
+                    n_split, chunk, 1.0 / math.sqrt(d))
         return out
     KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            ks_full.data_ptr(), vs_full.data_ptr(), lengths.data_ptr(),
-           starts.data_ptr(), out.data_ptr(), n_layer, s, b, hkv, g, d,
-           layer, 1.0 / math.sqrt(d), int(int8_scores))
+           starts.data_ptr(), out.data_ptr(), _cuda.ptr(part), n_layer, s, b,
+           hkv, g, d, layer, n_split, chunk, 1.0 / math.sqrt(d),
+           int(int8_scores))
     return out
 
 
@@ -210,11 +206,13 @@ def decode_attention_stream_fold(q, k_full, v_full, ks_full, vs_full,
     _cuda.check(new_k, "new_k", torch.bfloat16, (b, hkv, d), q.device)
     _cuda.check(new_v, "new_v", torch.bfloat16, (b, hkv, d), q.device)
     out = torch.empty_like(q)
+    n_split, chunk, part = _split(q, s, POS_TP[torch.int8])
     FOLD_KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
                 ks_full.data_ptr(), vs_full.data_ptr(), lengths.data_ptr(),
-                starts.data_ptr(), out.data_ptr(), new_k.data_ptr(),
-                new_v.data_ptr(), n_layer, s, b, hkv, g, d, layer, write_pos,
-                1.0 / math.sqrt(d), int(int8_scores))
+                starts.data_ptr(), out.data_ptr(), _cuda.ptr(part),
+                new_k.data_ptr(), new_v.data_ptr(), n_layer, s, b, hkv, g, d,
+                layer, write_pos, n_split, chunk, 1.0 / math.sqrt(d),
+                int(int8_scores))
     return out
 
 
@@ -296,26 +294,43 @@ def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
 # key positions a tile of csrc/decode_attention_head.cu takes (16 for an
 # f32 cache, which divides it): a split's keys are a multiple of this
 HEAD_TP = 32
+# key positions a tile of csrc/decode_attention.cu takes, by cache type
+POS_TP = {torch.int8: 64, torch.bfloat16: 32}
 
 
-def head_split(s: int, b: int, hkv: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, chunk) of the head-major kernel for a cache of S positions
-    at batch B with Hkv kv heads on a card of n_sm SMs: split c of a row
-    takes keys [c * chunk, (c + 1) * chunk), chunk a multiple of HEAD_TP,
-    and n_split * chunk >= S. It aims at about two CTAs an SM: B * Hkv
-    CTAs that already fill the card take one split (the kernel then writes
-    the output directly). Shapes only, never the lengths: no host sync,
-    and a fixed launch for a captured step."""
+def head_split(s: int, b: int, hkv: int, n_sm: int,
+               tile: int = HEAD_TP) -> tuple[int, int]:
+    """(n_split, chunk) of a decode-attention kernel that walks its keys in
+    tiles of `tile` positions (HEAD_TP for the head-major kernel, POS_TP
+    for the position-major one), for a cache of S positions at batch B with
+    Hkv kv heads on a card of n_sm SMs: split c of a row takes keys
+    [c * chunk, (c + 1) * chunk), chunk a multiple of `tile`, and
+    n_split * chunk >= S. It aims at about two CTAs an SM: B * Hkv CTAs
+    that already fill the card take one split (the kernel then writes the
+    output directly). Shapes only, never the lengths: no host sync, and a
+    fixed launch for a captured step."""
     s = max(s, 1)
-    tiles = -(-s // HEAD_TP)
+    tiles = -(-s // tile)
     n = max(1, min(-(-2 * n_sm // (b * hkv)), tiles))
-    chunk = -(-tiles // n) * HEAD_TP
+    chunk = -(-tiles // n) * tile
     return -(-s // chunk), chunk
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split(q, s: int, tile: int):
+    """`head_split`'s (n_split, chunk) for q (B, Hkv, G, D) over a cache of
+    S positions on q's card, and the f32 scratch of the splits' partials
+    (None for one split): per split the unnormalised accumulators (G, D),
+    then the running max and sum."""
+    b, hkv, g, d = q.shape
+    n_split, chunk = head_split(s, b, hkv, _sm_count(q.device.index), tile)
+    part = None if n_split == 1 else torch.empty(
+        b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=q.device)
+    return n_split, chunk, part
 
 
 _CACHE_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -328,10 +343,7 @@ def _launch_head(kernel: _cuda.Kernel, q, k_full, v_full, ks_full, vs_full,
     (L, B, Hkv, S, D), or one layer's (B, Hkv, S, D) for the per-layer
     entries (then `layer` is 0)."""
     b, hkv, g, d = q.shape
-    if d != 128 or g not in (1, 2, 4, 8):
-        raise ValueError(f"decode attention kernel takes head_dim 128 and "
-                         f"1, 2, 4 or 8 query heads per kv head (got {d}, "
-                         f"{g})")
+    _check_query(d, g)
     per_layer = k_full.dim() == 4
     n_layer = 1 if per_layer else k_full.shape[0]
     s = k_full.shape[-2]
@@ -356,11 +368,8 @@ def _launch_head(kernel: _cuda.Kernel, q, k_full, v_full, ks_full, vs_full,
         raise ValueError("a bf16 or f32 cache takes no scales")
     _cuda.check(lengths, "lengths", torch.int32, (b,), dev)
     _cuda.check(starts, "starts", torch.int32, (b,), dev)
-    n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index))
+    n_split, chunk, part = _split(q, s, HEAD_TP)
     out = torch.empty_like(q)
-    # per split: unnormalised accumulators (G, D), then running max and sum
-    part = None if n_split == 1 else torch.empty(
-        b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=dev)
     kernel(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            _cuda.ptr(ks_full), _cuda.ptr(vs_full), lengths.data_ptr(),
            starts.data_ptr(), out.data_ptr(), _cuda.ptr(part), n_layer, s, b,

@@ -1,6 +1,7 @@
 """Port's stream decode attention and its KV-write fold (plain versions) vs
 the JAX Pallas kernels (interpret mode on the CPU), position-major int8
-and bf16 layouts."""
+and bf16 layouts; the CUDA kernel's split of the key range and combine pass
+(in torch) against the same kernels, and its split rule."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from fish_speech_tpu.ops.attention import (
     pallas_decode_attention_stream_fold,
 )
 from fish_speech_tpu_torch.models.dual_ar import KVCache, _write_cache
+from fish_speech_tpu_torch.ops import attention as ta
 from fish_speech_tpu_torch.ops.attention import (
     BF16_KERNEL,
     FOLD_KERNEL,
@@ -22,6 +24,7 @@ from fish_speech_tpu_torch.ops.attention import (
     decode_attention_stream_fold_plain,
     decode_attention_stream_plain,
 )
+from test_torch_attention_head import split_combine
 
 
 def _inputs(seed=17):
@@ -134,12 +137,12 @@ def test_bf16_wrapper_takes_plain_path_on_cpu():
 # --- the KV-write fold ------------------------------------------------------
 
 
-def _fold_inputs(seed=23):
+def _fold_inputs(seed=23, pos=33):
     """Shapes of tests/test_pallas_attention.py::test_stream_fold_matches_
     two_step: a cache filled below `pos`, the new rows written at `pos`."""
     rng = np.random.default_rng(seed)
     L, S, B, HKV, G, D = 2, 64, 8, 2, 2, 128
-    pos, li = 33, 1
+    li = 1
     kf = rng.standard_normal((L, S, B, HKV, D)).astype(np.float32)
     vf = rng.standard_normal((L, S, B, HKV, D)).astype(np.float32)
     ksc = np.maximum(np.abs(kf).max(-1) / np.float32(127), np.float32(1e-8))
@@ -214,3 +217,130 @@ def test_fold_wrapper_takes_plain_path_on_cpu():
     before = FOLD_KERNEL.launches
     decode_attention_stream_fold(*args[:5], li, *args[5:], pos)
     assert FOLD_KERNEL.launches == before
+
+
+# --- the CUDA kernel's split of the key range, in torch ---------------------
+
+
+def _pos_split_combine(q, k, v, ks, vs, layer, lengths, starts,
+                       int8_scores, n_split):
+    """`split_combine` (the kernels' split-and-combine arithmetic) on layer
+    `layer` of a position-major cache, cut into n_split equal chunks; also
+    whether some chunk lies wholly outside its row's [start, length)."""
+    s = k.shape[1]
+    chunk = s // n_split
+    valid = ta._head_valid(lengths, starts, s, q.device)
+    empty = not bool(valid.reshape(q.shape[0], n_split, chunk).any(-1).all())
+    return split_combine(q, *ta._pos_layer(k, v, ks, vs, layer), lengths,
+                         starts, "blocks", int8_scores, n_split,
+                         chunk), empty
+
+
+# (cache, int8_scores) of the position-major kernel
+POS_CASES = [("int8", True), ("int8", False), ("bf16", False)]
+
+
+@pytest.mark.parametrize("n_split", [1, 4, 8])
+@pytest.mark.parametrize("cache,int8_scores", POS_CASES,
+                         ids=["int8-i8", "int8", "bf16"])
+def test_split_combine_matches_pallas_stream(cache, int8_scores, n_split):
+    """The position-major kernel splits each row's keys over CTAs and
+    combines the partial softmax results: that arithmetic, at the ragged
+    rows of test_stream_kernel_pos_major, within the plain version's
+    tolerance of the TPU kernel."""
+    layer = 1
+    b16 = torch.bfloat16
+    t = torch.from_numpy
+    if cache == "int8":
+        q, k, v, ks, vs, lengths, starts = _inputs()
+        jk, jv, jks, jvs = (jnp.asarray(a) for a in (k, v, ks, vs))
+        tk, tv, tks, tvs = t(k), t(v), t(ks), t(vs)
+    else:
+        q, k, v, lengths, starts = _bf16_inputs()
+        jk, jv = jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16)
+        jks = jvs = tks = tvs = None
+        tk, tv = t(k).to(b16), t(v).to(b16)
+    ref = np.asarray(pallas_decode_attention_stream(
+        jnp.asarray(q, jnp.bfloat16), jk, jv, jks, jvs, jnp.int32(layer),
+        jnp.asarray(lengths), jnp.asarray(starts), rows=2, chunk=64,
+        int8_scores=int8_scores, pos_major=True), np.float32)
+    got, empty = _pos_split_combine(t(q).to(b16), tk, tv, tks, tvs, layer,
+                                    t(lengths), t(starts), int8_scores,
+                                    n_split)
+    assert got.dtype == b16 and got.shape == q.shape
+    assert empty == (n_split > 1)
+    # the value weights are rounded to bf16 at each split's maximum and at
+    # the TPU kernel's running one: the plain versions' tolerances, 2 bf16
+    # ulps at outputs of magnitude ~1 (int8) or of the largest output
+    tol = 2 ** -7 if cache == "int8" else \
+        2 * 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=tol, rtol=0)
+
+
+# write_pos 5, 33, 60 of S = 64: the first, a middle and the last split at
+# n_split 4 and 8 (at 5, the rows that start at 5 hold the new key alone)
+@pytest.mark.parametrize("write_pos", [5, 33, 60])
+@pytest.mark.parametrize("n_split", [1, 4, 8])
+def test_fold_split_combine_matches_pallas_fold(n_split, write_pos):
+    """The fold's rows written as the kernel writes them, then the split
+    arithmetic, against the TPU fold kernel."""
+    arrays, pos, li = _fold_inputs(37, pos=write_pos)
+    q, k8, v8, ks, vs, lengths, starts, nk, nv = arrays
+    j = lambda a, dt=None: jnp.asarray(a, dt)
+    ref = pallas_decode_attention_stream_fold(
+        j(q, jnp.bfloat16), j(k8), j(v8), j(ks), j(vs), li, j(lengths),
+        j(starts), j(nk, jnp.bfloat16), j(nv, jnp.bfloat16), pos, rows=4,
+        chunk=32, int8_scores=True)[0]
+    tq, tk, tv, tks, tvs, tl, ts, tnk, tnv = _torch_fold_args(arrays)
+    hkv = tnk.shape[1]
+    sl = slice(pos * hkv, (pos + 1) * hkv)
+    tk[li, pos], tks[li, :, sl] = ta.quantize_kv_rows(tnk)
+    tv[li, pos], tvs[li, :, sl] = ta.quantize_kv_rows(tnv)
+    got, empty = _pos_split_combine(tq, tk, tv, tks, tvs, li, tl, ts, True,
+                                    n_split)
+    # the cache is filled below write_pos: splits past it hold no key
+    assert empty == (n_split > 1 and write_pos < 60)
+    # the fold test's tolerance: 2 bf16 ulps at outputs of magnitude ~1
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), atol=2 ** -7,
+                               rtol=0)
+
+
+# (S, B, Hkv, cache) -> (n_split, chunk) of the position-major kernel on a
+# card of 132 SMs: the engine's batch 1 at S = 2048 on both caches, the
+# bench's batch 256 at S = 384, the card test's batch 40 with 2 kv heads,
+# and an S that is not a multiple of the chunk
+POS_SPLITS = {"b1-s2048-int8": ((2048, 1, 8, torch.int8), (32, 64)),
+              "b1-s2048-bf16": ((2048, 1, 8, torch.bfloat16), (32, 64)),
+              "b256-s384-int8": ((384, 256, 8, torch.int8), (1, 384)),
+              "b256-s384-bf16": ((384, 256, 8, torch.bfloat16), (1, 384)),
+              "b40-s384-hkv2": ((384, 40, 2, torch.int8), (3, 128)),
+              "b1-s1000": ((1000, 1, 8, torch.int8), (16, 64))}
+
+
+@pytest.mark.parametrize("shape", list(POS_SPLITS))
+def test_pos_split(shape):
+    (s, b, hkv, dtype), want = POS_SPLITS[shape]
+    tile = ta.POS_TP[dtype]
+    n_split, chunk = ta.head_split(s, b, hkv, 132, tile)
+    assert (n_split, chunk) == want
+    # the chunks cover S, none lies wholly beyond it, and each is whole tiles
+    assert n_split * chunk >= s > (n_split - 1) * chunk
+    assert chunk % tile == 0
+    # about two CTAs an SM, or one split where the rows already fill them,
+    # or one tile a split where S is too short for more
+    ctas = n_split * b * hkv
+    assert ctas <= 2 * 132 + b * hkv
+    assert n_split == 1 or ctas >= 132 or chunk == tile
+
+
+@pytest.mark.parametrize("g", [3, 16])
+def test_stream_args_refuse_query_groups(g):
+    """The kernel takes 1, 2, 4 or 8 query heads per kv head: anything else
+    is refused before a launch."""
+    q = torch.zeros((1, 8, g, 128), dtype=torch.bfloat16)
+    k = torch.zeros((2, 16, 1, 8, 128), dtype=torch.int8)
+    sc = torch.zeros((2, 1, 16 * 8))
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        ta._check_stream_args(q, k, k, sc, sc, 0, lengths, lengths)

@@ -142,26 +142,18 @@ VARIANT = {"stream": "blocks", "blocks": "blocks", "stacked_rows": "rows",
            "stacked": "f32", "dense": "f32", "chunked": "f32"}
 
 
-def _split_combine(entry: str, a: dict, int8_scores: bool,
-                   n_split: int) -> torch.Tensor:
-    """The CUDA kernel's split-and-combine arithmetic, in torch: the key
-    range cut into n_split chunks, each chunk's softmax taken at its own
-    maximum (an empty chunk: m = -inf, l = 0, acc = 0) with the value
-    weights rounded there, then the combine in split order: M = max m_i,
-    out = sum acc_i e^(m_i - M) / max(sum l_i e^(m_i - M), 1e-20)."""
-    q = a["q"]
-    k, v = a["k"][LAYER], a["v"][LAYER]
-    ks = None if a["ks"] is None else a["ks"][LAYER]
-    vs = None if a["vs"] is None else a["vs"][LAYER]
-    variant = VARIANT[entry]
+def split_combine(q, k, v, ks, vs, lengths, starts, variant: str,
+                  int8_scores: bool, n_split: int,
+                  chunk: int) -> torch.Tensor:
+    """The CUDA kernels' split-and-combine arithmetic, in torch, on one
+    layer's head-major (B, Hkv, S, D) k/v and (B, Hkv, S) scales (None for
+    a float cache): the key range cut into n_split chunks, each chunk's
+    softmax taken at its own maximum (an empty chunk: m = -inf, l = 0,
+    acc = 0) with the value weights rounded there, then the combine in
+    split order: M = max m_i, out = sum acc_i e^(m_i - M) /
+    max(sum l_i e^(m_i - M), 1e-20)."""
     sc, vf = ta._head_scores(q, k, v, ks, vs, variant, int8_scores)
-    valid = ta._head_valid(a["lengths"], a["starts"], S, q.device)
-    chunk = S // n_split
-    assert chunk % ta.HEAD_TP == 0
-    # every row of the file has keys; with more than one split, some of
-    # its chunks lie wholly outside [start, length)
-    has_keys = valid.reshape(B, n_split, chunk).any(-1)
-    assert bool(has_keys.all()) == (n_split == 1)
+    valid = ta._head_valid(lengths, starts, k.shape[2], q.device)
     parts = []
     for c in range(n_split):
         sl = slice(c * chunk, (c + 1) * chunk)
@@ -177,6 +169,24 @@ def _split_combine(entry: str, a: dict, int8_scores: bool,
         num = num + acc * e
         den = den + l * e
     return (num / den.clamp_min(1e-20)).to(q.dtype)
+
+
+def _split_combine(entry: str, a: dict, int8_scores: bool,
+                   n_split: int) -> torch.Tensor:
+    """`split_combine` on LAYER of this file's stacked cache."""
+    q = a["q"]
+    k, v = a["k"][LAYER], a["v"][LAYER]
+    ks = None if a["ks"] is None else a["ks"][LAYER]
+    vs = None if a["vs"] is None else a["vs"][LAYER]
+    chunk = S // n_split
+    assert chunk % ta.HEAD_TP == 0
+    # every row of the file has keys; with more than one split, some of
+    # its chunks lie wholly outside [start, length)
+    valid = ta._head_valid(a["lengths"], a["starts"], S, q.device)
+    has_keys = valid.reshape(B, n_split, chunk).any(-1)
+    assert bool(has_keys.all()) == (n_split == 1)
+    return split_combine(q, k, v, ks, vs, a["lengths"], a["starts"],
+                         VARIANT[entry], int8_scores, n_split, chunk)
 
 
 @pytest.mark.parametrize("n_split", [1, 4, 8])

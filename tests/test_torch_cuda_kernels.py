@@ -111,6 +111,125 @@ def test_decode_attention_stream_fold(dev, b):
         assert torch.equal(a, r)
 
 
+# (b, S, rows) of the position-major cases: batch 1 at the engine's
+# S = 2048, where the kernel splits each row's keys over CTAs, over the full
+# cache and early in a request (keys 0-255: most splits hold none); batch
+# 40 over ragged rows (one split); batch 3 with a row whose start is past
+# its length
+POS_ROWS = {"1-s2048": (1, 2048, "full"), "1-s2048-len256": (1, 2048, 256),
+            "40": (40, 384, "ragged"), "3-empty-row": (3, 384, "empty")}
+POS_MODES = [("int8", True), ("int8", False), ("bf16", False)]
+
+
+@pytest.mark.parametrize("rows", list(POS_ROWS))
+@pytest.mark.parametrize("cache,int8_scores", POS_MODES,
+                         ids=["int8-i8", "int8", "bf16"])
+def test_decode_attention_pos_major(dev, cache, int8_scores, rows):
+    """#1 on the position-major cache (csrc/decode_attention.cu) against its
+    plain twin, with one launch count per call; an empty row gives 0."""
+    b, s, fill = POS_ROWS[rows]
+    g = _gen(dev, 41 + b)
+    L, hkv, grp, d, layer = 2, 8, 4, 128, 1
+    shape = (L, s, b, hkv, d)
+    if cache == "int8":
+        k = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        ks = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+        kernel = ta.KERNEL
+    else:
+        k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        ks = vs = None
+        kernel = ta.BF16_KERNEL
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    starts = torch.zeros((b,), dtype=torch.int32, device=dev)
+    if fill == "ragged":
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        starts = (torch.rand((b,), generator=g, device=dev)
+                  * lengths.float()).int()            # start < length
+    elif fill == "empty":
+        lengths = torch.tensor([s, 300, 50], dtype=torch.int32, device=dev)
+        starts = torch.tensor([0, 7, 60], dtype=torch.int32, device=dev)
+    else:
+        lengths = torch.full((b,), s if fill == "full" else fill,
+                             dtype=torch.int32, device=dev)
+    before = kernel.launches
+    args = (q, k, v, ks, vs, layer, lengths, starts, int8_scores)
+    got = decode_attention_stream(*args, pos_major=True)
+    ref = decode_attention_stream_plain(*args, pos_major=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if fill == "empty":
+        # the row with no key gives 0 (the plain version, one softmax over
+        # the -1e30 masked scores, averages v there); the others as below
+        assert torch.count_nonzero(got[2]).item() == 0
+        got, ref = got[:2], ref[:2]
+    err = (got.float() - ref.float()).abs().max().item()
+    if cache == "int8":
+        # outputs of magnitude <= ~1; p * v_scale is rounded to bf16 at the
+        # kernel's running maxima and at the plain version's exact maximum:
+        # a few bf16 ulps (2^-7 each)
+        assert err < 1.5e-2
+    else:
+        # p rounded to bf16 likewise: 2 bf16 ulps of the largest output
+        top = ref.float().abs().max().item()
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+# (b, S, Hkv, write_pos) with the key range split over CTAs: batch 1 at
+# S = 2048 (32 splits of 64 on an H100) and batch 40 with 2 kv heads at
+# S = 384 (3 splits of 128); write_pos in the first, a middle and the last
+# split
+FOLD_SPLITS = {"1-first": (1, 2048, 8, 10), "1-middle": (1, 2048, 8, 1000),
+               "1-last": (1, 2048, 8, 2047), "40-first": (40, 384, 2, 100),
+               "40-middle": (40, 384, 2, 200), "40-last": (40, 384, 2, 300)}
+
+
+@pytest.mark.parametrize("case", list(FOLD_SPLITS))
+def test_decode_attention_stream_fold_splits(dev, case):
+    """The fold with n_split > 1 equals _write_cache + decode_attention_
+    stream bit for bit: output, int8 rows and scales."""
+    b, s, hkv, wpos = FOLD_SPLITS[case]
+    n_split, chunk = ta.head_split(s, b, hkv, ta._sm_count(dev.index or 0),
+                                   ta.POS_TP[torch.int8])
+    assert n_split > 1
+    g = _gen(dev, 43 + wpos)
+    L, grp, d, layer = 2, 4, 128, 0
+    k8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand((L, b, s * hkv), generator=g, device=dev) * 0.02 + 1e-3
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    nk = torch.randn((b, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    nv = torch.randn((b, hkv, d), generator=g, device=dev).to(torch.bfloat16)
+    lengths = torch.full((b,), wpos + 1, dtype=torch.int32, device=dev)
+    starts = torch.randint(0, wpos // 2 + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    starts[0] = 0
+    two = KVCache(k8.clone(), v8.clone(), ks.clone(), vs.clone(),
+                  pos_major=True)
+    _write_cache(two, layer, wpos, nk[:, None], nv[:, None])
+    ref = decode_attention_stream(q, two.k, two.v, two.ks, two.vs, layer,
+                                  lengths, starts, pos_major=True)
+    before = ta.FOLD_KERNEL.launches
+    got = decode_attention_stream_fold(q, k8, v8, ks, vs, layer, lengths,
+                                       starts, nk, nv, wpos)
+    torch.cuda.synchronize()
+    assert ta.FOLD_KERNEL.launches == before + 1
+    for a, r in ((got, ref), (k8, two.k), (v8, two.v), (ks, two.ks),
+                 (vs, two.vs)):
+        assert torch.equal(a, r)
+
+
 # (entry, cache, int8_scores) of the head-major kernels
 HEAD_CASES = [
     ("stream", "int8", True), ("stream", "int8", False),
