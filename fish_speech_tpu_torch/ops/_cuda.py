@@ -61,9 +61,11 @@ SIGNATURES = {
     # x8 q4 gs out | M N K G | stream
     "w4a8_matmul": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
     "w4a8_matmul_pc": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
-    # x w s norms rope ck cv cks cvs x8 xs buf | B dim L K pos n_head |
-    # eps | stream
-    "fast_sweep": ("fast_sweep", [_P] * 12 + [_I] * 6 + [_F, _P]),
+    # x_in x_out w s norms freqs ck cv cks cvs x8 xs buf hmax trace | B dim
+    # L K pos n_head grid ks_wo ks_w2 | eps | stream
+    "fast_sweep": ("fast_sweep", [_P] * 15 + [_I] * 9 + [_F, _P]),
+    # n_sm per_sm (out): no launch, no stream
+    "fast_sweep_grid": ("fast_sweep", [ctypes.POINTER(_I)] * 2),
     # x y w7 w1 vec tail | B T C n_units d0 d1 d2 has_tail | stream
     "voc_res_stack": ("voc_fused", [_P] * 6 + [_I] * 8 + [_P]),
     # x y pw pb w7 w1 vec tail fw | B T_in C_in C stride d0 d1 d2 final |

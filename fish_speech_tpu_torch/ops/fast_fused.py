@@ -12,14 +12,16 @@ weights hold the 13 real (dim, dim) tiles without the padding tile, and the
 batch is not padded to 8. The scales are still rounded to bf16 after the
 int8 quantization with the f32 scale, as the TPU kernel does.
 
-`fused_fast_sweep` launches the CUDA sweep (csrc/fast_sweep.cu) for CUDA
-tensors and runs `fused_fast_sweep_plain` for CPU tensors.
+`fused_fast_sweep` launches the CUDA sweep (csrc/fast_sweep.cu, one
+cooperative launch a sweep) for CUDA tensors and runs
+`fused_fast_sweep_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -32,11 +34,29 @@ N_TILES = 13     # q, k, v, wo, w1 x3, w3 x3, w2 x3 (column tiles)
 
 @dataclass
 class FusedFastCache:
-    """Position-major int8 fast KV cache, written in place."""
+    """Position-major int8 fast KV cache, written in place.
+
+    A cache on the card also holds the CUDA sweep's scratch, made with it:
+    the buffers that a sweep, or a CUDA-graph replay of one, writes live as
+    long as the cache and serve it alone. As for the cache itself, one
+    sweep on it runs at a time."""
     k: torch.Tensor    # (L, K, B, dim) int8
     v: torch.Tensor    # (L, K, B, dim) int8
     ks: torch.Tensor   # (L, K, B) bf16 per-(position, row) scales
     vs: torch.Tensor   # (L, K, B) bf16
+    # (x8 (B, 3*dim) int8, xs (B,) f32, buf (B, 3*dim) bf16, hmax (B,) f32)
+    scratch: tuple | None = field(init=False, default=None, repr=False,
+                                  compare=False)
+
+    def __post_init__(self):
+        if self.k.is_cuda:
+            _, _, b, dim = self.k.shape
+            dev = self.k.device
+            self.scratch = (
+                torch.empty((b, 3 * dim), dtype=torch.int8, device=dev),
+                torch.empty((b,), dtype=torch.float32, device=dev),
+                torch.empty((b, 3 * dim), dtype=torch.bfloat16, device=dev),
+                torch.empty((b,), dtype=torch.float32, device=dev))
 
     @staticmethod
     def create(n_layer: int, n_pos: int, batch: int, dim: int,
@@ -92,6 +112,66 @@ def rope_rows(freqs_table: torch.Tensor, pos: int, n_head: int):
     cos = cs[:, 0].repeat_interleave(2).repeat(n_head)
     sin = cs[:, 1].repeat_interleave(2).repeat(n_head)
     return cos, sin
+
+
+# --- the CUDA sweep's grid ------------------------------------------------
+# One cooperative launch: a grid of every co-resident CTA (the SM count x
+# CTAs an SM) walks the layers, with grid-wide barriers between phases.
+
+SMALL_B = 8   # batches up to this stream the weights one warp a column
+WARPS = 8     # warps of a CTA (256 threads)
+TILE = 64     # above SMALL_B: the tensor-core tile (rows, columns, K bytes)
+
+
+def k_split(n_cols: int, nseg: int, kseg: int, grid: int) -> int:
+    """K parts a segment for a product at B <= SMALL_B whose n_cols columns
+    are dealt to the CTAs (column n to CTA n % grid) and whose (column,
+    segment, part) items go to a CTA's warps: the most parts (a power of
+    2) whose items still fit the CTA's warps, each part whole 16-byte
+    loads."""
+    cols = -(-n_cols // grid)
+    ks = 1
+    while cols * nseg * ks * 2 <= WARPS and kseg % (16 * ks * 2) == 0:
+        ks *= 2
+    return ks
+
+
+def sweep_plan(b: int, dim: int, n_layer: int, n_sm: int,
+               ctas_per_sm: int) -> dict:
+    """The kernel's grid, its phases and barriers, and the K splits of wo
+    and w2 at batch b on a card of n_sm SMs holding ctas_per_sm of the
+    kernel's CTAs each."""
+    if n_sm < 1 or ctas_per_sm < 1:
+        raise ValueError(f"the fast sweep needs a co-resident grid (got "
+                         f"{n_sm} SMs x {ctas_per_sm} CTAs)")
+    grid = n_sm * ctas_per_sm
+    small = b <= SMALL_B
+    # phases a layer: four at B = 1, five up to SMALL_B (the rows'
+    # attention is spread over CTAs), eight above; no barrier after the
+    # last
+    phases = 4 if b == 1 else 5 if small else 8
+    return {"grid": grid, "ctas_per_sm": ctas_per_sm, "small": small,
+            "ks_wo": k_split(dim, 1, dim, grid) if small else 1,
+            "ks_w2": k_split(dim, 3, dim, grid) if small else 1,
+            "phases": phases, "barriers": phases * n_layer - 1}
+
+
+_GRID: dict = {}      # device index -> (SMs, co-resident CTAs an SM)
+
+
+def sweep_grid(dev: torch.device) -> tuple[int, int]:
+    """(SM count, co-resident sweep CTAs an SM) of the card, asked once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _GRID:
+        n_sm, per_sm = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(idx):
+            err = _cuda.lib("fast_sweep").fast_sweep_grid(
+                ctypes.byref(n_sm), ctypes.byref(per_sm))
+        if err:
+            raise RuntimeError(f"fast sweep: no cooperative grid on {dev}: "
+                               f"cudaError {err}")
+        _GRID[idx] = (n_sm.value, per_sm.value)
+    return _GRID[idx]
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -175,42 +255,109 @@ def fused_fast_sweep_plain(packed: dict, x: torch.Tensor,
 
 def fused_fast_sweep(packed: dict, x: torch.Tensor, cache: FusedFastCache,
                      freqs_table: torch.Tensor, *, pos: int, n_head: int,
-                     eps: float) -> torch.Tensor:
+                     eps: float, trace: torch.Tensor | None = None
+                     ) -> torch.Tensor:
     """One fast-stack sweep at codebook position `pos`: (B, dim) -> (B, dim)
-    bf16, with the cache's position `pos` written in place."""
+    bf16, with the cache's position `pos` written in place. On CUDA: one
+    cooperative launch of the sweep kernel (raises if it cannot launch),
+    which reads RoPE's row `pos` from freqs_table ((>= pos + 1, head_dim /
+    2, 2) bf16, as `precompute_freqs_cis` makes it) and works in the
+    cache's scratch.
+
+    trace: None, or an int64 (barriers + 1, 2, grid) CUDA tensor (the
+    plan's) that the kernel fills with the global timer (ns) at its start,
+    at each CTA's arrival at and exit from every grid barrier, and at its
+    end (`sweep_phase_times` reads it)."""
     if not x.is_cuda:
         return fused_fast_sweep_plain(packed, x, cache, freqs_table, pos=pos,
                                       n_head=n_head, eps=eps)
+    check_sweep_args(packed, x, cache, freqs_table, pos=pos, n_head=n_head)
     w, s, norms = packed["w"], packed["s"], packed["norms"]
+    n_layer, _, dim, _ = w.shape
+    n_pos, b = cache.k.shape[1], x.shape[0]
+    dev = x.device
+    _cuda.check(w, "w", torch.int8, None, dev)
+    _cuda.check(s, "s", torch.float32, None, dev)
+    _cuda.check(norms, "norms", torch.bfloat16, None, dev)
+    for name, t in (("cache.k", cache.k), ("cache.v", cache.v)):
+        _cuda.check(t, name, torch.int8, None, dev)
+    for name, t in (("cache.ks", cache.ks), ("cache.vs", cache.vs)):
+        _cuda.check(t, name, torch.bfloat16, None, dev)
+    # the kernel reads the table's row `pos` 16 bytes a load
+    _cuda.check(freqs_table, "freqs_table", torch.bfloat16, None, dev)
+    if freqs_table.data_ptr() % 16:
+        raise ValueError("freqs_table must be 16-byte aligned")
+    plan = sweep_plan(b, dim, n_layer, *sweep_grid(dev))
+    x8, xsc, buf, hmax = cache.scratch
+    if trace is not None:
+        _cuda.check(trace, "trace", torch.int64,
+                    (plan["barriers"] + 1, 2, plan["grid"]), dev)
+    xin = x.to(torch.bfloat16).contiguous()
+    if xin.data_ptr() % 16:           # the kernel reads rows 16 bytes a load
+        xin = xin.clone()
+    xo = torch.empty_like(xin)
+    KERNEL(xin.data_ptr(), xo.data_ptr(), w.data_ptr(), s.data_ptr(),
+           norms.data_ptr(), freqs_table.data_ptr(), cache.k.data_ptr(),
+           cache.v.data_ptr(), cache.ks.data_ptr(), cache.vs.data_ptr(),
+           x8.data_ptr(), xsc.data_ptr(), buf.data_ptr(), hmax.data_ptr(),
+           _cuda.ptr(trace), b, dim, n_layer, n_pos, pos, n_head,
+           plan["grid"], plan["ks_wo"], plan["ks_w2"], float(eps))
+    return xo
+
+
+def sweep_phase_times(trace: torch.Tensor, per_layer: int) -> dict:
+    """Microseconds a sweep spends per phase, from a filled trace. Phase i
+    runs on each CTA from trace[i, 0] (the start, or its exit from barrier
+    i - 1) to trace[i, 1] (its arrival at barrier i, or the end). For each
+    of a layer's `per_layer` phases, the mean over layers of: the mean and
+    the slowest CTA's work, and the barrier after it (the last arrival to
+    the first exit); and the sweep's span."""
+    t = trace.double().cpu()                  # (phases, 2, grid)
+    leave, arrive = t[:, 0], t[:, 1]
+    work = arrive - leave
+    wait = torch.cat([leave[1:].amin(dim=1) - arrive[:-1].amax(dim=1),
+                      torch.zeros(1, dtype=t.dtype)])
+    out = {}
+    for i in range(per_layer):
+        out[f"p{i}_work_mean_us"] = float(work[i::per_layer].mean()) / 1e3
+        out[f"p{i}_work_max_us"] = float(
+            work[i::per_layer].amax(dim=1).mean()) / 1e3
+        out[f"p{i}_barrier_us"] = float(wait[i::per_layer].mean()) / 1e3
+    out["span_us"] = float(arrive.amax() - leave.amin()) / 1e3
+    return out
+
+
+def check_sweep_args(packed: dict, x: torch.Tensor, cache: FusedFastCache,
+                     freqs_table: torch.Tensor, *, pos: int,
+                     n_head: int) -> None:
+    """The shapes the sweep kernel takes; raises ValueError otherwise."""
+    w, s, norms = packed["w"], packed["s"], packed["norms"]
+    if w.dim() != 4:
+        raise ValueError(f"w must be (L, 13, dim, dim), got {tuple(w.shape)}")
     n_layer, n_tiles, dim, _ = w.shape
-    n_pos = cache.k.shape[1]
-    b = x.shape[0]
-    if (n_tiles != N_TILES or dim % 64 or dim > 1024 or dim % n_head
-            or (dim // n_head) % 32):
+    if (n_tiles != N_TILES or dim % 64 or dim > 1024 or n_head < 1
+            or dim % n_head or (dim // n_head) % 32):
         raise ValueError(f"fast sweep kernel takes 13 tiles, dim a multiple "
                          f"of 64 up to 1024 and head_dim a multiple of 32 "
                          f"(got {n_tiles}, {dim}, {n_head} heads)")
+    if x.dim() != 2 or x.shape[1] != dim or x.shape[0] < 1:
+        raise ValueError(f"x must be (B, {dim}), got {tuple(x.shape)}")
+    b, n_pos = x.shape[0], cache.k.shape[1]
     if not 0 <= pos < min(n_pos, 16):
         raise ValueError(f"pos {pos} out of range")
-    if tuple(x.shape) != (b, dim):
-        raise ValueError(f"x must be (B, {dim}), got {tuple(x.shape)}")
-    dev = x.device
-    _cuda.check(w, "w", torch.int8, (n_layer, N_TILES, dim, dim), dev)
-    _cuda.check(s, "s", torch.float32, (n_layer, N_TILES, dim), dev)
-    _cuda.check(norms, "norms", torch.bfloat16, (n_layer, 2, dim), dev)
-    for name, t in (("cache.k", cache.k), ("cache.v", cache.v)):
-        _cuda.check(t, name, torch.int8, (n_layer, n_pos, b, dim), dev)
-    for name, t in (("cache.ks", cache.ks), ("cache.vs", cache.vs)):
-        _cuda.check(t, name, torch.bfloat16, (n_layer, n_pos, b), dev)
-    cos, sin = rope_rows(freqs_table, pos, n_head)
-    rope = torch.stack([cos, sin]).contiguous()
-    xo = x.to(torch.bfloat16).contiguous().clone()     # updated in place
-    x8 = torch.empty((b, 3 * dim), dtype=torch.int8, device=dev)
-    xsc = torch.empty((b,), dtype=torch.float32, device=dev)
-    buf = torch.empty((b, 6 * dim), dtype=torch.bfloat16, device=dev)
-    KERNEL(xo.data_ptr(), w.data_ptr(), s.data_ptr(), norms.data_ptr(),
-           rope.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
-           cache.ks.data_ptr(), cache.vs.data_ptr(), x8.data_ptr(),
-           xsc.data_ptr(), buf.data_ptr(), b, dim, n_layer, n_pos, pos,
-           n_head, float(eps))
-    return xo
+    want = {"w": (w, (n_layer, N_TILES, dim, dim)),
+            "s": (s, (n_layer, N_TILES, dim)),
+            "norms": (norms, (n_layer, 2, dim)),
+            "cache.k": (cache.k, (n_layer, n_pos, b, dim)),
+            "cache.v": (cache.v, (n_layer, n_pos, b, dim)),
+            "cache.ks": (cache.ks, (n_layer, n_pos, b)),
+            "cache.vs": (cache.vs, (n_layer, n_pos, b)),
+            "freqs_table": (freqs_table, (max(freqs_table.shape[0], pos + 1),
+                                          dim // n_head // 2, 2))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if freqs_table.dtype != torch.bfloat16:
+        raise ValueError(f"freqs_table must be bfloat16, got "
+                         f"{freqs_table.dtype}")

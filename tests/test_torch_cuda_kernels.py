@@ -17,6 +17,7 @@ from fish_speech_tpu_torch.models.dual_ar import (
     precompute_freqs_cis,
 )
 from fish_speech_tpu_torch.ops import attention as ta
+from fish_speech_tpu_torch.ops import fast_fused as ff
 from fish_speech_tpu_torch.ops import voc_fused as tv
 from fish_speech_tpu_torch.ops import w4a8 as tw
 from fish_speech_tpu_torch.ops.attention import (
@@ -398,12 +399,20 @@ def test_w4a8(dev, m, product, kernel):
     assert torch.equal(got, ref)
 
 
-# batch 3 takes the kernel's one-warp-per-column product, 40 its tiled one
-@pytest.mark.parametrize("b", [3, 40])
-@pytest.mark.parametrize("pos", [0, 3])
-def test_fast_sweep(dev, pos, b):
+# (dim, heads) of the sweep cases: a small width, and the S2-Pro fast head's
+SWEEP_WIDTHS = {"small": (256, 4), "s2pro": (1024, 16)}
+# batches up to 8 take the kernel's weight stream (one warp a column), 9 and
+# up its int8 tensor-core tiles (40: one partial row tile; 256: four)
+SWEEP_CASES = ([("small", b, pos) for b in (1, 3, 8, 9, 40, 256)
+                for pos in (0, 3)]
+               + [("s2pro", b, 3) for b in (1, 256)])
+
+
+def _sweep_setup(dev, width, b, pos, n_layer=2, n_pos=4):
+    """Two random int8 layers at `width`, the inputs of n_pos positions,
+    and a cache whose positions before `pos` the plain sweep filled."""
     g = _gen(dev, 7)
-    n_layer, dim, n_head, n_pos = 2, 256, 4, 4
+    dim, n_head = SWEEP_WIDTHS[width]
 
     def w(*shape):
         return torch.randn(shape, generator=g, device=dev) * 0.02
@@ -425,19 +434,63 @@ def test_fast_sweep(dev, pos, b):
     kw = dict(n_head=n_head, eps=1e-6)
     for p in range(pos):
         fused_fast_sweep_plain(packed, xs[p], cache, freqs, pos=p, **kw)
-    ck = FusedFastCache(*(t.clone() for t in (cache.k, cache.v, cache.ks,
-                                              cache.vs)))
-    got = fused_fast_sweep(packed, xs[pos], ck, freqs, pos=pos, **kw)
-    ref = fused_fast_sweep_plain(packed, xs[pos], cache, freqs, pos=pos, **kw)
+    return packed, freqs, xs[pos], cache, kw
+
+
+def _clone(cache, n_layer=None):
+    return FusedFastCache(*(t[:n_layer].clone() for t in (
+        cache.k, cache.v, cache.ks, cache.vs)))
+
+
+@pytest.mark.parametrize("width,b,pos", SWEEP_CASES)
+def test_fast_sweep(dev, width, b, pos):
+    packed, freqs, x, cache, kw = _sweep_setup(dev, width, b, pos)
+    # one layer: the same inputs, the same rounding points and exact int32
+    # products on both sides: bit-equal, output and cache row
+    layer0 = {k: v[:1].contiguous() for k, v in packed.items()}
+    c1, p1 = _clone(cache, 1), _clone(cache, 1)
+    before = ff.KERNEL.launches
+    got1 = fused_fast_sweep(layer0, x, c1, freqs, pos=pos, **kw)
+    ref1 = fused_fast_sweep_plain(layer0, x, p1, freqs, pos=pos, **kw)
     torch.cuda.synchronize()
-    # same rounding points on both sides; f32 sums in another order may move
-    # one bf16 rounding and then one int8 step: 2^-5 of the output's scale
+    assert ff.KERNEL.launches == before + 1
+    assert torch.equal(got1, ref1)
+    for a, r in zip((c1.k, c1.v, c1.ks, c1.vs), (p1.k, p1.v, p1.ks, p1.vs)):
+        assert torch.equal(a[:, pos], r[:, pos])
+    ck = _clone(cache)
+    got = fused_fast_sweep(packed, x, ck, freqs, pos=pos, **kw)
+    ref = fused_fast_sweep_plain(packed, x, cache, freqs, pos=pos, **kw)
+    torch.cuda.synchronize()
+    # the second layer takes the first one's output from each side; f32
+    # sums in another order (RMSNorm, the head sums) may move one bf16
+    # rounding and then one int8 step: 2^-5 of the output's scale
     scale = ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
     k_diff = (ck.k[:, pos].int() - cache.k[:, pos].int()).abs()
     assert k_diff.max().item() <= 1
     assert torch.allclose(ck.ks[:, pos].float(), cache.ks[:, pos].float(),
                           rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("b", [1, 40])
+def test_fast_sweep_graph(dev, b):
+    """One sweep captured in a CUDA graph and replayed equals the eager
+    sweep bit for bit (output and cache row)."""
+    pos = 3
+    packed, freqs, x, cache, kw = _sweep_setup(dev, "small", b, pos)
+    eager_cache, graph_cache = _clone(cache), _clone(cache)
+    eager = fused_fast_sweep(packed, x, eager_cache, freqs, pos=pos, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fused_fast_sweep(packed, x, graph_cache, freqs, pos=pos, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    for a, r in zip((graph_cache.k, graph_cache.v, graph_cache.ks,
+                     graph_cache.vs), (eager_cache.k, eager_cache.v,
+                                       eager_cache.ks, eager_cache.vs)):
+        assert torch.equal(a, r)
 
 
 def _units(c, n, seed, dev, quant=False):

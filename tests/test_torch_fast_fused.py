@@ -84,3 +84,87 @@ def test_plain_sweep_matches_pallas_every_position(setup):
             sc = getattr(cache_t, name + "s")[:, pos].float().numpy()
             np.testing.assert_array_equal(sc[0], sa[0])
             np.testing.assert_allclose(sc, sa, rtol=2 ** -6)
+
+
+# --- the CUDA sweep's host side (runs without a card) ----------------------
+
+S2_PRO_FAST = (1024, 16)    # fast head width, heads (of 64)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 8])
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 40, 256])
+def test_sweep_plan_fits_the_kernel(b, n_sm):
+    """What the plan hands the kernel: the grid, the barriers a sweep (the
+    trace's rows: the kernel's phases a layer), and the K parts a segment
+    of wo and w2, which the C entry takes only if each part is whole
+    16-byte loads and there are at most WARPS: the most parts (a power of
+    2) whose items a CTA's warps hold in one pass."""
+    dim = S2_PRO_FAST[0]
+    for per_sm in (1, 2, 4):
+        plan = ff.sweep_plan(b, dim, 28, n_sm, per_sm)
+        grid = n_sm * per_sm
+        assert plan["grid"] == grid and plan["small"] == (b <= ff.SMALL_B)
+        per_layer = 4 if b == 1 else 5 if b <= ff.SMALL_B else 8
+        assert plan["phases"] == per_layer
+        assert plan["barriers"] == per_layer * 28 - 1
+        cols = -(-dim // grid)          # wo / w2 columns of CTA 0
+        for ks, nseg in ((plan["ks_wo"], 1), (plan["ks_w2"], 3)):
+            if not plan["small"]:
+                assert ks == 1
+                continue
+            assert 1 <= ks <= ff.WARPS and ks & (ks - 1) == 0
+            assert dim % (16 * ks) == 0
+            assert ks == 1 or cols * nseg * ks <= ff.WARPS
+            assert (cols * nseg * 2 * ks > ff.WARPS
+                    or dim % (32 * ks) != 0), (b, grid, ks)
+
+
+def _sweep_args(n_layer=2, dim=128, n_pos=4, b=3, tiles=13, head_dim=64):
+    packed = {"w": torch.zeros((n_layer, tiles, dim, dim), dtype=torch.int8),
+              "s": torch.zeros((n_layer, tiles, dim)),
+              "norms": torch.zeros((n_layer, 2, dim), dtype=torch.bfloat16)}
+    cache = ff.FusedFastCache.create(n_layer, n_pos, b, dim, "cpu")
+    freqs = precompute_freqs_cis_t(n_pos, head_dim, 10000.0)
+    return packed, torch.zeros((b, dim), dtype=torch.bfloat16), cache, freqs
+
+
+BAD_SWEEPS = {
+    "dim not a multiple of 64": (dict(dim=96), {}, 0, 2),
+    "dim above 1024": (dict(dim=1088), {}, 0, 17),
+    "head_dim not a multiple of 32": (dict(dim=128), {}, 0, 8),
+    "12 tiles": (dict(tiles=12), {}, 0, 2),
+    "pos past the cache": (dict(n_pos=4), {}, 4, 2),
+    "pos past 16": (dict(n_pos=20), {}, 16, 2),
+    "negative pos": ({}, {}, -1, 2),
+    "x of another width": ({}, {"x": (3, 64)}, 0, 2),
+    "cache of another batch": ({}, {"cache_b": 5}, 0, 2),
+    "freqs_table in f32": ({}, {"freqs_dtype": torch.float32}, 0, 2),
+    "freqs_table of another head_dim": (dict(head_dim=32), {}, 0, 2),
+    "freqs_table without row pos": ({}, {"freqs_rows": 3}, 3, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_SWEEPS))
+def test_sweep_refuses_bad_shapes(case):
+    kw, change, pos, n_head = BAD_SWEEPS[case]
+    packed, x, cache, freqs = _sweep_args(**kw)
+    if "x" in change:
+        x = torch.zeros(change["x"], dtype=torch.bfloat16)
+    if "cache_b" in change:
+        cache = ff.FusedFastCache.create(2, 4, change["cache_b"], 128, "cpu")
+    if "freqs_dtype" in change:
+        freqs = freqs.to(change["freqs_dtype"])
+    if "freqs_rows" in change:
+        freqs = freqs[:change["freqs_rows"]]
+    with pytest.raises(ValueError):
+        ff.check_sweep_args(packed, x, cache, freqs, pos=pos, n_head=n_head)
+
+
+def test_sweep_takes_good_shapes_and_refuses_no_grid():
+    packed, x, cache, freqs = _sweep_args()
+    assert cache.scratch is None        # a cache on the card holds scratch
+    ff.check_sweep_args(packed, x, cache, freqs, pos=3, n_head=2)
+    with pytest.raises(ValueError):
+        ff.sweep_plan(1, 128, 2, 0, 2)
+    with pytest.raises(ValueError):
+        ff.sweep_plan(1, 128, 2, 132, 0)
