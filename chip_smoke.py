@@ -62,6 +62,7 @@ HEAD_NEW_TOKENS = 32  # frames per request of a head-major route, at most
 FRAMES = 128          # codec frames for the vocoder kernel checks
 GROUPSIZE = 128       # int4 group size of the W4A8 path
 PREFILL_M = 256       # rows of a prefill product (a 256-token prompt bucket)
+BATCH_M = 40          # rows of a batched decode product
 L2_BYTES = 50e6       # timing loops rotate over more than twice this
 TEXTS = (
     "Hello there. This is the first request to the serving path.",
@@ -164,10 +165,10 @@ class Checks:
 def pos_split(b: int, s: int, hkv: int, dtype, dev) -> dict:
     """The position-major kernel's split of a row's keys at these shapes
     (logged with each case)."""
-    from fish_speech_tpu_torch.ops.attention import (POS_TP, _sm_count,
-                                                     head_split)
+    from fish_speech_tpu_torch.ops._cuda import sm_count
+    from fish_speech_tpu_torch.ops.attention import POS_TP, head_split
 
-    n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index or 0),
+    n_split, chunk = head_split(s, b, hkv, sm_count(dev.index or 0),
                                 POS_TP[dtype])
     return {"n_split": n_split, "chunk": chunk}
 
@@ -354,7 +355,8 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
     (GQA); none computes the int8 cache's function. Also times the
     per-layer int8 route's eager dequantization of one layer (k and v,
     bf16 products). Returns {C entry: cases}."""
-    from fish_speech_tpu_torch.ops.attention import _sm_count, head_split
+    from fish_speech_tpu_torch.ops._cuda import sm_count
+    from fish_speech_tpu_torch.ops.attention import head_split
 
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
@@ -373,7 +375,7 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
             lengths = torch.full((b,), s if fill == "full" else 256,
                                  dtype=torch.int32, device=dev)
             starts = torch.zeros((b,), dtype=torch.int32, device=dev)
-        n_split, chunk = head_split(s, b, hkv, _sm_count(dev.index or 0))
+        n_split, chunk = head_split(s, b, hkv, sm_count(dev.index or 0))
         log(f"  head-major B={b} S={s} {fill}: n_split={n_split} "
             f"chunk={chunk} ({n_split * b * hkv} CTAs)")
         pos = torch.arange(s, device=dev)
@@ -472,14 +474,30 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
     return cases
 
 
-def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
+def w4a8_case_plan(m: int, n: int, k: int, pc: bool, dev) -> list:
+    """The W4A8 kernel's plan at these shapes (logged with each case)."""
+    from fish_speech_tpu_torch.ops._cuda import sm_count
+    from fish_speech_tpu_torch.ops.w4a8 import w4a8_plan
+
+    return list(w4a8_plan(m, n, k, k // GROUPSIZE, sm_count(dev.index or 0),
+                          pc))
+
+
+def check_w4a8(chk: Checks, cfg, dev, gen,
+               rows=(1, BATCH_M, PREFILL_M),
+               plans: bool = True) -> tuple[list[dict], list[dict]]:
     """#11 and #12 at the slow stack's five products (wqkv, wo, w1, w3,
-    w2) at decode (M = 1) and prefill (M = 256) rows, on int4 weights
-    quantized from random ones. Both kernels must equal their plain
-    versions bit for bit (exact int32 dots, the same f32 steps). Library
-    yardstick: one torch._int_mm of the same M x K by K x N int8 product,
-    on the int8 weights #12 reconstructs (for #11, the W8A8 product this
-    configuration replaces)."""
+    w2) at `rows` rows M (decode at 1, a batched decode at 40, prefill at
+    256), on int4 weights quantized from random ones; with `plans`, each
+    case logs the kernel's plan (tile, K parts, part bytes). Both kernels
+    must equal their plain versions bit for bit (exact int32 dots, the same
+    f32 steps). Library yardstick: one torch._int_mm of the same M x K by
+    K x N int8 product, on the int8 weights #12 reconstructs (for #11, the
+    W8A8 product this configuration replaces).
+
+    The activations of M = 1 and 256 come from `gen`, those of other rows
+    from a generator of their own, so that rows added here leave the
+    inputs of the checks after this one as they were."""
     from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
     from fish_speech_tpu_torch.ops.w4a8 import (
         pc_weights, w4a8_matmul, w4a8_matmul_pc, w4a8_matmul_pc_plain,
@@ -489,6 +507,7 @@ def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
     qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
     products = (("wqkv", qkv, d), ("wo", d, cfg.n_head * cfg.head_dim),
                 ("w1", inter, d), ("w3", inter, d), ("w2", d, inter))
+    own = torch.Generator(device=dev).manual_seed(SEED + 2)
     grouped, pc = [], []
     for name, n, k in products:
         qw = quantize_weight_int4_packed(
@@ -496,8 +515,9 @@ def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
         q4, gs = qw["q4"], qw["gs"]
         weights = rotation((q4, gs))
         lib_weights = rotation((pc_weights(q4, gs)[0],))
-        for m in (1, PREFILL_M):
-            x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+        for m in rows:
+            x8 = torch.randint(-127, 128, (m, k), device=dev,
+                               generator=gen if m in (1, PREFILL_M) else own,
                                dtype=torch.int8)
             # torch._int_mm takes at least 17 rows: pad, outside the timing
             x8p = torch.cat([x8, x8.new_zeros(max(0, 32 - m), k)])
@@ -518,8 +538,10 @@ def check_w4a8(chk: Checks, cfg, dev, gen) -> tuple[list[dict], list[dict]]:
                 plain_ms = time_ms(lambda: plain(x8, *next(it)), 3, 1)
                 out.append(chk.case(
                     fn.__name__, f"{name} M={m} N={n} K={k}",
-                    max_err(got, ref), 0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=library_ms, m=m,
+                    max_err(got, ref), 0.0, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, m=m,
+                    **({"plan": w4a8_case_plan(m, n, k, fn is w4a8_matmul_pc,
+                                               dev)} if plans else {}),
                     bit_equal=bool(torch.equal(got, ref))))
         del weights, lib_weights
     torch.cuda.empty_cache()
@@ -663,8 +685,9 @@ def sweep_capture_equal(packed, x, base, freqs, pos: int, kw: dict) -> bool:
     return same
 
 
-def check_fast_sweep(chk: Checks, cfg, packed: dict, dev, gen) -> list[dict]:
-    """#2 on the engine's packed fast stack at B=256 and B=1, at pos 0 and
+def check_fast_sweep(chk: Checks, cfg, packed: dict, dev, gen,
+                     batches=(256, 1)) -> list[dict]:
+    """#2 on the engine's packed fast stack at `batches`, at pos 0 and
     pos 9; positions before `pos` are filled by plain sweeps first. Each
     case logs the kernel's cooperative grid (CTAs, CTAs an SM), its grid
     barriers a sweep, and the device kernels one call runs (profiler: must
@@ -692,7 +715,7 @@ def check_fast_sweep(chk: Checks, cfg, packed: dict, dev, gen) -> list[dict]:
     kw = dict(n_head=cfg.fast_n_head, eps=cfg.norm_eps)
     layer0 = {k: v[:1].contiguous() for k, v in packed.items()}
     cases = []
-    for b in (256, 1):
+    for b in batches:
         xs = torch.randn((n_pos, b, dim), generator=gen,
                          device=dev).to(torch.bfloat16)
         base = FusedFastCache.create(n_layer, n_pos, b, dim, dev)
@@ -1236,6 +1259,15 @@ def main() -> int:
     def decode(cases):
         return [c for c in cases if c["m"] == 1]
 
+    def with_prefill(e):
+        """#11 / #12: beside the M = 1 headline, one prefill layer's five
+        products at M = 256."""
+        pre = [c for c in e["cases"] if c["m"] == PREFILL_M]
+        e["prefill"] = {"m": PREFILL_M, "bound_by": pre[0]["bound_by"],
+                        **{k: sum(c[k] for c in pre) for k in (
+                            "ms", "plain_ms", "bound_ms", "library_ms")}}
+        return e
+
     report = {"kernels": [
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
@@ -1246,11 +1278,13 @@ def main() -> int:
         entry("decode_attention_stream_fold",
               "fish_speech_tpu/ops/attention.py:980", fold, fold[:1],
               "w4a8_fold"),
-        # headline: one decode layer's five products (M = 1)
-        entry("w4a8_matmul", "fish_speech_tpu/ops/w4a8.py:72", w4a8_grouped,
-              decode(w4a8_grouped), "w4a8_fold"),
-        entry("w4a8_matmul_pc", "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
-              decode(w4a8_pc), "w4a8_fold"),
+        # headline: one decode layer's five products (M = 1); "prefill":
+        # the same at M = 256
+        with_prefill(entry("w4a8_matmul", "fish_speech_tpu/ops/w4a8.py:72",
+                           w4a8_grouped, decode(w4a8_grouped), "w4a8_fold")),
+        with_prefill(entry("w4a8_matmul_pc",
+                           "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
+                           decode(w4a8_pc), "w4a8_fold")),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
               sweep[3:4], "int8"),
         # headline: the whole decoder's use at F frames

@@ -12,6 +12,7 @@ Nothing here runs at import: the first launch builds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -58,9 +59,10 @@ SIGNATURES = {
        for name in ("decode_attention_stream_head", "decode_attention_blocks",
                     "decode_attention_stacked_rows", "decode_attention",
                     "decode_attention_stacked", "decode_attention_chunked")},
-    # x8 q4 gs out | M N K G | stream
-    "w4a8_matmul": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
-    "w4a8_matmul_pc": ("w4a8", [_P] * 4 + [_I] * 4 + [_P]),
+    # x8 q4 gs out | M N K G | tile n_split part (ops/w4a8.py::w4a8_plan)
+    # | stream
+    "w4a8_matmul": ("w4a8", [_P] * 4 + [_I] * 7 + [_P]),
+    "w4a8_matmul_pc": ("w4a8", [_P] * 4 + [_I] * 7 + [_P]),
     # x_in x_out w s norms freqs ck cv cks cvs x8 xs buf hmax trace | B dim
     # L K pos n_head grid ks_wo ks_w2 | eps | stream
     "fast_sweep": ("fast_sweep", [_P] * 15 + [_I] * 9 + [_F, _P]),
@@ -166,6 +168,12 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card `index`, which the kernels' plans read."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

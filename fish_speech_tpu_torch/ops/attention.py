@@ -41,7 +41,6 @@ version for CPU tensors.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -316,18 +315,13 @@ def head_split(s: int, b: int, hkv: int, n_sm: int,
     return -(-s // chunk), chunk
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _split(q, s: int, tile: int):
     """`head_split`'s (n_split, chunk) for q (B, Hkv, G, D) over a cache of
     S positions on q's card, and the f32 scratch of the splits' partials
     (None for one split): per split the unnormalised accumulators (G, D),
     then the running max and sum."""
     b, hkv, g, d = q.shape
-    n_split, chunk = head_split(s, b, hkv, _sm_count(q.device.index), tile)
+    n_split, chunk = head_split(s, b, hkv, _cuda.sm_count(q.device.index), tile)
     part = None if n_split == 1 else torch.empty(
         b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=q.device)
     return n_split, chunk, part

@@ -18,7 +18,8 @@ applies their scale after it; W4A8_KERNEL=pc selects the second kernel, as
 in the JAX package.
 
 Each wrapper launches its CUDA kernel (csrc/w4a8.cu) for CUDA tensors, at
-any M, and runs its plain PyTorch version for CPU tensors.
+any M, with the tiles and K split of `w4a8_plan`, and runs its plain
+PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ from .quant import int8_matmul_t, int8_rows, unpack_int4
 
 KERNEL = _cuda.Kernel("w4a8_matmul")
 KERNEL_PC = _cuda.Kernel("w4a8_matmul_pc")
+
+# (BM, BN) of the kernel's tiled products 1 and 2 (csrc/w4a8.cu)
+TILES = {1: (64, 64), 2: (128, 128)}
 
 
 def _group_size(x8: torch.Tensor, q4: torch.Tensor, gs: torch.Tensor) -> int:
@@ -79,6 +83,39 @@ def w4a8_matmul_pc_plain(x8: torch.Tensor, q4: torch.Tensor,
     return int8_matmul_t(x8, w8).float() * s8
 
 
+def w4a8_plan(m: int, n: int, k: int, g: int, n_sm: int,
+              pc: bool) -> tuple[int, int, int]:
+    """(tile, n_split, part) of the kernel at these shapes, from the shapes
+    and the SM count only. tile 0 is the weight stream (M <= 8); 1 and 2
+    the 64 x 64 and 128 x 128 int8 tensor-core tiles. The packed K (K/2
+    bytes) is cut into n_split parts of `part` bytes (the last may be
+    shorter), each of whole groups: only the per-channel product (pc)
+    splits, its int32 sum being exact in any order; the grouped one adds
+    its groups in order and takes smaller tiles instead."""
+    kh = k // 2
+    if m <= 8:
+        return 0, 1, kh
+
+    def ctas(tile):
+        bm, bn = TILES[tile]
+        return -(-m // bm) * -(-n // bn)
+
+    # 64 x 64 (two CTAs an SM) up to 64 rows, and wherever 128 x 128 would
+    # take more than one wave or (grouped) leave half the SMs idle
+    slots = n_sm
+    if m <= TILES[1][0] or ctas(2) > n_sm or (not pc and 2 * ctas(2) <= n_sm):
+        tile, slots = 1, 2 * n_sm
+    else:
+        tile = 2
+    if not pc or 3 * ctas(tile) > slots:
+        return tile, 1, kh
+    # pc on under a third of the slots: split the packed K's G/2 groups
+    # over the slots
+    units = g // 2
+    per = -(-units // min(units, slots // ctas(tile)))
+    return tile, -(-units // per), per * (k // g)
+
+
 def _launch(kernel: _cuda.Kernel, x8, q4, gs) -> torch.Tensor:
     gsz = _group_size(x8, q4, gs)
     m, k = x8.shape
@@ -91,9 +128,11 @@ def _launch(kernel: _cuda.Kernel, x8, q4, gs) -> torch.Tensor:
     _cuda.check(x8, "x8", torch.int8, (m, k), dev)
     _cuda.check(q4, "q4", torch.int8, (n, k // 2), dev)
     _cuda.check(gs, "gs", torch.float32, (n, g), dev)
+    plan = w4a8_plan(m, n, k, g, _cuda.sm_count(dev.index),
+                     kernel is KERNEL_PC)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     kernel(x8.data_ptr(), q4.data_ptr(), gs.data_ptr(), out.data_ptr(), m, n,
-           k, g)
+           k, g, *plan)
     return out
 
 

@@ -1,0 +1,266 @@
+#!/usr/bin/env python3
+"""Times hand-written kernels of the port on one GPU through chip_smoke's
+checks, at S2-Pro width and the rows or batches given.
+
+    python3 kernel_bench.py w4a8 [--rows 1,9,40,256] [--tree DIR]
+    python3 kernel_bench.py w4a8 --phases [--rows 9,256]
+    python3 kernel_bench.py sweep [--batches 256,1] [--tree DIR]
+
+w4a8: #11 `w4a8_matmul` and #12 `w4a8_matmul_pc` at the slow stack's five
+products (`chip_smoke.check_w4a8`). sweep: #2 `fused_fast_sweep` on seeded
+random int8 fast-head weights (`chip_smoke.check_fast_sweep`).
+
+w4a8 --phases asks what paces the tiled (M > 8) product instead. It
+builds copies of csrc/w4a8.cu with one phase of the tile loop taken out
+(`no_mma`: the mma.sync products, replaced by an xor of their fragments
+so that the ldmatrix loads stay; `no_unpack`: the int4 unpack into the
+shared int8 tile; `no_load`: the loop's cp.async copies) and times each
+beside an unchanged copy (`base`), with the wrapper's plan, on weights
+cycled over more than twice the L2; the copies' outputs are wrong by
+design. A `trace` copy records clock64() at the phase boundaries of each
+step in CTA 0's first and last warps: per warp, the median cycles of a
+step spent waiting for its copies and the barrier, issuing the next
+step's copies, on the ldmatrix and mma (and #11's group epilogue), and
+unpacking the next step.
+
+--tree DIR times the package of another checkout (for example the
+parent's, unpacked with `git archive`) with this checkout's checks: its
+`fish_speech_tpu_torch` is imported, and its kernels built, from DIR. To
+compare two trees, run parent, change, change, parent in one session.
+
+Prints the card's name and power limit, then one JSON line per case as
+chip_smoke records it (ms, plain_ms, bound_ms, library_ms, ...), and for
+w4a8 one line per (kernel, rows) with the five products' sums: one layer.
+Exits 1 if a case failed its check, 2 without a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+
+def ints(text: str) -> list[int]:
+    return [int(v) for v in text.split(",")]
+
+
+def fast_stack(cfg, dev, gen) -> dict:
+    """The fast head's layers as int8 sweep tiles, from seeded random
+    weights at cfg's width."""
+    from fish_speech_tpu_torch.ops.fast_fused import pack_fast_stack
+    from fish_speech_tpu_torch.ops.quant import quantize_weight
+
+    n_layer, dim = cfg.n_fast_layer, cfg.fast_dim
+    inter = cfg.fast_intermediate_size
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * 0.02
+
+    return pack_fast_stack({
+        "attention": {"wqkv": quantize_weight(w(n_layer, 3 * dim, dim)),
+                      "wo": quantize_weight(w(n_layer, dim, dim))},
+        "feed_forward": {"w1": quantize_weight(w(n_layer, inter, dim)),
+                         "w2": quantize_weight(w(n_layer, dim, inter)),
+                         "w3": quantize_weight(w(n_layer, inter, dim))},
+        "attention_norm": 1 + w(n_layer, dim),
+        "ffn_norm": 1 + w(n_layer, dim)})
+
+
+# text edits of csrc/w4a8.cu's tile loop, each asserted to apply once
+_LOAD = "    if (s + NST - 1 < nstep) load(s + NST - 1);\n"
+_UNPACK = "    if (s + 1 < nstep) unpack(s + 1);\n"
+_MMA = ("            mma_s8(acc[i][jj], a[i], b[jj / 2][2 * (jj % 2)],\n"
+        "                   b[jj / 2][2 * (jj % 2) + 1]);\n")
+_WAIT = "    cp_wait<NST - 3>();\n"
+_STEP = "                          // stage and weight tile are free\n"
+VARIANTS = {
+    "base": [],
+    "no_mma": [(_MMA, "            acc[i][jj][0] += a[i][0] ^ "
+                      "b[jj / 2][2 * (jj % 2)] ^\n"
+                      "                b[jj / 2][2 * (jj % 2) + 1];\n")],
+    "no_unpack": [(_UNPACK, ""), ("  unpack(0);\n", "")],
+    "no_load": [(_LOAD, "")],
+}
+# trace points: 4 before the wait, 0 after the barrier, 1 after the copies
+# are issued, 2 after the products, 3 after the unpack
+_REC = ("    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&\n"
+        "        (tid == 0 || tid == T::THREADS - 32) && s < 512)\n"
+        "      w4a8_trace[tid != 0][s][{}] = clock64();\n")
+VARIANTS["trace"] = [
+    ("namespace {\n", "__device__ long long w4a8_trace[2][512][5];\n"
+                      "namespace {\n"),
+    (_WAIT, _REC.format(4) + _WAIT), (_STEP, _STEP + _REC.format(0)),
+    (_LOAD + "    cp_commit();\n", _LOAD + "    cp_commit();\n" + _REC.format(1)),
+    (_UNPACK, _REC.format(2) + _UNPACK + _REC.format(3))]
+_TRACE_C = """
+extern "C" int w4a8_trace_get(void* dst, int clear) {
+  void* at;
+  cudaError_t e = cudaGetSymbolAddress(&at, w4a8_trace);
+  if (e == cudaSuccess && dst)
+    e = cudaMemcpy(dst, at, sizeof(w4a8_trace), cudaMemcpyDeviceToHost);
+  if (e == cudaSuccess && clear) e = cudaMemset(at, 0, sizeof(w4a8_trace));
+  return (int)e;
+}
+"""
+
+
+def phase_libs() -> dict:
+    """The variants of csrc/w4a8.cu, built in parallel into the package's
+    build directory: {name: ctypes library}."""
+    import ctypes
+    import subprocess
+
+    from fish_speech_tpu_torch.ops import _cuda
+
+    src = (_cuda.CSRC / "w4a8.cu").read_text()
+    out = _cuda.BUILD_ROOT / "phases"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in VARIANTS.items():
+        text = src
+        for a, b in edits:
+            assert text.count(a) == 1, f"{name}: the tile loop has changed"
+            text = text.replace(a, b)
+        if name == "trace":
+            text += _TRACE_C
+        (out / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
+             str(out / f"{name}.cu")])
+    libs = {}
+    for name, p in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"nvcc failed on the {name} variant")
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+        for fn in ("w4a8_matmul", "w4a8_matmul_pc"):
+            getattr(libs[name], fn).argtypes = _cuda.SIGNATURES[fn][1]
+    return libs
+
+
+def phases(cs, cfg, dev, gen, rows) -> None:
+    """Prints one JSON line per (product, rows, kernel): each variant's
+    device time (ms) and the trace's median cycles a step per warp."""
+    import ctypes
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.ops import _cuda
+    from fish_speech_tpu_torch.ops import w4a8 as tw
+    from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
+
+    libs = phase_libs()
+    d, inter = cfg.dim, cfg.intermediate_size
+    # the slow stack's products but w3, of w1's shape
+    products = (("wqkv", (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim,
+                 d), ("wo", d, cfg.n_head * cfg.head_dim), ("w1", inter, d),
+                ("w2", d, inter))
+    buf = np.zeros((2, 512, 5), np.int64)
+    st = torch.cuda.current_stream().cuda_stream
+    for name, n, k in products:
+        qw = quantize_weight_int4_packed(
+            torch.randn((n, k), generator=gen, device=dev) * 0.02,
+            cs.GROUPSIZE)
+        weights = cs.rotation((qw["q4"], qw["gs"]))
+        g = k // cs.GROUPSIZE
+        for m in (m for m in rows if m > 8):
+            x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            out = torch.empty((m, n), device=dev)
+            for fn in ("w4a8_matmul", "w4a8_matmul_pc"):
+                plan = tw.w4a8_plan(m, n, k, g, _cuda.sm_count(dev.index),
+                                    fn == "w4a8_matmul_pc")
+                row = {"product": name, "m": m, "kernel": fn,
+                       "plan": list(plan), "ms": {}}
+
+                def call(f, q4, gs):
+                    err = f(x8.data_ptr(), q4.data_ptr(), gs.data_ptr(),
+                            out.data_ptr(), m, n, k, g, *plan, st)
+                    assert err == 0, f"cudaError {err}"
+
+                for var, lib in libs.items():
+                    it = cs.cycle(weights)
+                    row["ms"][var] = cs.time_ms(
+                        lambda: call(getattr(lib, fn), *next(it)),
+                        2 * len(weights))
+                lib = libs["trace"]
+                assert lib.w4a8_trace_get(None, 1) == 0
+                call(getattr(lib, fn), qw["q4"], qw["gs"])
+                torch.cuda.synchronize()
+                assert lib.w4a8_trace_get(
+                    ctypes.c_void_p(buf.ctypes.data), 0) == 0
+                for w, t in zip(("warp_first", "warp_last"), buf):
+                    t = t[:int((t[:, 0] > 0).sum())]
+                    row[w] = {"steps": len(t), **{
+                        ph: float(np.median(v)) for ph, v in (
+                            ("wait_barrier", t[1:, 0] - t[1:, 4]),
+                            ("copies", t[:, 1] - t[:, 0]),
+                            ("ldmatrix_mma", t[:, 2] - t[:, 1]),
+                            ("unpack", t[:-1, 3] - t[:-1, 2]),
+                            ("step", np.diff(t[:, 0])))}}
+                print(json.dumps(row), flush=True)
+        del weights
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=("w4a8", "sweep"))
+    ap.add_argument("--rows", type=ints, default=[1, 9, 40, 256],
+                    help="w4a8: the products' rows M")
+    ap.add_argument("--batches", type=ints, default=[256, 1],
+                    help="sweep: the batches")
+    ap.add_argument("--phases", action="store_true",
+                    help="w4a8: time the tile loop without each phase")
+    ap.add_argument("--tree", help="time the package of this checkout")
+    args = ap.parse_args()
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
+    # with --tree, from DIR: its submodules then load from there too
+    import fish_speech_tpu_torch
+    if args.tree:
+        sys.path.pop(0)
+    import chip_smoke as cs
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+
+    if not torch.cuda.is_available():
+        print("kernel_bench: CUDA is not available", file=sys.stderr)
+        return 2
+    print(cs.card_line(), flush=True)
+    cs.log(f"package: {os.path.dirname(fish_speech_tpu_torch.__file__)}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = s2_pro_lm_config()
+    chk = cs.Checks()
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
+    if args.phases:
+        phases(cs, cfg, dev, gen, args.rows)
+    elif args.kernel == "w4a8":
+        groups = cs.check_w4a8(chk, cfg, dev, gen, rows=args.rows,
+                               plans=False)
+        for cases, name in zip(groups, ("w4a8_matmul", "w4a8_matmul_pc")):
+            for c in cases:
+                print(json.dumps({"kernel": name, **c}), flush=True)
+            for m in args.rows:
+                layer = [c for c in cases if c["m"] == m]
+                print(json.dumps({
+                    "kernel": name, "layer": True, "m": m,
+                    "bound_by": layer[0]["bound_by"],
+                    **{k: sum(c[k] for c in layer) for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms")}}),
+                    flush=True)
+    else:
+        packed = fast_stack(cfg, dev, gen)
+        for c in cs.check_fast_sweep(chk, cfg, packed, dev, gen,
+                                     batches=args.batches):
+            print(json.dumps({"kernel": "fast_sweep", **c}), flush=True)
+    if chk.failed:
+        cs.log("kernel_bench FAILED: " + ", ".join(chk.failed))
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,6 +16,7 @@ from fish_speech_tpu_torch.models.dual_ar import (
     _write_cache,
     precompute_freqs_cis,
 )
+from fish_speech_tpu_torch.ops import _cuda
 from fish_speech_tpu_torch.ops import attention as ta
 from fish_speech_tpu_torch.ops import fast_fused as ff
 from fish_speech_tpu_torch.ops import voc_fused as tv
@@ -197,7 +198,7 @@ def test_decode_attention_stream_fold_splits(dev, case):
     """The fold with n_split > 1 equals _write_cache + decode_attention_
     stream bit for bit: output, int8 rows and scales."""
     b, s, hkv, wpos = FOLD_SPLITS[case]
-    n_split, chunk = ta.head_split(s, b, hkv, ta._sm_count(dev.index or 0),
+    n_split, chunk = ta.head_split(s, b, hkv, _cuda.sm_count(dev.index or 0),
                                    ta.POS_TP[torch.int8])
     assert n_split > 1
     g = _gen(dev, 43 + wpos)
@@ -378,16 +379,10 @@ S2_PRO_PRODUCTS = {"wqkv": (6144, 2560), "wo": (2560, 4096),
                    "w1": (9728, 2560), "w2": (2560, 9728)}
 
 
-# M = 1 and 3 take the kernels' one-warp-per-column product, 40 and 256
-# (a prefill) their tiled one
-@pytest.mark.parametrize("kernel", ["grouped", "pc"])
-@pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
-@pytest.mark.parametrize("m", [1, 3, 40, 256])
-def test_w4a8(dev, m, product, kernel):
-    n, k = S2_PRO_PRODUCTS[product]
+def _w4a8_case(dev, m, n, k, gsz, kernel):
     g = _gen(dev, 11)
     qw = quantize_weight_int4_packed(
-        torch.randn((n, k), generator=g, device=dev) * 0.02, 128)
+        torch.randn((n, k), generator=g, device=dev) * 0.02, gsz)
     x8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                        dtype=torch.int8)
     fn, plain = ((tw.w4a8_matmul, tw.w4a8_matmul_plain) if kernel == "grouped"
@@ -397,6 +392,50 @@ def test_w4a8(dev, m, product, kernel):
     torch.cuda.synchronize()
     # exact int32 dots, the same f32 steps in the same order (-fmad=false)
     assert torch.equal(got, ref)
+    return tw.w4a8_plan(m, n, k, k // gsz, _cuda.sm_count(dev.index or 0),
+                        kernel == "pc")
+
+
+# M = 1 and 3 take the kernels' one-warp-per-column product; 9 (the first
+# tiled M), 40, 100 (a partial row tile) and 256 (a prefill) their int8
+# tensor-core tiles
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+@pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
+@pytest.mark.parametrize("m", [1, 3, 9, 40, 100, 256])
+def test_w4a8(dev, m, product, kernel):
+    n, k = S2_PRO_PRODUCTS[product]
+    tile, n_split, _ = _w4a8_case(dev, m, n, k, 128, kernel)
+    assert (tile == 0) == (m <= 8)
+    if kernel == "grouped":
+        assert n_split == 1
+
+
+# N = 200 and 136: a partial column tile; K = 384 at group size 64: a
+# packed K (192 bytes) that is not a whole number of the grouped tiles'
+# 128-byte steps; group size 256: split parts of whole groups. The
+# per-channel product splits K in every case here (few column tiles)
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+@pytest.mark.parametrize("n,k,gsz", [(200, 512, 128), (200, 384, 64),
+                                     (136, 2048, 256)])
+@pytest.mark.parametrize("m", [9, 100])
+def test_w4a8_tails(dev, m, n, k, gsz, kernel):
+    tile, n_split, _ = _w4a8_case(dev, m, n, k, gsz, kernel)
+    assert tile in (1, 2)
+    assert n_split == 1 if kernel == "grouped" else n_split > 1
+
+
+# The tiles' dynamic shared-memory limit holds per card: set on card 0 by
+# the first call, it must be set again for a call on card 1
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+def test_w4a8_second_card(kernel):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    n, k = S2_PRO_PRODUCTS["w1"]
+    for i in (0, 1):
+        with torch.cuda.device(i):
+            tile, _, _ = _w4a8_case(torch.device("cuda", i), 256, n, k, 128,
+                                    kernel)
+        assert tile in (1, 2)
 
 
 # (dim, heads) of the sweep cases: a small width, and the S2-Pro fast head's

@@ -97,9 +97,14 @@ def _w4a8_inputs(m=32, n=256, k=512, gsz=64, seed=3):
     return w, x8, gsz
 
 
+# (m, n, k, gsz): a small case, and S2-Pro's group count (K 2560 in groups
+# of 128) at a prefill's 256 rows
 @pytest.mark.parametrize("kernel", ["grouped", "pc"])
-def test_plain_matches_pallas(kernel):
-    w, x8, gsz = _w4a8_inputs()
+@pytest.mark.parametrize("shape", [(32, 256, 512, 64), (256, 256, 2560, 128)],
+                         ids=["small", "s2pro_groups"])
+def test_plain_matches_pallas(kernel, shape):
+    m, n, k, gsz = shape
+    w, x8, gsz = _w4a8_inputs(m, n, k, gsz)
     qj = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
     jfn, tfn = ((jw4a8, tw.w4a8_matmul_plain) if kernel == "grouped"
                 else (jw4a8_pc, tw.w4a8_matmul_pc_plain))
@@ -111,6 +116,79 @@ def test_plain_matches_pallas(kernel):
     # may differ (XLA may contract the interpreter's multiply-add): 1e-5 of
     # the output's scale
     np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+# (N, K) of the S2-Pro slow stack's five products
+S2_PRO_PRODUCTS = {"wqkv": (6144, 2560), "wo": (2560, 4096),
+                   "w1": (9728, 2560), "w3": (9728, 2560),
+                   "w2": (2560, 9728)}
+
+
+@pytest.mark.parametrize("n_sm", [108, 132])
+@pytest.mark.parametrize("m", [1, 9, 40, 256])
+@pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
+def test_plan(product, m, n_sm):
+    """The kernel's plan (what the wrapper passes to csrc/w4a8.cu) at the
+    S2-Pro products: the weight stream up to 8 rows, else a tile; #12's K
+    parts are whole groups and cover the packed K once; #11 never splits K
+    (its groups add in order); no split takes more CTAs than the SMs
+    hold."""
+    n, k = S2_PRO_PRODUCTS[product]
+    gsz, kh = 128, k // 2
+    for pc in (False, True):
+        tile, n_split, part = tw.w4a8_plan(m, n, k, k // gsz, n_sm, pc)
+        assert (tile == 0) == (m <= 8)
+        assert part % gsz == 0 or (n_split == 1 and part == kh)
+        assert (n_split - 1) * part < kh <= n_split * part
+        if not pc:
+            assert (n_split, part) == (1, kh)
+        if tile:
+            bm, bn = tw.TILES[tile]
+            rows, cols = -(-m // bm), -(-n // bn)
+            assert rows * bm >= m > (rows - 1) * bm
+            assert cols * bn >= n > (cols - 1) * bn
+            ctas, per_sm = rows * cols, 2 if tile == 1 else 1
+            assert n_split == 1 or ctas * n_split <= per_sm * n_sm
+
+
+def _pc_split(x8, q4, gs, plan):
+    """#12 as the tiled kernel computes it under a K split: per K part, per
+    step of 64 packed bytes, one exact int32 product of both nibble halves
+    (x columns j.. and K/2 + j..), the parts' int32 sums added, then
+    float(sum) * cs * 8/127."""
+    _, n_split, part = plan
+    w8, s8 = tw.pc_weights(q4, gs)
+    kh = q4.shape[1]
+    acc = torch.zeros((x8.shape[0], q4.shape[0]), dtype=torch.int32)
+    for z in range(n_split):
+        partial = torch.zeros_like(acc)
+        for j in range(z * part, min(z * part + part, kh), 64):
+            cols = torch.cat([torch.arange(j, j + 64),
+                              torch.arange(kh + j, kh + j + 64)])
+            partial += tq.int8_matmul_t(x8[:, cols].contiguous(),
+                                        w8[:, cols].contiguous())
+        acc += partial
+    return acc.float() * s8
+
+
+@pytest.mark.parametrize("n_sm", [108, 132])
+def test_pc_split_matches_pallas(n_sm):
+    m, n, k, gsz = 32, 256, 2560, 128
+    w, x8, gsz = _w4a8_inputs(m, n, k, gsz, seed=7)
+    plan = tw.w4a8_plan(m, n, k, k // gsz, n_sm, True)
+    assert plan[1] > 1          # these shapes split K
+    qj = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
+    q4, gs = (torch.from_numpy(np.array(qj["q4"])),
+              torch.from_numpy(np.array(qj["gs"])))
+    got = _pc_split(torch.from_numpy(x8), q4, gs, plan)
+    # exact int32 sums in any order, the same f32 epilogue: bit-equal
+    assert torch.equal(got, tw.w4a8_matmul_pc_plain(torch.from_numpy(x8),
+                                                    q4, gs))
+    ref = np.asarray(jw4a8_pc(jnp.asarray(x8), qj["q4"], qj["gs"], gsz=gsz,
+                              n_tile=128, interpret=True))
+    # as test_plain_matches_pallas
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
 
 
