@@ -493,11 +493,7 @@ def check_w4a8(chk: Checks, cfg, dev, gen,
     must equal their plain versions bit for bit (exact int32 dots, the same
     f32 steps). Library yardstick: one torch._int_mm of the same M x K by
     K x N int8 product, on the int8 weights #12 reconstructs (for #11, the
-    W8A8 product this configuration replaces).
-
-    The activations of M = 1 and 256 come from `gen`, those of other rows
-    from a generator of their own, so that rows added here leave the
-    inputs of the checks after this one as they were."""
+    W8A8 product this configuration replaces)."""
     from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
     from fish_speech_tpu_torch.ops.w4a8 import (
         pc_weights, w4a8_matmul, w4a8_matmul_pc, w4a8_matmul_pc_plain,
@@ -507,7 +503,6 @@ def check_w4a8(chk: Checks, cfg, dev, gen,
     qkv = (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim
     products = (("wqkv", qkv, d), ("wo", d, cfg.n_head * cfg.head_dim),
                 ("w1", inter, d), ("w3", inter, d), ("w2", d, inter))
-    own = torch.Generator(device=dev).manual_seed(SEED + 2)
     grouped, pc = [], []
     for name, n, k in products:
         qw = quantize_weight_int4_packed(
@@ -516,9 +511,8 @@ def check_w4a8(chk: Checks, cfg, dev, gen,
         weights = rotation((q4, gs))
         lib_weights = rotation((pc_weights(q4, gs)[0],))
         for m in rows:
-            x8 = torch.randint(-127, 128, (m, k), device=dev,
-                               generator=gen if m in (1, PREFILL_M) else own,
-                               dtype=torch.int8)
+            x8 = torch.randint(-127, 128, (m, k), generator=gen,
+                               device=dev, dtype=torch.int8)
             # torch._int_mm takes at least 17 rows: pad, outside the timing
             x8p = torch.cat([x8, x8.new_zeros(max(0, 32 - m), k)])
             it = cycle(lib_weights)
@@ -698,8 +692,9 @@ def check_fast_sweep(chk: Checks, cfg, packed: dict, dev, gen,
     kernel rounds, int8 activations and cache) and the kernel's int32
     products are exact, so after one layer the output must be bit-equal to
     the plain twin's (its error against 2^-6 of the output's scale is
-    logged too). Over all layers the f32 sums the twins take in another
-    order (RMSNorm, the head sums) may move a bf16 rounding by one ulp; the
+    logged too). Over all layers exp and the SiLU's sigmoid, which the two
+    sides take from different math libraries, may move a bf16 rounding by
+    one ulp; the
     int8 quantizations that follow turn such a step into a whole int8 step,
     and 28 random-weight layers amplify it. So at full depth the kernel must
     stay within twice the plain version's own spread: its change when 1% of
@@ -852,12 +847,32 @@ def unit_flops(t: int, c: int, n_units: int) -> int:
     return n_units * t * 2 * 8 * c * c
 
 
+def block_plan(x, res: dict, stride: int, final: bool, dev) -> dict:
+    """The bf16 block kernel's plan for this call (logged with its case):
+    each pass's tile and CTAs, and the device kernels a call runs; {} for
+    a package without `voc_block_plan` (kernel_bench --tree)."""
+    from fish_speech_tpu_torch.ops import _cuda, voc_fused
+
+    plan_fn = getattr(voc_fused, "voc_block_plan", None)
+    if plan_fn is None:
+        return {}
+    b, t_in, c_in = x.shape
+    plan = plan_fn(b, t_in, c_in, res["w1"].shape[-1], stride,
+                   voc_fused.DILATIONS, final, _cuda.sm_count(dev.index or 0))
+    return {"plan": [f"{q['name']}: {q['bm']}x{q['bn']} {q['ctas']} CTAs"
+                     for q in plan["passes"]],
+            "plan_device_kernels": plan["device_kernels"]}
+
+
 def check_vocoder(chk: Checks, engine, frames: int, dev,
                   gen) -> tuple[list[dict], list[dict]]:
     """#4 (block 0's residual stack, 3 launches) and #3 (blocks 1-3, the
-    last with the final conv and tanh) on the engine's packed decoder."""
+    last with the final conv and tanh) on the engine's packed decoder
+    (`engine` needs codec_cfg, codec_params and packed_decoder). Each
+    block case logs the kernel's plan and the device kernels one call
+    runs (profiler); a call must count one launch."""
     from fish_speech_tpu_torch.ops.voc_fused import (
-        DILATIONS, fused_block, fused_block_plain, fused_res_stack,
+        BLOCK, DILATIONS, fused_block, fused_block_plain, fused_res_stack,
         fused_res_stack_plain)
 
     packed, ccfg = engine.packed_decoder, engine.codec_cfg
@@ -902,12 +917,22 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
         wts = [pb["res"][k] for k in ("tconv_pw", "tconv_pb", "w7", "w1",
                                       "vec")]
         b_ms, b_by = bound(nbytes(x, got, *wts), {"bf16": flops})
+        before = BLOCK.launches
+        names, calls = device_kernels(lambda: fused_block(x, pb["res"],
+                                                          **kw))
+        per_call = (BLOCK.launches - before) / calls
+        if per_call != 1:
+            chk.failed.append(f"voc_block [block {bi}]: one call made "
+                              f"{per_call} launches")
         # the waveform is tanh'd into [-1, 1]: 2^-5 absolute there
         scale = 1.0 if final else ref.float().abs().max().item()
         block_cases.append(chk.case(
             "voc_block", f"block {bi} F={frames} T={t} C={c_in}->{c}",
             max_err(got, ref), 2 ** -5 * scale, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by, block=bi, frames=frames,
+            device_kernels_per_call=len(names),
+            device_kernels=sorted({n[:40] for n in names}),
+            **block_plan(x, pb["res"], stride, final, dev)))
         x = ref
     return res_cases, block_cases
 

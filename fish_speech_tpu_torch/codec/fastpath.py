@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.quant import div_exact
-from ..ops.voc_fused import DILATIONS, fused_block, fused_res_stack, pack_res_stack
+from ..ops.voc_fused import (DILATIONS, block_weights_t, fused_block,
+                              fused_res_stack, pack_res_stack)
 from .config import DACConfig, RVQConfig
 from .nn import codec_transformer, layer_norm, snake
 from .rvq import _vq_lookup_sum
@@ -164,9 +165,10 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
                  quant: bool | None = None) -> dict:
     """Pre-pack the decoder for `decoder_fused`: per block the residual
     units (ops/voc_fused.pack_res_stack), the transposed conv as phase
-    matrices (stacked for the fused block), and the next snake as the
-    block's tail; the final conv as an (8, C) f32 block (7 taps + a bias
-    row) for the last block's kernel.
+    matrices (stacked for the fused block; a bf16 fused block also keeps
+    its weights transposed for the block kernel, "wt"), and the next snake
+    as the block's tail; the final conv as an (8, C) f32 block (7 taps + a
+    bias row) for the last block's kernel.
 
     quant=True (None: the VOC_QUANT environment variable, "1") packs the
     fused kernels' convolutions as int8: the units per pack_res_stack, and
@@ -191,6 +193,8 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
                 pb = torch.stack([pb, div_exact(ps, 127.0)])
             res["tconv_pw"] = pw.contiguous()
             res["tconv_pb"] = pb.contiguous()
+            if not quant:
+                res["wt"] = block_weights_t(res)
         nxt = (blocks[i + 1]["snake_alpha"] if i + 1 < len(blocks)
                else params["snake_alpha"])
         out["blocks"].append({

@@ -1188,6 +1188,10 @@ extern "C" int fast_sweep_grid(int* n_sm, int* per_sm) {
   return resident(n_sm, per_sm);
 }
 
+// The threads of a sweep CTA, which fix the order of its sums (the plain
+// twin's THREADS in ops/fast_fused.py must equal it). No launch.
+extern "C" int fast_sweep_threads() { return THREADS; }
+
 // x_in: (B, dim) bf16; x_out: (B, dim) bf16, the result; w (L, 13, dim,
 // dim) int8; s (L, 13, dim) f32; norms (L, 2, dim) bf16; freqs (>= K,
 // head_dim / 2, 2) bf16, 16-byte aligned; cache ck/cv (L, K, B, dim) int8,

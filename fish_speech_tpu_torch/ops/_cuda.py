@@ -68,11 +68,14 @@ SIGNATURES = {
     "fast_sweep": ("fast_sweep", [_P] * 15 + [_I] * 9 + [_F, _P]),
     # n_sm per_sm (out): no launch, no stream
     "fast_sweep_grid": ("fast_sweep", [ctypes.POINTER(_I)] * 2),
+    # no arguments: the sweep CTA's threads (no launch)
+    "fast_sweep_threads": ("fast_sweep", []),
     # x y w7 w1 vec tail | B T C n_units d0 d1 d2 has_tail | stream
     "voc_res_stack": ("voc_fused", [_P] * 6 + [_I] * 8 + [_P]),
-    # x y pw pb w7 w1 vec tail fw | B T_in C_in C stride d0 d1 d2 final |
-    # stream
-    "voc_block": ("voc_fused", [_P] * 9 + [_I] * 9 + [_P]),
+    # x y pwt pb w7t w1t vec tail fw xs sn s2 | tiles (7 ints) | B T_in C_in
+    # C stride d0 d1 d2 final | stream
+    "voc_block": ("voc_fused", [_P] * 12 + [ctypes.POINTER(_I)] + [_I] * 9
+                  + [_P]),
     # the int8 packs: x y w7t w1t vec tail st s2 amax | B T C d tt halo
     # has_tail | stream
     "voc_res_stack_i8": ("voc_fused_i8", [_P] * 9 + [_I] * 7 + [_P]),

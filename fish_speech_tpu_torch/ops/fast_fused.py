@@ -20,7 +20,6 @@ cooperative launch a sweep) for CUDA tensors and runs
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass, field
 
 import torch
@@ -119,7 +118,11 @@ def rope_rows(freqs_table: torch.Tensor, pos: int, n_head: int):
 # CTAs an SM) walks the layers, with grid-wide barriers between phases.
 
 SMALL_B = 8   # batches up to this stream the weights one warp a column
-WARPS = 8     # warps of a CTA (256 threads)
+# warps of a CTA: 256 threads. They also fix the plain twin's sum order
+# (`_mean_sq`, `_head_sums`); `fast_sweep_threads` reads the built kernel's
+# count, and a card test holds the two equal
+WARPS = 8
+THREADS = 32 * WARPS
 TILE = 64     # above SMALL_B: the tensor-core tile (rows, columns, K bytes)
 
 
@@ -174,10 +177,91 @@ def sweep_grid(dev: torch.device) -> tuple[int, int]:
     return _GRID[idx]
 
 
-def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+# The twin's reductions. order="kernel" (the twin's own): the sums of
+# csrc/fast_sweep.cu. RMSNorm's sum of squares: thread t of the THREADS
+# adds x[t + THREADS*c]^2 for c = 0, 1, ..., each warp folds its 32
+# lanes by an xor butterfly (lane i + lane i^16, then ^8, ^4, ^2, ^1), and
+# the WARPS totals are added in warp order; the kernel then takes
+# 1 / sqrtf(ss / dim + eps), two correctly rounded steps, not an rsqrt. A
+# head's score: each 32-lane group of the head folds bf16(q * k) by the
+# same butterfly and the head's groups are added in order. torch's own
+# reductions order their sums by the tensor's shape, so an order of their
+# own moves the last f32 bit for some rows, and then a bf16 rounding (the
+# one-layer check failed at B > 8 on some inputs). order="torch" keeps
+# those reductions (torch.mean, rsqrt, sum) and order="f64" takes the
+# sums in float64, rounded to f32 once: the two witnesses that the card
+# test holds the kernel's order against.
+ORDERS = ("kernel", "torch", "f64")
+
+
+def _butterfly(x: torch.Tensor) -> torch.Tensor:
+    """A warp's xor butterfly over the last dim (32 lanes): lane 0's
+    value, (..., 1). Lane i then holds x_i + x_{i^o} for o = 16, ..., 1,
+    the same in every lane, so halving the vector gives the same sums."""
+    o = x.shape[-1] // 2
+    while o:
+        x = x[..., :o] + x[..., o:2 * o]
+        o //= 2
+    return x
+
+
+def _in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim, left to right: (..., 1)."""
+    t = x[..., :1]
+    for i in range(1, x.shape[-1]):
+        t = t + x[..., i:i + 1]
+    return t
+
+
+def _mean_sq(xf: torch.Tensor, order: str) -> torch.Tensor:
+    """Mean of squares over the last dim, (..., 1), in `order` (f64: the
+    float64 value)."""
+    dim = xf.shape[-1]
+    if order == "torch":
+        return xf.pow(2).mean(dim=-1, keepdim=True)
+    if order == "f64":
+        return xf.double().pow(2).sum(-1, keepdim=True) / dim
+    sq = xf.pow(2)                      # bf16 values: exact squares
+    pad = -dim % THREADS
+    if pad:
+        sq = torch.cat([sq, sq.new_zeros(*sq.shape[:-1], pad)], -1)
+    sq = sq.reshape(*sq.shape[:-1], -1, THREADS)
+    part = sq[..., 0, :]
+    for c in range(1, sq.shape[-2]):
+        part = part + sq[..., c, :]
+    part = _butterfly(part.reshape(*part.shape[:-1], WARPS, 32))
+    return div_exact(_in_order(part[..., 0]), float(dim))
+
+
+def _head_sums(prod: torch.Tensor, n_head: int, order: str) -> torch.Tensor:
+    """prod (B, dim) f32 -> per-head sums (B, n_head) in `order` (f64:
+    the float64 value)."""
+    b, dim = prod.shape
+    if order == "torch":
+        return prod.reshape(b, n_head, -1).sum(-1)
+    if order == "f64":
+        return prod.double().reshape(b, n_head, -1).sum(-1)
+    return _in_order(_butterfly(prod.reshape(b, n_head, -1, 32))[..., 0])[
+        ..., 0]
+
+
+def _reduce(fn, x, order: str, sums: list | None, name: str, *args):
+    """fn(x, *args, order) rounded to f32; with `sums`, also appends (name,
+    {order: value before that rounding}) of all three orders on x."""
+    if sums is not None:
+        sums.append((name, {o: fn(x, *args, o) for o in ORDERS}))
+    return fn(x, *args, order).float()
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float, order: str = "kernel",
+         sums: list | None = None) -> torch.Tensor:
     xf = x.float()
-    n = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return n.to(torch.bfloat16) * w
+    m = _reduce(_mean_sq, xf, order, sums, "mean_sq")
+    if order == "torch":
+        r = torch.rsqrt(m + eps)
+    else:
+        r = torch.reciprocal(torch.sqrt(m + eps))
+    return (xf * r).to(torch.bfloat16) * w
 
 
 def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
@@ -196,15 +280,28 @@ def _quant_cache(x: torch.Tensor):
 
 def fused_fast_sweep_plain(packed: dict, x: torch.Tensor,
                            cache: FusedFastCache, freqs_table: torch.Tensor,
-                           *, pos: int, n_head: int,
-                           eps: float) -> torch.Tensor:
-    """Plain PyTorch version, in the TPU kernel's order of roundings.
-    x: (B, dim). Returns x_out (B, dim) bf16; writes position `pos` of
-    the cache in place."""
+                           *, pos: int, n_head: int, eps: float,
+                           order: str = "kernel",
+                           sums: list | None = None) -> torch.Tensor:
+    """Plain PyTorch version: it rounds where the TPU kernel rounds, and
+    takes RMSNorm's sum of squares and the attention's head sums in the
+    CUDA kernel's order (see `_butterfly`), so that one layer equals the
+    kernel bit for bit: the other sums are exact (int32 products, maxima)
+    or run in the same order on both sides. x: (B, dim). Returns x_out (B,
+    dim) bf16; writes position `pos` of the cache in place.
+
+    order: "kernel", or the witnesses "torch" (torch's own reductions, the
+    twin before) and "f64" (float64 sums rounded to f32 once); `sums`: a
+    list that gets, for each of those reductions in the order taken, (name,
+    {order: value}) of all three orders on the same input, before their
+    rounding to f32."""
+    if order not in ORDERS:
+        raise ValueError(f"unknown sum order {order!r}")
     w, s, norms = packed["w"], packed["s"], packed["norms"]
     n_layer, _, dim, _ = w.shape
     hd = dim // n_head
-    scale = 1.0 / math.sqrt(hd)
+    # the kernel's 1.f / sqrtf(hd), an f32 value
+    scale = torch.reciprocal(torch.sqrt(torch.tensor(float(hd)))).item()
     cos, sin = rope_rows(freqs_table, pos, n_head)
     xs = x.to(torch.bfloat16)
     b = xs.shape[0]
@@ -212,15 +309,17 @@ def fused_fast_sweep_plain(packed: dict, x: torch.Tensor,
         def w8a8(x8, xsc, j):
             return int8_matmul_t(x8, w[l, j]).float() * xsc * s[l, j]
 
-        x8, xsc = int8_rows(_rms(xs, norms[l, 0], eps).float())
+        x8, xsc = int8_rows(
+            _rms(xs, norms[l, 0], eps, order, sums).float())
         q = _rope(w8a8(x8, xsc, 0).to(torch.bfloat16), cos, sin)
         k = _rope(w8a8(x8, xsc, 1).to(torch.bfloat16), cos, sin)
         v = w8a8(x8, xsc, 2).to(torch.bfloat16)
         cache.k[l, pos], cache.ks[l, pos] = _quant_cache(k)
         cache.v[l, pos], cache.vs[l, pos] = _quant_cache(v)
 
-        sc = [((q * cache.k[l, p].to(torch.bfloat16)).float()
-               .reshape(b, n_head, hd).sum(-1))
+        sc = [_reduce(_head_sums,
+                      (q * cache.k[l, p].to(torch.bfloat16)).float(), order,
+                      sums, f"head_sums p{p}", n_head)
               * cache.ks[l, p].float()[:, None] * scale
               for p in range(pos + 1)]                  # (B, H) each
         m = sc[0]
@@ -239,7 +338,8 @@ def fused_fast_sweep_plain(packed: dict, x: torch.Tensor,
         a8, asc = int8_rows(out.to(torch.bfloat16).float())
         xs = xs + w8a8(a8, asc, 3).to(torch.bfloat16)
 
-        x8, xsc = int8_rows(_rms(xs, norms[l, 1], eps).float())
+        x8, xsc = int8_rows(
+            _rms(xs, norms[l, 1], eps, order, sums).float())
         g = torch.cat([w8a8(x8, xsc, j) for j in (4, 5, 6)], dim=-1)
         g = g.to(torch.bfloat16).float()
         u = torch.cat([w8a8(x8, xsc, j) for j in (7, 8, 9)], dim=-1)

@@ -29,6 +29,7 @@ versions for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -313,12 +314,96 @@ def fused_block_plain(x: torch.Tensor, packed: dict, *, stride: int,
     return _final_conv(out, final_w, t_in * stride).to(x.dtype)
 
 
+# The bf16 block kernel's passes (csrc/voc_fused.cu, voc_block): GEMM tiles
+# (BM, BN) by the C entry's tile id; K (a multiple of GEMM_K) in steps of 64
+# where 64 divides it, else of 32
+TILE_SHAPES = ((64, 32), (64, 64), (64, 96), (64, 128), (128, 32), (128, 64),
+               (128, 96), (128, 128))
+GEMM_K = 32
+SMEM_LIMIT = 227 * 1024
+
+
+def tile_smem(bm: int, bn: int, k: int) -> int:
+    """Dynamic shared memory (bytes) of one pass CTA over K = k: 1024 bytes
+    of alignment, then the ring of A (bm x BK) and W^T (bn x BK) stages,
+    as many (up to 8) as let two CTAs share an SM, whose bytes then hold
+    the f32 output tile (rows of bn + 8)."""
+    bk = 64 if k % 64 == 0 else 32
+    stage = (bm + bn) * bk * 2
+    stages = 8
+    while stages > 2 and 2 * (stages * stage + 1024 + 2048) > SMEM_LIMIT:
+        stages -= 1
+    return 1024 + max(stages * stage, bm * (bn + 8) * 4)
+
+
+def block_weights_t(packed: dict) -> tuple:
+    """The bf16 block kernel's weights as the K-major (taps, N, K) tiles its
+    passes load: the tconv phases (2, stride*C, C_in), w7 (U, 7, C, C) and
+    w1 (U, C, C), each [.., out, in]. `pack_decoder` keeps them in the pack
+    ("wt"); a pack without them is transposed here, per call."""
+    if "wt" in packed:
+        return packed["wt"]
+    return (packed["tconv_pw"].transpose(1, 2).contiguous(),
+            packed["w7"].transpose(2, 3).contiguous(),
+            packed["w1"].transpose(1, 2).contiguous())
+
+
+def voc_block_plan(b: int, t_in: int, c_in: int, c: int, stride: int,
+                   dilations=DILATIONS, final: bool = False,
+                   n_sm: int = 132) -> dict:
+    """The bf16 block kernel's passes at these shapes on a card of n_sm
+    SMs: the state's left context `halo` and its `rows` (halo + T); per
+    pass (the transposed conv, then each unit's k7 and 1x1 convs) its
+    output rows [m_lo, m_hi), columns n, taps and K a tap, and the tile:
+    the largest (BM x BN, then BM) whose grid has at least n_sm CTAs, else
+    the one with the most CTAs (then the smaller BM). `tiles`: the tile
+    ids the C entry takes; `device_kernels`: what one call runs (two
+    memsets, the passes, the final conv; a pack without "wt" adds three
+    transposes). Raises if no tile's BN divides a pass's columns."""
+    if c % GEMM_K or c_in % GEMM_K or len(dilations) != 3:
+        raise ValueError(f"the bf16 block kernel takes three units and "
+                         f"channels a multiple of {GEMM_K}")
+    halo = 6 * sum(dilations) + (6 if final else 0)
+    rows = halo + t_in * stride
+    spans = [("tconv", 0, t_in, stride * c, 2, c_in)]
+    lo = 0
+    for u, d in enumerate(dilations):
+        lo += 6 * d
+        spans += [(f"k7 u{u}", lo, rows, c, 7, c),
+                  (f"1x1 u{u}", lo, rows, c, 1, c)]
+    passes = []
+    for name, m_lo, m_hi, n, taps, k in spans:
+        def ctas(i):
+            bm, bn = TILE_SHAPES[i]
+            return -(-(m_hi - m_lo) // bm) * (n // bn) * b
+
+        fit = sorted((i for i, (_, bn) in enumerate(TILE_SHAPES)
+                      if n % bn == 0),
+                     key=lambda i: (TILE_SHAPES[i][0] * TILE_SHAPES[i][1],
+                                    TILE_SHAPES[i][0]), reverse=True)
+        if not fit:
+            raise ValueError(f"no tile of the block kernel divides {n} "
+                             f"columns")
+        full = [i for i in fit if ctas(i) >= n_sm]
+        tile = full[0] if full else max(
+            fit, key=lambda i: (ctas(i), -TILE_SHAPES[i][0]))
+        bm, bn = TILE_SHAPES[tile]
+        passes.append({"name": name, "m_lo": m_lo, "m_hi": m_hi, "n": n,
+                       "taps": taps, "k": k, "bm": bm, "bn": bn,
+                       "tile": tile, "ctas": ctas(tile),
+                       "smem": tile_smem(bm, bn, k)})
+    return {"halo": halo, "rows": rows, "passes": passes,
+            "tiles": [q["tile"] for q in passes],
+            "device_kernels": 2 + len(passes) + int(final)}
+
+
 def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
                 dilations=DILATIONS, tail_vec: torch.Tensor | None = None,
                 final_w: torch.Tensor | None = None,
                 tt: int | None = None) -> torch.Tensor:
     """One decoder block; see fused_block_plain for shapes. The bf16 kernel
-    takes its own tiles; an int8 pack needs the TPU kernel's `tt`."""
+    runs whole-sequence passes (`voc_block_plan`) in scratch allocated
+    here; an int8 pack needs the TPU kernel's `tt`."""
     if not x.is_cuda:
         return fused_block_plain(x, packed, stride=stride,
                                  dilations=dilations, tail_vec=tail_vec,
@@ -327,10 +412,9 @@ def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
     pw = packed["tconv_pw"]
     c = pw.shape[2] // stride
     quant = pw.dtype == torch.int8
-    align = 32 if quant else 16
-    if len(dilations) != 3 or c % align or c_in % align or 16 % stride:
-        raise ValueError(f"the block kernel takes three units, channels a "
-                         f"multiple of {align} and a stride dividing 16")
+    if quant and (len(dilations) != 3 or c % 32 or c_in % 32 or 16 % stride):
+        raise ValueError("the int8 block kernel takes three units, channels "
+                         "a multiple of 32 and a stride dividing 16")
     dev = x.device
     _cuda.check(x, "x", torch.bfloat16, device=dev)
     _cuda.check(pw, "tconv_pw", torch.int8 if quant else torch.bfloat16,
@@ -347,11 +431,23 @@ def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
     else:
         y = torch.empty((b, t, c), dtype=x.dtype, device=dev)
     if not quant:
-        BLOCK(x.data_ptr(), y.data_ptr(), pw.data_ptr(),
-              packed["tconv_pb"].data_ptr(), packed["w7"].data_ptr(),
-              packed["w1"].data_ptr(), packed["vec"].data_ptr(),
-              _cuda.ptr(tail_vec), _cuda.ptr(final_w), b, t_in, c_in, c,
-              stride, *dilations, int(final_w is not None))
+        # the passes' scratch: the state, its entry snake, the second snake
+        plan = voc_block_plan(b, t_in, c_in, c, stride, dilations,
+                              final_w is not None, _cuda.sm_count(dev.index))
+        xs, sn, s2 = (torch.empty((b, plan["rows"], c), dtype=torch.bfloat16,
+                                  device=dev) for _ in range(3))
+        pwt, w7t, w1t = block_weights_t(packed)
+        for name, w, shape in (("tconv_pwt", pwt, (2, stride * c, c_in)),
+                               ("w7t", w7t, (3, 7, c, c)),
+                               ("w1t", w1t, (3, c, c))):
+            _cuda.check(w, name, torch.bfloat16, shape, dev)
+        tiles = (ctypes.c_int * len(plan["tiles"]))(*plan["tiles"])
+        BLOCK(x.data_ptr(), y.data_ptr(), pwt.data_ptr(),
+              packed["tconv_pb"].data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
+              packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
+              _cuda.ptr(final_w), xs.data_ptr(), sn.data_ptr(),
+              s2.data_ptr(), tiles, b, t_in, c_in, c, stride, *dilations,
+              int(final_w is not None))
         return y
     _check_tile(t, tt)
     halo = halo_for(dilations, 6 if final_w is not None else 0)

@@ -5,10 +5,18 @@ checks, at S2-Pro width and the rows or batches given.
     python3 kernel_bench.py w4a8 [--rows 1,9,40,256] [--tree DIR]
     python3 kernel_bench.py w4a8 --phases [--rows 9,256]
     python3 kernel_bench.py sweep [--batches 256,1] [--tree DIR]
+    python3 kernel_bench.py voc [--frames 16,128] [--tree DIR]
+    python3 kernel_bench.py voc --phases [--frames 16,128]
 
 w4a8: #11 `w4a8_matmul` and #12 `w4a8_matmul_pc` at the slow stack's five
 products (`chip_smoke.check_w4a8`). sweep: #2 `fused_fast_sweep` on seeded
-random int8 fast-head weights (`chip_smoke.check_fast_sweep`).
+random int8 fast-head weights (`chip_smoke.check_fast_sweep`). voc: #4
+(block 0) and #3 bf16 (blocks 1-3) on a seeded random S2-Pro decoder at
+each number of codec frames (`chip_smoke.check_vocoder`): per block ms,
+plain ms, bound ms, the kernel's plan and the device kernels a call, then
+one line with blocks 1-3 together. voc --phases times each pass of #3
+bf16 (`voc_phases`): variants of csrc/voc_fused.cu without the passes'
+epilogue or their snake, beside an unchanged copy.
 
 w4a8 --phases asks what paces the tiled (M > 8) product instead. It
 builds copies of csrc/w4a8.cu with one phase of the tile loop taken out
@@ -30,7 +38,8 @@ compare two trees, run parent, change, change, parent in one session.
 
 Prints the card's name and power limit, then one JSON line per case as
 chip_smoke records it (ms, plain_ms, bound_ms, library_ms, ...), and for
-w4a8 one line per (kernel, rows) with the five products' sums: one layer.
+w4a8 one line per (kernel, rows) with the five products' sums: one layer;
+for voc one line per frames with blocks 1-3's sums.
 Exits 1 if a case failed its check, 2 without a GPU.
 """
 
@@ -38,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
 
@@ -46,6 +56,23 @@ import torch
 
 def ints(text: str) -> list[int]:
     return [int(v) for v in text.split(",")]
+
+
+def decoder(dev, gen):
+    """A seeded random S2-Pro codec, its decoder packed in bf16, as
+    chip_smoke.check_vocoder reads an engine."""
+    from types import SimpleNamespace
+
+    from fish_speech_tpu_torch.codec.config import s2_pro_codec_config
+    from fish_speech_tpu_torch.codec.fastpath import pack_decoder
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+
+    ccfg = s2_pro_codec_config()
+    params = init_dac_params(gen, ccfg, device=dev)
+    return SimpleNamespace(codec_cfg=ccfg, codec_params=params,
+                           packed_decoder=pack_decoder(
+                               params["decoder"], ccfg, dtype=torch.bfloat16,
+                               quant=False))
 
 
 def fast_stack(cfg, dev, gen) -> dict:
@@ -108,37 +135,119 @@ extern "C" int w4a8_trace_get(void* dst, int clear) {
 """
 
 
-def phase_libs() -> dict:
-    """The variants of csrc/w4a8.cu, built in parallel into the package's
-    build directory: {name: ctypes library}."""
+def phase_libs(source: str = "w4a8", variants: dict | None = None,
+               fns=("w4a8_matmul", "w4a8_matmul_pc")) -> dict:
+    """The variants of csrc/<source>.cu, built in parallel into the
+    package's build directory: {name: ctypes library}."""
     import ctypes
     import subprocess
 
     from fish_speech_tpu_torch.ops import _cuda
 
-    src = (_cuda.CSRC / "w4a8.cu").read_text()
+    variants = VARIANTS if variants is None else variants
+    src = (_cuda.CSRC / f"{source}.cu").read_text()
     out = _cuda.BUILD_ROOT / "phases"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for a, b in edits:
-            assert text.count(a) == 1, f"{name}: the tile loop has changed"
+            assert text.count(a) == 1, f"{name}: the source has changed"
             text = text.replace(a, b)
         if name == "trace":
             text += _TRACE_C
-        (out / f"{name}.cu").write_text(text)
+        (out / f"{source}_{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")])
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
+             str(out / f"{source}_{name}.so"),
+             str(out / f"{source}_{name}.cu")])
     libs = {}
     for name, p in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"nvcc failed on the {name} variant")
-        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
-        for fn in ("w4a8_matmul", "w4a8_matmul_pc"):
+        libs[name] = ctypes.CDLL(str(out / f"{source}_{name}.so"))
+        for fn in fns:
             getattr(libs[name], fn).argtypes = _cuda.SIGNATURES[fn][1]
     return libs
+
+
+# text edits of csrc/voc_fused.cu's block passes, each asserted to apply
+# once: no epilogue (the sums are computed and staged, nothing is
+# written), no snake in the passes' epilogues (#4's snake() is untouched)
+_EPI = "  tile_epilogue<BM, BN, CONS>(p, prm, out, tid, r0, n0, b);\n"
+_SNAKE8 = "  return x + s2 * inv;\n}\n\n// 8 values"
+VOC_VARIANTS = {
+    "base": [],
+    "no_epilogue": [(_EPI, "  if (p.m_hi < 0)\n  " + _EPI)],
+    "no_snake": [(_SNAKE8, "  return x;\n}\n\n// 8 values")],
+}
+
+
+def voc_phases(cs, dev, gen, frames_list) -> None:
+    """Prints one JSON line per (frames, block, variant) of the bf16 block
+    kernel on the seeded S2-Pro decoder's weights and random inputs of the
+    block's shape: the call's device time (ms) and each device kernel's
+    (us, in launch order: two memsets, the seven passes, the final conv),
+    from variants of csrc/voc_fused.cu (VOC_VARIANTS). The variants'
+    outputs are wrong by design."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.ops import _cuda
+    from fish_speech_tpu_torch.ops import voc_fused as tv
+
+    libs = phase_libs("voc_fused", VOC_VARIANTS, ("voc_block",))
+    eng = decoder(dev, gen)
+    packed, ccfg = eng.packed_decoder, eng.codec_cfg
+    st = torch.cuda.current_stream().cuda_stream
+    n_sm = _cuda.sm_count(dev.index)
+    for frames in frames_list:
+        # block 1's input rows: a frame's samples over the later strides
+        t_in = frames * ccfg.frame_length // math.prod(ccfg.decoder_rates[1:])
+        for bi in range(1, len(packed["blocks"])):
+            pb, stride = packed["blocks"][bi], ccfg.decoder_rates[bi]
+            res = pb["res"]
+            pwt, w7t, w1t = res["wt"]
+            c, c_in = w1t.shape[-1], pwt.shape[-1]
+            final = bi == len(packed["blocks"]) - 1
+            fw = packed["final_fw"] if final else None
+            x = torch.randn((1, t_in, c_in), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            plan = tv.voc_block_plan(1, t_in, c_in, c, stride, tv.DILATIONS,
+                                     final, n_sm)
+            xs, sn, s2 = (torch.empty((1, plan["rows"], c),
+                                      dtype=torch.bfloat16, device=dev)
+                          for _ in range(3))
+            t = t_in * stride
+            y = torch.empty((1, t) if final else (1, t, c),
+                            dtype=torch.bfloat16, device=dev)
+            tiles = (ctypes.c_int * 7)(*plan["tiles"])
+            for name, lib in libs.items():
+                def call():
+                    err = lib.voc_block(
+                        x.data_ptr(), y.data_ptr(), pwt.data_ptr(),
+                        res["tconv_pb"].data_ptr(), w7t.data_ptr(),
+                        w1t.data_ptr(), res["vec"].data_ptr(),
+                        pb["tail_vec"].data_ptr(), _cuda.ptr(fw),
+                        xs.data_ptr(), sn.data_ptr(), s2.data_ptr(), tiles,
+                        1, t_in, c_in, c, stride, *tv.DILATIONS, int(final),
+                        st)
+                    assert err == 0, f"cudaError {err}"
+                call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    call()
+                    torch.cuda.synchronize()
+                print(json.dumps({
+                    "frames": frames, "block": bi, "variant": name,
+                    "ms": cs.time_ms(call, 5, 1),
+                    "kernels_us": [e.device_time_total for e in prof.events()
+                                   if e.device_type
+                                   == torch.autograd.DeviceType.CUDA],
+                    "passes": [q["name"] for q in plan["passes"]]}),
+                    flush=True)
+            t_in = t
 
 
 def phases(cs, cfg, dev, gen, rows) -> None:
@@ -208,13 +317,17 @@ def phases(cs, cfg, dev, gen, rows) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("w4a8", "sweep"))
+    ap.add_argument("kernel", choices=("w4a8", "sweep", "voc"))
     ap.add_argument("--rows", type=ints, default=[1, 9, 40, 256],
                     help="w4a8: the products' rows M")
     ap.add_argument("--batches", type=ints, default=[256, 1],
                     help="sweep: the batches")
+    ap.add_argument("--frames", type=ints, default=[16, 128],
+                    help="voc: the codec frames")
     ap.add_argument("--phases", action="store_true",
-                    help="w4a8: time the tile loop without each phase")
+                    help="w4a8: time the tile loop without each phase; "
+                         "voc: each pass, with and without its epilogue "
+                         "or snake")
     ap.add_argument("--tree", help="time the package of this checkout")
     args = ap.parse_args()
     if args.tree:
@@ -235,7 +348,9 @@ def main() -> int:
     cfg = s2_pro_lm_config()
     chk = cs.Checks()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
-    if args.phases:
+    if args.phases and args.kernel == "voc":
+        voc_phases(cs, dev, gen, args.frames)
+    elif args.phases:
         phases(cs, cfg, dev, gen, args.rows)
     elif args.kernel == "w4a8":
         groups = cs.check_w4a8(chk, cfg, dev, gen, rows=args.rows,
@@ -251,6 +366,18 @@ def main() -> int:
                     **{k: sum(c[k] for c in layer) for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms")}}),
                     flush=True)
+    elif args.kernel == "voc":
+        eng = decoder(dev, gen)
+        for frames in args.frames:
+            res, blocks = cs.check_vocoder(chk, eng, frames, dev, gen)
+            for name, cases in (("voc_res_stack", res),
+                                ("voc_block", blocks)):
+                for c in cases:
+                    print(json.dumps({"kernel": name, **c}), flush=True)
+            print(json.dumps({
+                "kernel": "voc_block", "blocks": "1-3", "frames": frames,
+                **{k: sum(c[k] for c in blocks)
+                   for k in ("ms", "plain_ms", "bound_ms")}}), flush=True)
     else:
         packed = fast_stack(cfg, dev, gen)
         for c in cs.check_fast_sweep(chk, cfg, packed, dev, gen,

@@ -511,6 +511,88 @@ def test_fast_sweep(dev, width, b, pos):
                           rtol=2 ** -7)
 
 
+def test_fast_sweep_threads_match_twin(dev):
+    """The plain twin sums in the order of the kernel's CTA: its THREADS
+    must be the built kernel's."""
+    assert _cuda.lib("fast_sweep").fast_sweep_threads() == ff.THREADS
+    assert ff.THREADS == 32 * ff.WARPS
+
+
+# the sum-order witness: S2-Pro fast-head width, one layer, pos 9
+WITNESS_SEEDS = range(8)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 40, 256])
+def test_fast_sweep_order_witness(dev, b):
+    """One S2-Pro layer at pos 9 over 8 seeds. The kernel must equal the
+    twin (sums in the kernel's order) bit for bit. At each of the layer's
+    reductions, on the twin's own inputs, the kernel's order, torch's and
+    a float64 sum are compared: both f32 orders must lie within one bf16
+    ulp of the f64 value. Logged per seed (one JSON line): the reductions'
+    elements, those where torch's order differs from the kernel's, how
+    many of those the kernel's value is farther from f64 than torch's is
+    (and ties), the largest error of each order in bf16 ulps of the f64
+    value, and the one-layer output elements where the twin in torch's
+    order (the twin before) differs from the kernel."""
+    import json
+
+    dim, n_head, pos, n_pos = 1024, 16, 9, 10
+    for seed in WITNESS_SEEDS:
+        g = _gen(dev, 100 + seed)
+
+        def w(*shape):
+            return torch.randn(shape, generator=g, device=dev) * 0.02
+
+        packed = pack_fast_stack({
+            "attention": {"wqkv": quantize_weight(w(1, 3 * dim, dim)),
+                          "wo": quantize_weight(w(1, dim, dim))},
+            "feed_forward": {"w1": quantize_weight(w(1, 3 * dim, dim)),
+                             "w2": quantize_weight(w(1, dim, 3 * dim)),
+                             "w3": quantize_weight(w(1, 3 * dim, dim))},
+            "attention_norm": 1 + w(1, dim), "ffn_norm": 1 + w(1, dim)})
+        freqs = precompute_freqs_cis(n_pos, dim // n_head, 10000.0, dev)
+        xs = torch.randn((n_pos, b, dim), generator=g,
+                         device=dev).to(torch.bfloat16)
+        cache = FusedFastCache.create(1, n_pos, b, dim, dev)
+        kw = dict(n_head=n_head, eps=1e-6)
+        for p in range(pos):
+            fused_fast_sweep_plain(packed, xs[p], cache, freqs, pos=p, **kw)
+        ck, cp, ct = _clone(cache), _clone(cache), _clone(cache)
+        got = fused_fast_sweep(packed, xs[pos], ck, freqs, pos=pos, **kw)
+        sums = []
+        ref = fused_fast_sweep_plain(packed, xs[pos], cp, freqs, pos=pos,
+                                     sums=sums, **kw)
+        old = fused_fast_sweep_plain(packed, xs[pos], ct, freqs, pos=pos,
+                                     order="torch", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), seed
+        for a, r in zip((ck.k, ck.v, ck.ks, ck.vs), (cp.k, cp.v, cp.ks,
+                                                     cp.vs)):
+            assert torch.equal(a[:, pos], r[:, pos]), seed
+        n = differ = farther = ties = 0
+        worst = {"kernel": 0.0, "torch": 0.0}
+        for _, v in sums:
+            f = v["f64"]
+            ulp = 2.0 ** (torch.floor(torch.log2(f.abs().clamp_min(
+                2.0 ** -100))) - 7)
+            err = {o: (v[o].double() - f).abs() for o in worst}
+            for o in worst:
+                worst[o] = max(worst[o], (err[o] / ulp).max().item())
+            d = v["kernel"] != v["torch"]
+            n += f.numel()
+            differ += int(d.sum())
+            farther += int((d & (err["kernel"] > err["torch"])).sum())
+            ties += int((d & (err["kernel"] == err["torch"])).sum())
+        print(json.dumps({
+            "witness": "fast_sweep sum order", "b": b, "seed": seed,
+            "reduced": n, "torch_differs": differ,
+            "kernel_farther": farther, "ties": ties,
+            "kernel_err_bf16_ulps": worst["kernel"],
+            "torch_err_bf16_ulps": worst["torch"],
+            "old_twin_output_differs": int((old != got).sum())}))
+        assert worst["kernel"] <= 1 and worst["torch"] <= 1
+
+
 @pytest.mark.parametrize("b", [1, 40])
 def test_fast_sweep_graph(dev, b):
     """One sweep captured in a CUDA graph and replayed equals the eager
@@ -591,6 +673,68 @@ def test_block(dev, stride, final):
     assert got.shape == ref.shape
     scale = 1.0 if final else ref.float().abs().max().item()
     assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+
+
+# the S2-Pro decoder's blocks 1-3 (C_in, C, stride, final), each at batch 2
+# over T_in rows (a T that is not a whole number of the plan's row tiles)
+# and at batch 1 over 4 rows (fewer output rows than the left context)
+S2_PRO_BLOCKS = {1: (768, 384, 8, False, 100), 2: (384, 192, 4, False, 333),
+                 3: (192, 96, 2, True, 1001)}
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["batch2", "t_in4"])
+@pytest.mark.parametrize("block", list(S2_PRO_BLOCKS))
+def test_block_s2pro(dev, block, short):
+    """The bf16 block kernel (whole-sequence passes) against the plain twin
+    at S2-Pro widths, one launch count a call: the twin's state is bf16
+    with f32 sums in another order, and a bf16 step that moves one ulp
+    compounds over the units: 2^-5 of the output's scale (absolute on the
+    waveform). The final conv's weights have the fan-in scale 1/sqrt(7C):
+    at 0.1 (2.6x that) its 672 products turn one-ulp steps of the state
+    into up to 0.068 of the waveform near tanh's zero crossing, and a
+    float32 emulation of the passes on the CPU, in a third sum order,
+    already moves it by 0.020 there. On the final block the state before
+    the final conv (the block run without it) is held to 2^-5 of its
+    scale as well."""
+    c_in, c, stride, final, t_in = S2_PRO_BLOCKS[block]
+    b = 1 if short else 2
+    if short:
+        t_in = 4
+    g = np.random.default_rng(30 + block)
+    packed = _units(c, 3, 31 + block, dev)
+    pw = g.normal(0, 0.05, (2, c_in, stride * c))
+    packed["tconv_pw"] = torch.from_numpy(pw).to(dev, torch.bfloat16)
+    packed["tconv_pb"] = torch.from_numpy(
+        np.tile(g.normal(0, 0.1, c), stride)).to(dev, torch.float32)
+    fw = None
+    if final:
+        fwn = g.normal(0, 1 / np.sqrt(7 * c), (8, c))
+        fwn[7] = 0.0
+        fwn[7, 0] = 0.03
+        fw = torch.from_numpy(fwn).to(dev, torch.float32)
+    plan = tv.voc_block_plan(b, t_in, c_in, c, stride, final=final,
+                             n_sm=_cuda.sm_count(dev.index or 0))
+    assert any((q["m_hi"] - q["m_lo"]) % q["bm"] for q in plan["passes"])
+    kw = dict(stride=stride, tail_vec=_tail(c, 32 + block, dev), final_w=fw)
+    x = torch.from_numpy(g.standard_normal((b, t_in, c_in))).to(
+        dev, torch.bfloat16)
+    before = tv.BLOCK.launches
+    got = tv.fused_block(x, packed, **kw)
+    ref = tv.fused_block_plain(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert tv.BLOCK.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.isfinite(got.float()).all()
+    scale = 1.0 if final else ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+    if final:
+        kw["final_w"] = None
+        got = tv.fused_block(x, packed, **kw)
+        ref = tv.fused_block_plain(x, packed, **kw)
+        torch.cuda.synchronize()
+        scale = ref.float().abs().max().item()
+        assert (got.float() - ref.float()).abs().max().item() <= \
+            2 ** -5 * scale
 
 
 # the int8 packs (VOC_QUANT): the same codes and exact int32 sums on both

@@ -44,8 +44,23 @@ def test_pack_and_carry_agree(setup):
 
 
 def test_plain_sweep_matches_pallas_every_position(setup):
+    _match_pallas(setup, 4, layer0_exact=True)
+
+
+def test_plain_sweep_matches_pallas_batch_40(setup):
+    """B = 40: the batches above 8 where the twin's sums in torch's order
+    broke the one-layer bit-equality with the CUDA kernel (the twin now
+    sums in the kernel's order). JAX's sweep is the witness at the
+    tolerances of B = 4, but for layer 0's cache rows: XLA takes RMSNorm's
+    and the head sums in an order of its own, so a last f32 bit moves one
+    bf16 rounding and one int8 step in a few of layer 0's values (measured:
+    26 of 5120 k values, by 1); at most one step in 2% of them."""
+    _match_pallas(setup, 40, layer0_exact=False)
+
+
+def _match_pallas(setup, b, layer0_exact):
     cfg, packed, port = setup
-    b, K, dim = 4, cfg.num_codebooks, cfg.fast_dim
+    K, dim = cfg.num_codebooks, cfg.fast_dim
     table = precompute_freqs_cis(K, cfg.fast_head_dim, cfg.rope_base)
     table_t = precompute_freqs_cis_t(K, cfg.fast_head_dim, cfg.rope_base)
     assert np.array_equal(np.asarray(table, np.float32),
@@ -72,8 +87,12 @@ def test_plain_sweep_matches_pallas_every_position(setup):
         for name in ("k", "v"):
             a = np.asarray(getattr(cache, name)[:, pos], np.int32)
             c = getattr(cache_t, name)[:, pos].int().numpy()
-            # layer 0's rows see identical inputs: bit-equal
-            np.testing.assert_array_equal(c[0], a[0])
+            if layer0_exact:
+                # layer 0's rows see identical inputs: bit-equal
+                np.testing.assert_array_equal(c[0], a[0])
+            else:
+                d0 = np.abs(a[0] - c[0])
+                assert d0.max() <= 1 and (d0 > 0).mean() <= 0.02, name
             # deeper layers inherit the one-ulp differences, which move
             # values near a rounding boundary by one int8 step (measured:
             # at most 2 steps, ~10% of values, mean |d| ~0.1 step)
@@ -82,7 +101,8 @@ def test_plain_sweep_matches_pallas_every_position(setup):
             sa = np.asarray(getattr(cache, name + "s")[:, pos, :, 0],
                             np.float32)
             sc = getattr(cache_t, name + "s")[:, pos].float().numpy()
-            np.testing.assert_array_equal(sc[0], sa[0])
+            if layer0_exact:
+                np.testing.assert_array_equal(sc[0], sa[0])
             np.testing.assert_allclose(sc, sa, rtol=2 ** -6)
 
 
@@ -168,3 +188,59 @@ def test_sweep_takes_good_shapes_and_refuses_no_grid():
         ff.sweep_plan(1, 128, 2, 0, 2)
     with pytest.raises(ValueError):
         ff.sweep_plan(1, 128, 2, 132, 0)
+
+
+# --- the twin's sum order (runs without a card) ----------------------------
+
+
+def _kernel_sum(vals: np.ndarray, threads: int) -> np.float32:
+    """csrc/fast_sweep.cu's CTA sum, lane by lane in float32: thread t adds
+    vals[t + threads*c] in order of c, each warp's 32 lanes fold by an xor
+    butterfly (every lane updated at each step), then the warps' totals
+    in order."""
+    n = -(-len(vals) // threads) * threads
+    v = np.zeros(n, np.float32)
+    v[:len(vals)] = vals
+    part = v[:threads].copy()
+    for c in range(1, n // threads):
+        part = (part + v[c * threads:(c + 1) * threads]).astype(np.float32)
+    lanes = part.reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[:, np.arange(32) ^ o]).astype(np.float32)
+    t = np.float32(0)
+    for w in lanes[:, 0]:
+        t = np.float32(t + w)
+    return t
+
+
+@pytest.mark.parametrize("dim", [96, 256, 1024, 1120])
+def test_twin_sums_in_the_kernels_order(dim):
+    """The twin's RMSNorm mean of squares and head sums equal the kernel's
+    reduction tree, emulated lane by lane, bit for bit; the torch and f64
+    orders stay within a few f32 ulps of them."""
+    rng = np.random.default_rng(dim)
+    x = torch.from_numpy(rng.standard_normal((5, dim)).astype(np.float32)
+                         ).to(torch.bfloat16).float()
+    got = ff._mean_sq(x, "kernel")[:, 0].numpy()
+    for r in range(5):
+        sq = (x[r].numpy() ** 2).astype(np.float32)
+        want = np.float32(_kernel_sum(sq, ff.THREADS) / np.float32(dim))
+        assert got[r] == want, r
+    for order in ("torch", "f64"):
+        other = ff._mean_sq(x, order)[:, 0].double().numpy()
+        np.testing.assert_allclose(other, got, rtol=2 ** -20)
+    # heads of 1, 4, 2 and 5 32-lane groups
+    n_head = {96: 3, 256: 2, 1024: 16, 1120: 7}[dim]
+    prod = torch.from_numpy(rng.standard_normal((3, dim)).astype(np.float32))
+    heads = ff._head_sums(prod, n_head, "kernel").numpy()
+    hd = dim // n_head
+    for r in range(3):
+        for h in range(n_head):
+            groups = prod[r, h * hd:(h + 1) * hd].numpy().reshape(-1, 32)
+            want = np.float32(0)
+            for g in groups:              # one warp's butterfly a group
+                want = np.float32(want + _kernel_sum(g, 32))
+            assert heads[r, h] == want, (r, h)
+    np.testing.assert_allclose(
+        ff._head_sums(prod, n_head, "f64").numpy(), heads, rtol=2 ** -18,
+        atol=2 ** -18)

@@ -128,3 +128,79 @@ def test_snake_poly_matches_pallas_snake():
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
                                    atol=1e-6)
 
+
+
+# --- the bf16 block kernel's plan (runs without a card) --------------------
+
+# (C_in, C, stride, final) of the S2-Pro decoder's blocks 1-3, and the
+# block's input rows a codec frame
+S2_PRO_BLOCKS = {1: (768, 384, 8, False, 32), 2: (384, 192, 4, False, 256),
+                 3: (192, 96, 2, True, 1024)}
+
+
+@pytest.mark.parametrize("frames", [1, 16, 128])
+@pytest.mark.parametrize("block", list(S2_PRO_BLOCKS))
+@pytest.mark.parametrize("b", [1, 2])
+def test_voc_block_plan_covers_once(block, frames, b):
+    """Every pass's tiles cover its rows and columns once (the grid's last
+    row tile reaches past the rows by less than a tile, BN divides the
+    columns), the tiles fit the kernel's shared memory, and the units'
+    rows start where each unit's valid rows do."""
+    c_in, c, stride, final, per_frame = S2_PRO_BLOCKS[block]
+    t_in = per_frame * frames
+    plan = tv.voc_block_plan(b, t_in, c_in, c, stride, DIL, final, 132)
+    halo = 6 * sum(DIL) + (6 if final else 0)
+    assert plan["halo"] == halo and plan["rows"] == halo + t_in * stride
+    assert plan["tiles"] == [q["tile"] for q in plan["passes"]]
+    assert plan["device_kernels"] == 2 + 7 + int(final)
+    lo = [0]
+    for d in DIL:
+        lo.append(lo[-1] + 6 * d)
+    want = [(0, t_in, stride * c, 2, c_in)] + [
+        (lo[u + 1], halo + t_in * stride, c, taps, c) for u in range(3)
+        for taps in (7, 1)]
+    for q, w in zip(plan["passes"], want, strict=True):
+        m_lo, m_hi, n, _, k = w
+        assert (q["m_lo"], q["m_hi"], q["n"], q["taps"], q["k"]) == w
+        assert (q["bm"], q["bn"]) == tv.TILE_SHAPES[q["tile"]]
+        rows = -(-(m_hi - m_lo) // q["bm"])
+        assert (rows - 1) * q["bm"] < m_hi - m_lo <= rows * q["bm"]
+        assert n % q["bn"] == 0 and k % tv.GEMM_K == 0
+        assert q["ctas"] == rows * (n // q["bn"]) * b
+        assert q["smem"] == tv.tile_smem(q["bm"], q["bn"], k) \
+            <= tv.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("block", list(S2_PRO_BLOCKS))
+def test_voc_block_plan_fills_132_sms_at_16_frames(block):
+    """At F = 16, batch 1 (a streaming vocoder's request), every pass of
+    every block has at least one CTA for each of the H100's 132 SMs; at
+    F = 128 every pass takes the largest tile that does."""
+    c_in, c, stride, final, per_frame = S2_PRO_BLOCKS[block]
+    for frames in (16, 128):
+        plan = tv.voc_block_plan(1, per_frame * frames, c_in, c, stride,
+                                 DIL, final, 132)
+        for q in plan["passes"]:
+            assert q["ctas"] >= 132, (frames, q)
+            bigger = [i for i, (bm, bn) in enumerate(tv.TILE_SHAPES)
+                      if q["n"] % bn == 0 and bm * bn > q["bm"] * q["bn"]]
+            for i in bigger:
+                bm, bn = tv.TILE_SHAPES[i]
+                assert -(-(q["m_hi"] - q["m_lo"]) // bm) * (q["n"] // bn) \
+                    < 132, (frames, q, i)
+
+
+def test_voc_block_plan_small_input_takes_most_ctas():
+    """Too few rows for a full wave: the tile with the most CTAs, and of
+    those the one with fewer rows."""
+    plan = tv.voc_block_plan(1, 4, 768, 384, 8, DIL, False, 132)
+    tconv = plan["passes"][0]
+    assert (tconv["bm"], tconv["bn"]) == (64, 32)
+    assert tconv["ctas"] == 3072 // 32
+
+
+@pytest.mark.parametrize("c,c_in,dil", [(48, 64, DIL), (64, 80, DIL),
+                                        (64, 64, (1, 3))])
+def test_voc_block_plan_refuses(c, c_in, dil):
+    with pytest.raises(ValueError):
+        tv.voc_block_plan(1, 16, c_in, c, 2, dil, False, 132)
