@@ -835,7 +835,7 @@ def res_stack_block0(x, pb, fn, tt=None):
     from fish_speech_tpu_torch.ops.voc_fused import DILATIONS
 
     for u, d in enumerate(DILATIONS):
-        sub = {k: pb["res"][k][u:u + 1] for k in ("w7", "w1", "vec")}
+        sub = {k: v[u:u + 1] for k, v in pb["res"].items()}
         last = u == len(DILATIONS) - 1
         x = fn(x, sub, dilations=(d,), tail_vec=pb["tail_vec"] if last
                else None, tt=tt)
@@ -847,33 +847,44 @@ def unit_flops(t: int, c: int, n_units: int) -> int:
     return n_units * t * 2 * 8 * c * c
 
 
-def block_plan(x, res: dict, stride: int, final: bool, dev) -> dict:
-    """The bf16 block kernel's plan for this call (logged with its case):
-    each pass's tile and CTAs, and the device kernels a call runs; {} for
-    a package without `voc_block_plan` (kernel_bench --tree)."""
+def pass_plan(plan_name: str, dev, *args) -> dict:
+    """A bf16 vocoder kernel's plan for this call (logged with its case):
+    `voc_block_plan` or `voc_res_plan` of ops/voc_fused.py at `args` and
+    the card's SM count; each pass's tile and CTAs, and the device kernels
+    a call runs; {} for a package without that plan (kernel_bench
+    --tree)."""
     from fish_speech_tpu_torch.ops import _cuda, voc_fused
 
-    plan_fn = getattr(voc_fused, "voc_block_plan", None)
+    plan_fn = getattr(voc_fused, plan_name, None)
     if plan_fn is None:
         return {}
-    b, t_in, c_in = x.shape
-    plan = plan_fn(b, t_in, c_in, res["w1"].shape[-1], stride,
-                   voc_fused.DILATIONS, final, _cuda.sm_count(dev.index or 0))
+    plan = plan_fn(*args, _cuda.sm_count(dev.index or 0))
     return {"plan": [f"{q['name']}: {q['bm']}x{q['bn']} {q['ctas']} CTAs"
                      for q in plan["passes"]],
             "plan_device_kernels": plan["device_kernels"]}
 
 
+def with_biases(pb: dict, gen) -> dict:
+    """A copy of a block's pack whose units' conv biases (rows 4 and 5 of
+    each unit's vec) are drawn from `gen`, N(0, 0.1): the random codec
+    init leaves them at zero, as JAX's does."""
+    vec = pb["res"]["vec"].clone()
+    vec[:, 4:6] = 0.1 * torch.randn(vec[:, 4:6].shape, generator=gen,
+                                    device=vec.device)
+    return {**pb, "res": {**pb["res"], "vec": vec}}
+
+
 def check_vocoder(chk: Checks, engine, frames: int, dev,
                   gen) -> tuple[list[dict], list[dict]]:
-    """#4 (block 0's residual stack, 3 launches) and #3 (blocks 1-3, the
-    last with the final conv and tanh) on the engine's packed decoder
-    (`engine` needs codec_cfg, codec_params and packed_decoder). Each
-    block case logs the kernel's plan and the device kernels one call
-    runs (profiler); a call must count one launch."""
+    """#4 (block 0's residual stack, 3 calls) and #3 (blocks 1-3, the last
+    with the final conv and tanh) on the engine's packed decoder (`engine`
+    needs codec_cfg, codec_params and packed_decoder); #4 with its conv
+    biases drawn from `gen` (`with_biases`). Each case logs the kernel's
+    plan and the device kernels one call runs (profiler); a call must
+    count one launch."""
     from fish_speech_tpu_torch.ops.voc_fused import (
-        BLOCK, DILATIONS, fused_block, fused_block_plain, fused_res_stack,
-        fused_res_stack_plain)
+        BLOCK, DILATIONS, RES_STACK, fused_block, fused_block_plain,
+        fused_res_stack, fused_res_stack_plain)
 
     packed, ccfg = engine.packed_decoder, engine.codec_cfg
     blocks = packed["blocks"]
@@ -882,7 +893,7 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
     # in another order move a bf16 rounding by one ulp (2^-8 relative), and
     # such steps compound over the units: 2^-5 of the output's scale
     res_cases, block_cases = [], []
-    pb = blocks[0]
+    pb = with_biases(blocks[0], gen)
     got = res_stack_block0(x, pb, fused_res_stack)
     ref = res_stack_block0(x, pb, fused_res_stack_plain)
     torch.cuda.synchronize()
@@ -892,10 +903,20 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
     t, c = x.shape[1], x.shape[2]
     b_ms, b_by = bound(3 * nbytes(x, got) + nbytes(*(pb["res"][k] for k in (
         "w7", "w1", "vec"))), {"bf16": unit_flops(t, c, 3)})
+    before = RES_STACK.launches
+    names, calls = device_kernels(lambda: res_stack_block0(
+        x, pb, fused_res_stack))
+    per_call = (RES_STACK.launches - before) / (3 * calls)
+    if per_call != 1:
+        chk.failed.append(f"voc_res_stack [block 0]: one call made "
+                          f"{per_call} launches")
     res_cases.append(chk.case(
         "voc_res_stack", f"block 0 F={frames} T={t} C={c}", max_err(got, ref),
         2 ** -5 * ref.float().abs().max().item(), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by))
+        bound_ms=b_ms, bound_by=b_by, block=0, frames=frames,
+        device_kernels_per_call=len(names) / 3,
+        device_kernels=sorted({n[:40] for n in names}),
+        **pass_plan("voc_res_plan", dev, *x.shape, DILATIONS[0])))
     x = ref
     for bi in range(1, len(blocks)):
         pb, stride = blocks[bi], ccfg.decoder_rates[bi]
@@ -932,7 +953,8 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
             bound_ms=b_ms, bound_by=b_by, block=bi, frames=frames,
             device_kernels_per_call=len(names),
             device_kernels=sorted({n[:40] for n in names}),
-            **block_plan(x, pb["res"], stride, final, dev)))
+            **pass_plan("voc_block_plan", dev, *x.shape, c, stride,
+                        DILATIONS, final)))
         x = ref
     return res_cases, block_cases
 

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..ops.quant import div_exact
 from ..ops.voc_fused import (DILATIONS, block_weights_t, fused_block,
-                              fused_res_stack, pack_res_stack)
+                              fused_res_stack, pack_res_stack, res_weights_t)
 from .config import DACConfig, RVQConfig
 from .nn import codec_transformer, layer_norm, snake
 from .rvq import _vq_lookup_sum
@@ -165,10 +165,11 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
                  quant: bool | None = None) -> dict:
     """Pre-pack the decoder for `decoder_fused`: per block the residual
     units (ops/voc_fused.pack_res_stack), the transposed conv as phase
-    matrices (stacked for the fused block; a bf16 fused block also keeps
-    its weights transposed for the block kernel, "wt"), and the next snake
-    as the block's tail; the final conv as an (8, C) f32 block (7 taps + a
-    bias row) for the last block's kernel.
+    matrices (stacked for the fused block), and the next snake as the
+    block's tail; the final conv as an (8, C) f32 block (7 taps + a bias
+    row) for the last block's kernel. bf16 packs also keep the weights the
+    kernels' passes read, transposed: a fused block's as "wt", the units'
+    of a block run one unit a call as "w7t" and "w1t" (not int8 packs).
 
     quant=True (None: the VOC_QUANT environment variable, "1") packs the
     fused kernels' convolutions as int8: the units per pack_res_stack, and
@@ -195,6 +196,8 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
             res["tconv_pb"] = pb.contiguous()
             if not quant:
                 res["wt"] = block_weights_t(res)
+        elif not quant:
+            res["w7t"], res["w1t"] = res_weights_t(res)
         nxt = (blocks[i + 1]["snake_alpha"] if i + 1 < len(blocks)
                else params["snake_alpha"])
         out["blocks"].append({
@@ -244,7 +247,7 @@ def decoder_fused(params: dict, cfg: DACConfig, z: torch.Tensor,
                                     stride=stride)
         tt = _tile_for(x.shape[1], RES_STACK_TILE_CAP)
         for u, d in enumerate(DILATIONS):
-            sub = {k: res[k][u:u + 1] for k in ("w7", "w1", "vec")}
+            sub = {k: v[u:u + 1] for k, v in res.items()}
             last = u == len(DILATIONS) - 1
             x = fused_res_stack(x, sub, dilations=(d,),
                                 tail_vec=pb["tail_vec"] if last else None,

@@ -10,22 +10,15 @@
 // What bounds them on the H100: operations. A residual unit at C channels
 // costs 2 x 8 x C^2 flops per time row against ~4 x C bytes of activation
 // traffic; for 128 frames the four decoder blocks need ~0.7 TFLOP, ~0.7 ms
-// at the 989 TFLOP/s bf16 roof. voc_block's whole-sequence passes add a
-// second floor, their scratch traffic: each unit writes and reads s2 and
-// the state, ~25-50 MB a pass at F = 128 (see the block section).
+// at the 989 TFLOP/s bf16 roof. The whole-sequence passes add a second
+// floor, their scratch traffic: each unit writes and reads s2 and the
+// state, ~25-50 MB a pass at F = 128 (see the block section).
 //
-// voc_res_stack (simple first, nvcuda::wmma): a unit is snake -> causal k7
-// conv (dilation d) -> snake -> 1x1 conv -> residual, each conv a GEMM on
-// 16-row chunks: the A operand (snake of the state) sits in shared memory,
-// the weights are read as wmma B fragments straight from global memory
-// (L2-resident), and the accumulators go through a per-warp f32 scratch
-// tile for the bias, the second snake and the residual add. One CTA per
-// (16-row chunk, batch row), input and residual read from global memory;
-// the k7 conv's left context of 6d rows is re-read per chunk (zero before
-// the sequence start).
-// voc_block: whole-sequence passes on wgmma fed by TMA (the block section).
-// Rows before the sequence start model zero padding after the transposed
-// conv, as in the TPU kernel.
+// Both run as whole-sequence GEMM passes on wgmma fed by TMA (the block
+// section): voc_block seven a block, voc_res_stack two a unit after an
+// elementwise entry snake (the res-stack section at the end). Rows before
+// the sequence start model zero padding (after the block's transposed
+// conv; before a unit's input), as in the TPU kernel.
 // Snake uses the TPU kernel's degree-7 polynomial for sin^2 with alpha/pi
 // premultiplied, so both agree to f32 rounding.
 
@@ -34,10 +27,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -47,129 +37,6 @@ constexpr int SMEM_LIMIT = 227 * 1024;
 
 __device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16(x); }
-
-// x + sin^2(alpha x) / (alpha + eps) with alpha_pi = alpha / pi
-__device__ __forceinline__ float snake(float x, float alpha_pi, float inv) {
-  const float y = alpha_pi * x;
-  const float t = y - (float)(int)y;
-  const float v = t * t;
-  float s2 = 0.45029592f;
-  s2 = -3.38355759f + v * s2;
-  s2 = 12.78106835f + v * s2;
-  s2 = -29.93828299f + v * s2;
-  s2 = 42.68612315f + v * s2;
-  s2 = -32.46507037f + v * s2;
-  s2 = 9.86943246f + v * s2;
-  s2 = v * s2;
-  return x + s2 * inv;
-}
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// s2c (16 x C) = bf16(snake(b1 + sum_i sbuf[i*d : i*d+16) @ w7[i], a2))
-__device__ void conv7_snake(const bf16* sbuf, const bf16* __restrict__ w7,
-                            int d, int C, const float* __restrict__ vec,
-                            bf16* s2c, float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sw = scratch + warp * 256;
-  const float* a2 = vec + 2 * C;
-  const float* ia2 = vec + 3 * C;
-  const float* b1 = vec + 4 * C;
-  for (int nt = warp; nt < C / 16; nt += NWARP) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int i = 0; i < 7; ++i) {
-      const bf16* arow = sbuf + (size_t)i * d * C;
-      const bf16* wi = w7 + (size_t)i * C * C + nt * 16;
-      for (int kt = 0; kt < C / 16; ++kt) {
-        FragA a;
-        FragB bm;
-        wmma::load_matrix_sync(a, arow + kt * 16, C);
-        wmma::load_matrix_sync(bm, wi + (size_t)kt * 16 * C, C);
-        wmma::mma_sync(acc, a, bm, acc);
-      }
-    }
-    wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = nt * 16 + (e & 15);
-      s2c[r * C + c] = f2b(snake(sw[e] + b1[c], a2[c], ia2[c]));
-    }
-    __syncwarp();
-  }
-}
-
-// y (16 x C) = s2c @ w1 + b2, handed to epi(row, channel, y)
-template <typename Epi>
-__device__ void conv1x1(const bf16* s2c, const bf16* __restrict__ w1, int C,
-                        const float* __restrict__ vec, float* scratch,
-                        Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* sw = scratch + warp * 256;
-  const float* b2 = vec + 5 * C;
-  for (int nt = warp; nt < C / 16; nt += NWARP) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kt = 0; kt < C / 16; ++kt) {
-      FragA a;
-      FragB bm;
-      wmma::load_matrix_sync(a, s2c + kt * 16, C);
-      wmma::load_matrix_sync(bm, w1 + (size_t)kt * 16 * C + nt * 16, C);
-      wmma::mma_sync(acc, a, bm, acc);
-    }
-    wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int r = e >> 4, c = nt * 16 + (e & 15);
-      epi(r, c, sw[e] + b2[c]);
-    }
-    __syncwarp();
-  }
-}
-
-__host__ __device__ inline size_t align128(size_t n) {
-  return (n + 127) / 128 * 128;
-}
-
-// ---------------------------------------------------------------- res stack
-
-__global__ void __launch_bounds__(NTHR) res_unit_kernel(
-    const bf16* __restrict__ x, bf16* __restrict__ y,
-    const bf16* __restrict__ w7, const bf16* __restrict__ w1,
-    const float* __restrict__ vec, const float* __restrict__ tail, int T,
-    int C, int d) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rows_in = 16 + 6 * d;
-  bf16* sbuf = (bf16*)smem;
-  bf16* s2c = (bf16*)(smem + align128((size_t)rows_in * C * 2));
-  float* scratch = (float*)((unsigned char*)s2c + align128((size_t)16 * C * 2));
-  const int b = blockIdx.y, r0 = blockIdx.x * 16;
-  const bf16* xb = x + (size_t)b * T * C;
-  bf16* yb = y + (size_t)b * T * C;
-  for (int e = threadIdx.x; e < rows_in * C; e += NTHR) {
-    const int i = e / C, c = e % C;
-    const int g = r0 - 6 * d + i;
-    const float v = (g >= 0 && g < T) ? b2f(xb[(size_t)g * C + c]) : 0.f;
-    sbuf[e] = f2b(snake(v, vec[c], vec[C + c]));
-  }
-  __syncthreads();
-  conv7_snake(sbuf, w7, d, C, vec, s2c, scratch);
-  __syncthreads();
-  conv1x1(s2c, w1, C, vec, scratch, [&](int r, int c, float v) {
-    const int g = r0 + r;
-    if (g >= T) return;
-    float o = b2f(f2b(b2f(xb[(size_t)g * C + c]) + v));
-    if (tail) o = b2f(f2b(snake(o, tail[c], tail[C + c])));
-    yb[(size_t)g * C + c] = f2b(o);
-  });
-}
-
-size_t res_unit_smem(int C, int d) {
-  return align128((size_t)(16 + 6 * d) * C * 2) +
-         align128((size_t)16 * C * 2) + NWARP * 256 * 4;
-}
 
 // -------------------------------------------------------------------- block
 //
@@ -232,16 +99,18 @@ struct Pass {
   const float* sa;     // snake constants (alpha/pi, 1/(alpha+eps)) by
   const float* si;     //   channel; RES: the next unit's, or null
   const float* tail;   // RES, last unit: (2, C) or null
-  bf16* x;             // (B, R, C) state
+  bf16* x;             // (B, R, C) state (RES: the residual)
   bf16* sn;            // (B, R, C) its entry snake
   bf16* s2;            // (B, R, C)
   bf16* y;             // RES, last unit: (B, T, C) output, or null (final)
   int C, R, H, T, stride;
 };
 
-// snake with the TPU kernel's polynomial, equal to snake() bit for bit:
-// trunc(y) as round-to-nearest by the 1.5 * 2^23 shift (exact for |y| <
-// 2^22) stepped toward zero, on the FP32 pipe; (int) conversion above
+// x + sin^2(alpha x) / (alpha + eps) with alpha_pi = alpha / pi, through
+// the TPU kernel's polynomial. trunc(y), which the plain twin (snake_poly)
+// takes by an int conversion, is round-to-nearest by the 1.5 * 2^23 shift
+// (exact for |y| < 2^22) stepped toward zero, on the FP32 pipe: the same
+// value, bit for bit; (int) conversion above
 __device__ __forceinline__ float snake8_one(float x, float alpha_pi,
                                             float inv) {
   const float y = alpha_pi * x;
@@ -768,30 +637,99 @@ cudaError_t run_pass(int tile, const Pass& p, int B, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------- res stack
+//
+// One residual unit (dilation d) over x (B, T, C) as three device kernels,
+// each over the whole sequence, in stream order, with two (B, T, C) bf16
+// scratch buffers the wrapper owns:
+//   entry snake: sn = bf16(snake1(x)), 8 channels a thread (16-byte loads
+//     and stores, snake8_one);
+//   k7: s2[r] = bf16(snake2(b1 + sum_i sn[r - 6d + i*d] @ w7[i])), a K7
+//     pass over sn's rows [0, T): its tensor map fills the rows before the
+//     sequence start with zeros, which are snake1's value there (snake(0)
+//     = 0), so sn needs no halo rows and no memset, and T may be shorter
+//     than the 6d rows of left context;
+//   1x1: y[r] = bf16(x[r] + s2[r] @ w1 + b2), then the tail snake when one
+//     is given, a RES pass as a block's last unit (no next snake) whose
+//     residual is x itself (R = T, H = 0) and whose result goes to y: the
+//     caller's x is read, never written.
+// A weight tile serves a BM-row tile of the whole sequence, and no pass
+// recomputes a halo. Tiles come from ops/voc_fused.py::voc_res_plan (C a
+// multiple of 32, as run_pass takes).
+
+__global__ void __launch_bounds__(NTHR) snake_entry_kernel(
+    const bf16* __restrict__ x, bf16* __restrict__ sn,
+    const float* __restrict__ alpha_pi, const float* __restrict__ inv,
+    size_t n8, int C) {
+  const size_t i = (size_t)blockIdx.x * NTHR + threadIdx.x;
+  if (i >= n8) return;
+  const int c = (int)(i * 8 % C);
+  float v[8], a[8], s[8];
+  unpack8(reinterpret_cast<const uint4*>(x)[i], v);
+  prm8(alpha_pi, c, a);
+  prm8(inv, c, s);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = snake8_one(v[k], a[k], s[k]);
+  reinterpret_cast<uint4*>(sn)[i] = pack8(v);
+}
+
 }  // namespace
 
 // One residual unit (dilation d) over x (B, T, C) bf16 -> y, with the
-// optional tail snake (2, C) [alpha/pi, 1/(alpha+eps)].
-extern "C" int voc_res_stack(const void* x, void* y, const void* w7,
-                             const void* w1, const void* vec,
-                             const void* tail, int B, int T, int C,
-                             int n_units, int d0, int d1, int d2,
-                             int has_tail, void* stream) {
-  (void)d1;
-  (void)d2;
-  if (n_units != 1 || C % 16 || B < 1 || T < 1)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = res_unit_smem(C, d0);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      res_unit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + 15) / 16, B);
-  res_unit_kernel<<<grid, NTHR, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (bf16*)y, (const bf16*)w7, (const bf16*)w1,
-      (const float*)vec, has_tail ? (const float*)tail : nullptr, T, C, d0);
-  return (int)cudaGetLastError();
+// optional tail snake (2, C) [alpha/pi, 1/(alpha+eps)]. Weights transposed,
+// K-major: w7t (7, C, C) [i, out, in], w1t (C, C) [out, in]; vec (6, C)
+// [alpha1/pi, 1/(alpha1+eps), alpha2/pi, 1/(alpha2+eps), b1, b2]. Scratch
+// sn, s2: (B, T, C) bf16 each; tile_k7, tile_1x1: tile ids from
+// ops/voc_fused.py::voc_res_plan. The entry snake, then two GEMM passes,
+// in stream order.
+extern "C" int voc_res_stack(const void* x, void* y, const void* w7t,
+                             const void* w1t, const void* vec,
+                             const void* tail, void* sn, void* s2,
+                             int tile_k7, int tile_1x1, int B, int T, int C,
+                             int d, int has_tail, void* stream) {
+  if (C % 32 || B < 1 || T < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* v = (const float*)vec;
+  const size_t n8 = (size_t)B * T * C / 8;
+  snake_entry_kernel<<<(unsigned)((n8 + NTHR - 1) / NTHR), NTHR, 0, st>>>(
+      (const bf16*)x, (bf16*)sn, v, v + C, n8, C);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  Pass p = {};
+  p.s2 = (bf16*)s2;
+  p.C = C;
+  p.R = T;
+  p.H = 0;
+  p.T = T;
+  p.a = (const bf16*)sn;
+  p.a_rows = T;
+  p.K = C;
+  p.n_taps = 7;
+  p.off0 = -6 * d;
+  p.tap_step = d;
+  p.wt = (const bf16*)w7t;
+  p.N = C;
+  p.m_lo = 0;
+  p.m_hi = T;
+  p.mode = K7;
+  p.bias = v + 4 * C;
+  p.sa = v + 2 * C;
+  p.si = v + 3 * C;
+  e = run_pass(tile_k7, p, B, st);
+  if (e != cudaSuccess) return (int)e;
+  p.a = (const bf16*)s2;
+  p.n_taps = 1;
+  p.off0 = 0;
+  p.tap_step = 0;
+  p.wt = (const bf16*)w1t;
+  p.mode = RES;
+  p.bias = v + 5 * C;
+  p.sa = nullptr;
+  p.si = nullptr;
+  p.tail = has_tail ? (const float*)tail : nullptr;
+  p.x = (bf16*)x;             // the residual, read only (p.y is set)
+  p.y = (bf16*)y;
+  return (int)run_pass(tile_1x1, p, B, st);
 }
 
 // One decoder block: x (B, T_in, C_in) -> y (B, T_in*stride, C), or with

@@ -70,8 +70,9 @@ SIGNATURES = {
     "fast_sweep_grid": ("fast_sweep", [ctypes.POINTER(_I)] * 2),
     # no arguments: the sweep CTA's threads (no launch)
     "fast_sweep_threads": ("fast_sweep", []),
-    # x y w7 w1 vec tail | B T C n_units d0 d1 d2 has_tail | stream
-    "voc_res_stack": ("voc_fused", [_P] * 6 + [_I] * 8 + [_P]),
+    # x y w7t w1t vec tail sn s2 | tile_k7 tile_1x1 (ops/voc_fused.py::
+    # voc_res_plan) B T C d has_tail | stream
+    "voc_res_stack": ("voc_fused", [_P] * 8 + [_I] * 7 + [_P]),
     # x y pwt pb w7t w1t vec tail fw xs sn s2 | tiles (7 ints) | B T_in C_in
     # C stride d0 d1 d2 final | stream
     "voc_block": ("voc_fused", [_P] * 12 + [ctypes.POINTER(_I)] + [_I] * 9

@@ -211,16 +211,17 @@ def fused_res_stack(x: torch.Tensor, packed: dict, dilations=DILATIONS,
                     tail_vec: torch.Tensor | None = None,
                     tt: int | None = None) -> torch.Tensor:
     """The residual units of `packed` over x (B, T, C). The CUDA kernels
-    take one unit per call (the 768-channel decoder block's use); an int8
-    pack needs the tile `tt` (see fused_res_stack_plain)."""
+    take one unit per call (the 768-channel decoder block's use): a bf16
+    pack runs as whole-sequence passes (`voc_res_plan`) in scratch
+    allocated here; an int8 pack needs the tile `tt` (see
+    fused_res_stack_plain)."""
     if not x.is_cuda:
         return fused_res_stack_plain(x, packed, dilations, tail_vec, tt)
     b, t, c = x.shape
     quant = packed["w7"].dtype == torch.int8
-    align = 32 if quant else 16
-    if len(dilations) != 1 or c % align:
+    if len(dilations) != 1 or c % GEMM_K:
         raise ValueError(f"the residual-stack kernel takes one unit per call "
-                         f"and channels a multiple of {align}")
+                         f"and channels a multiple of {GEMM_K}")
     dev = x.device
     _cuda.check(x, "x", torch.bfloat16, device=dev)
     _check_weights(packed, c, 1, quant, dev)
@@ -228,10 +229,16 @@ def fused_res_stack(x: torch.Tensor, packed: dict, dilations=DILATIONS,
         _cuda.check(tail_vec, "tail_vec", torch.float32, (2, c), dev)
     y = torch.empty_like(x)
     if not quant:
-        RES_STACK(x.data_ptr(), y.data_ptr(), packed["w7"].data_ptr(),
-                  packed["w1"].data_ptr(), packed["vec"].data_ptr(),
-                  _cuda.ptr(tail_vec), b, t, c, 1, dilations[0], 0, 0,
-                  int(tail_vec is not None))
+        plan = voc_res_plan(b, t, c, dilations[0], _cuda.sm_count(dev.index))
+        w7t, w1t = res_weights_t(packed)
+        _cuda.check(w7t, "w7t", torch.bfloat16, (1, 7, c, c), dev)
+        _cuda.check(w1t, "w1t", torch.bfloat16, (1, c, c), dev)
+        # the passes' scratch: the entry snake, the second snake
+        sn, s2 = torch.empty_like(x), torch.empty_like(x)
+        RES_STACK(x.data_ptr(), y.data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
+                  packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
+                  sn.data_ptr(), s2.data_ptr(), *plan["tiles"], b, t, c,
+                  dilations[0], int(tail_vec is not None))
         return y
     _check_tile(t, tt)
     halo = halo_for(dilations)
@@ -314,9 +321,9 @@ def fused_block_plain(x: torch.Tensor, packed: dict, *, stride: int,
     return _final_conv(out, final_w, t_in * stride).to(x.dtype)
 
 
-# The bf16 block kernel's passes (csrc/voc_fused.cu, voc_block): GEMM tiles
-# (BM, BN) by the C entry's tile id; K (a multiple of GEMM_K) in steps of 64
-# where 64 divides it, else of 32
+# The bf16 kernels' GEMM passes (csrc/voc_fused.cu, voc_block and
+# voc_res_stack): tiles (BM, BN) by the C entries' tile id; K (a multiple of
+# GEMM_K) in steps of 64 where 64 divides it, else of 32
 TILE_SHAPES = ((64, 32), (64, 64), (64, 96), (64, 128), (128, 32), (128, 64),
                (128, 96), (128, 128))
 GEMM_K = 32
@@ -336,16 +343,50 @@ def tile_smem(bm: int, bn: int, k: int) -> int:
     return 1024 + max(stages * stage, bm * (bn + 8) * 4)
 
 
+def res_weights_t(packed: dict) -> tuple:
+    """The residual units' weights as the K-major (taps, N, K) tiles the
+    bf16 passes load: w7 (U, 7, C, C) and w1 (U, C, C), each [.., out, in].
+    `pack_decoder` keeps them in block 0's pack ("w7t", "w1t"); a pack
+    without them is transposed here, per call."""
+    if "w7t" in packed:
+        return packed["w7t"], packed["w1t"]
+    return (packed["w7"].transpose(2, 3).contiguous(),
+            packed["w1"].transpose(1, 2).contiguous())
+
+
 def block_weights_t(packed: dict) -> tuple:
     """The bf16 block kernel's weights as the K-major (taps, N, K) tiles its
-    passes load: the tconv phases (2, stride*C, C_in), w7 (U, 7, C, C) and
-    w1 (U, C, C), each [.., out, in]. `pack_decoder` keeps them in the pack
+    passes load: the tconv phases (2, stride*C, C_in), then w7 and w1 as
+    `res_weights_t` gives them. `pack_decoder` keeps them in the pack
     ("wt"); a pack without them is transposed here, per call."""
     if "wt" in packed:
         return packed["wt"]
     return (packed["tconv_pw"].transpose(1, 2).contiguous(),
-            packed["w7"].transpose(2, 3).contiguous(),
-            packed["w1"].transpose(1, 2).contiguous())
+            *res_weights_t(packed))
+
+
+def _plan_pass(b: int, name: str, m_lo: int, m_hi: int, n: int, taps: int,
+               k: int, n_sm: int) -> dict:
+    """One GEMM pass of output rows [m_lo, m_hi) and n columns over `taps`
+    taps of K = k, with its tile: the largest (BM x BN, then BM) whose grid
+    has at least n_sm CTAs, else the one with the most CTAs (then the
+    smaller BM). Raises if no tile's BN divides n."""
+    def ctas(i):
+        bm, bn = TILE_SHAPES[i]
+        return -(-(m_hi - m_lo) // bm) * (n // bn) * b
+
+    fit = sorted((i for i, (_, bn) in enumerate(TILE_SHAPES) if n % bn == 0),
+                 key=lambda i: (TILE_SHAPES[i][0] * TILE_SHAPES[i][1],
+                                TILE_SHAPES[i][0]), reverse=True)
+    if not fit:
+        raise ValueError(f"no tile of the pass kernel divides {n} columns")
+    full = [i for i in fit if ctas(i) >= n_sm]
+    tile = full[0] if full else max(
+        fit, key=lambda i: (ctas(i), -TILE_SHAPES[i][0]))
+    bm, bn = TILE_SHAPES[tile]
+    return {"name": name, "m_lo": m_lo, "m_hi": m_hi, "n": n, "taps": taps,
+            "k": k, "bm": bm, "bn": bn, "tile": tile, "ctas": ctas(tile),
+            "smem": tile_smem(bm, bn, k)}
 
 
 def voc_block_plan(b: int, t_in: int, c_in: int, c: int, stride: int,
@@ -354,12 +395,11 @@ def voc_block_plan(b: int, t_in: int, c_in: int, c: int, stride: int,
     """The bf16 block kernel's passes at these shapes on a card of n_sm
     SMs: the state's left context `halo` and its `rows` (halo + T); per
     pass (the transposed conv, then each unit's k7 and 1x1 convs) its
-    output rows [m_lo, m_hi), columns n, taps and K a tap, and the tile:
-    the largest (BM x BN, then BM) whose grid has at least n_sm CTAs, else
-    the one with the most CTAs (then the smaller BM). `tiles`: the tile
-    ids the C entry takes; `device_kernels`: what one call runs (two
-    memsets, the passes, the final conv; a pack without "wt" adds three
-    transposes). Raises if no tile's BN divides a pass's columns."""
+    output rows [m_lo, m_hi), columns n, taps and K a tap, and the tile
+    (`_plan_pass`). `tiles`: the tile ids the C entry takes;
+    `device_kernels`: what one call runs (two memsets, the passes, the
+    final conv; a pack without "wt" adds three transposes). Raises if no
+    tile's BN divides a pass's columns."""
     if c % GEMM_K or c_in % GEMM_K or len(dilations) != 3:
         raise ValueError(f"the bf16 block kernel takes three units and "
                          f"channels a multiple of {GEMM_K}")
@@ -371,30 +411,27 @@ def voc_block_plan(b: int, t_in: int, c_in: int, c: int, stride: int,
         lo += 6 * d
         spans += [(f"k7 u{u}", lo, rows, c, 7, c),
                   (f"1x1 u{u}", lo, rows, c, 1, c)]
-    passes = []
-    for name, m_lo, m_hi, n, taps, k in spans:
-        def ctas(i):
-            bm, bn = TILE_SHAPES[i]
-            return -(-(m_hi - m_lo) // bm) * (n // bn) * b
-
-        fit = sorted((i for i, (_, bn) in enumerate(TILE_SHAPES)
-                      if n % bn == 0),
-                     key=lambda i: (TILE_SHAPES[i][0] * TILE_SHAPES[i][1],
-                                    TILE_SHAPES[i][0]), reverse=True)
-        if not fit:
-            raise ValueError(f"no tile of the block kernel divides {n} "
-                             f"columns")
-        full = [i for i in fit if ctas(i) >= n_sm]
-        tile = full[0] if full else max(
-            fit, key=lambda i: (ctas(i), -TILE_SHAPES[i][0]))
-        bm, bn = TILE_SHAPES[tile]
-        passes.append({"name": name, "m_lo": m_lo, "m_hi": m_hi, "n": n,
-                       "taps": taps, "k": k, "bm": bm, "bn": bn,
-                       "tile": tile, "ctas": ctas(tile),
-                       "smem": tile_smem(bm, bn, k)})
+    passes = [_plan_pass(b, *span, n_sm) for span in spans]
     return {"halo": halo, "rows": rows, "passes": passes,
             "tiles": [q["tile"] for q in passes],
             "device_kernels": 2 + len(passes) + int(final)}
+
+
+def voc_res_plan(b: int, t: int, c: int, d: int, n_sm: int = 132) -> dict:
+    """The bf16 residual-unit kernel's passes over x (b, t, c), dilation d,
+    on a card of n_sm SMs: the k7 conv (7 taps of K = c, tap i reading rows
+    r - 6d + i*d) and the 1x1 conv, each over output rows [0, t) and c
+    columns, with its tile as `voc_block_plan` picks one. `tiles`: the tile
+    ids the C entry takes; `device_kernels`: what one call runs (the entry
+    snake and the two passes; a pack without "w7t" adds two transposes).
+    Raises unless c is a multiple of GEMM_K."""
+    if c % GEMM_K:
+        raise ValueError(f"the bf16 residual-unit kernel takes channels a "
+                         f"multiple of {GEMM_K}")
+    passes = [_plan_pass(b, f"k7 d{d}", 0, t, c, 7, c, n_sm),
+              _plan_pass(b, f"1x1 d{d}", 0, t, c, 1, c, n_sm)]
+    return {"passes": passes, "tiles": [q["tile"] for q in passes],
+            "device_kernels": 1 + len(passes)}
 
 
 def fused_block(x: torch.Tensor, packed: dict, *, stride: int,

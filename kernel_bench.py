@@ -11,12 +11,14 @@ checks, at S2-Pro width and the rows or batches given.
 w4a8: #11 `w4a8_matmul` and #12 `w4a8_matmul_pc` at the slow stack's five
 products (`chip_smoke.check_w4a8`). sweep: #2 `fused_fast_sweep` on seeded
 random int8 fast-head weights (`chip_smoke.check_fast_sweep`). voc: #4
-(block 0) and #3 bf16 (blocks 1-3) on a seeded random S2-Pro decoder at
-each number of codec frames (`chip_smoke.check_vocoder`): per block ms,
-plain ms, bound ms, the kernel's plan and the device kernels a call, then
-one line with blocks 1-3 together. voc --phases times each pass of #3
-bf16 (`voc_phases`): variants of csrc/voc_fused.cu without the passes'
-epilogue or their snake, beside an unchanged copy.
+bf16 (block 0, its conv biases drawn at random) and #3 bf16 (blocks 1-3)
+on a seeded random S2-Pro decoder at each number of codec frames
+(`chip_smoke.check_vocoder`): per block ms, plain ms, bound ms, the
+kernel's plan and the device kernels a call, then one line with block 0's
+three calls together and one with blocks 1-3 together. voc --phases
+times each device kernel of #4 and #3 bf16 (`voc_phases`): variants of
+csrc/voc_fused.cu without the passes' epilogue or the snake, beside an
+unchanged copy, and block 0 at each tile.
 
 w4a8 --phases asks what paces the tiled (M > 8) product instead. It
 builds copies of csrc/w4a8.cu with one phase of the tile loop taken out
@@ -39,7 +41,7 @@ compare two trees, run parent, change, change, parent in one session.
 Prints the card's name and power limit, then one JSON line per case as
 chip_smoke records it (ms, plain_ms, bound_ms, library_ms, ...), and for
 w4a8 one line per (kernel, rows) with the five products' sums: one layer;
-for voc one line per frames with blocks 1-3's sums.
+for voc two lines per frames, with block 0's sums and blocks 1-3's.
 Exits 1 if a case failed its check, 2 without a GPU.
 """
 
@@ -171,9 +173,9 @@ def phase_libs(source: str = "w4a8", variants: dict | None = None,
     return libs
 
 
-# text edits of csrc/voc_fused.cu's block passes, each asserted to apply
-# once: no epilogue (the sums are computed and staged, nothing is
-# written), no snake in the passes' epilogues (#4's snake() is untouched)
+# text edits of csrc/voc_fused.cu's passes, each asserted to apply once:
+# no epilogue (the sums are computed and staged, nothing is written), no
+# snake (in the passes' epilogues and #4's entry snake)
 _EPI = "  tile_epilogue<BM, BN, CONS>(p, prm, out, tid, r0, n0, b);\n"
 _SNAKE8 = "  return x + s2 * inv;\n}\n\n// 8 values"
 VOC_VARIANTS = {
@@ -184,12 +186,15 @@ VOC_VARIANTS = {
 
 
 def voc_phases(cs, dev, gen, frames_list) -> None:
-    """Prints one JSON line per (frames, block, variant) of the bf16 block
-    kernel on the seeded S2-Pro decoder's weights and random inputs of the
-    block's shape: the call's device time (ms) and each device kernel's
-    (us, in launch order: two memsets, the seven passes, the final conv),
-    from variants of csrc/voc_fused.cu (VOC_VARIANTS). The variants'
-    outputs are wrong by design."""
+    """Prints one JSON line per (frames, block, variant) of the bf16
+    vocoder kernels on the seeded S2-Pro decoder's weights and random
+    inputs of the block's shape: the call's device time (ms) and each
+    device kernel's (us, in launch order), from variants of
+    csrc/voc_fused.cu (VOC_VARIANTS). Block 0 (#4): its three unit calls,
+    each the entry snake, the k7 pass and the 1x1 pass; blocks 1-3 (#3):
+    two memsets, the seven passes, the final conv. Then block 0 with each
+    tile that divides its channels forced on every pass (unchanged source):
+    one line a tile. The variants' outputs are wrong by design."""
     import ctypes
 
     from torch.profiler import ProfilerActivity, profile
@@ -197,14 +202,63 @@ def voc_phases(cs, dev, gen, frames_list) -> None:
     from fish_speech_tpu_torch.ops import _cuda
     from fish_speech_tpu_torch.ops import voc_fused as tv
 
-    libs = phase_libs("voc_fused", VOC_VARIANTS, ("voc_block",))
+    libs = phase_libs("voc_fused", VOC_VARIANTS,
+                      ("voc_block", "voc_res_stack"))
     eng = decoder(dev, gen)
     packed, ccfg = eng.packed_decoder, eng.codec_cfg
     st = torch.cuda.current_stream().cuda_stream
     n_sm = _cuda.sm_count(dev.index)
+
+    def report(frames, bi, name, call, passes):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        print(json.dumps({
+            "frames": frames, "block": bi, "variant": name,
+            "ms": cs.time_ms(call, 5, 1),
+            "kernels_us": [e.device_time_total for e in prof.events()
+                           if e.device_type
+                           == torch.autograd.DeviceType.CUDA],
+            "passes": passes}), flush=True)
+
     for frames in frames_list:
-        # block 1's input rows: a frame's samples over the later strides
+        # block 0's rows, and block 1's input rows: a frame's samples over
+        # the later strides
         t_in = frames * ccfg.frame_length // math.prod(ccfg.decoder_rates[1:])
+        pb = packed["blocks"][0]
+        w7t, w1t = tv.res_weights_t(pb["res"])
+        c = w1t.shape[-1]
+        x = torch.randn((1, t_in, c), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y, sn, s2 = (torch.empty_like(x) for _ in range(3))
+        plans = [tv.voc_res_plan(1, t_in, c, d, n_sm)["tiles"]
+                 for d in tv.DILATIONS]
+
+        def unit_calls(lib, tiles):
+            def call():
+                for u, d in enumerate(tv.DILATIONS):
+                    last = u == len(tv.DILATIONS) - 1
+                    err = lib.voc_res_stack(
+                        x.data_ptr(), y.data_ptr(), w7t[u].data_ptr(),
+                        w1t[u].data_ptr(), pb["res"]["vec"][u].data_ptr(),
+                        pb["tail_vec"].data_ptr() if last else None,
+                        sn.data_ptr(), s2.data_ptr(), *tiles[u], 1, t_in, c,
+                        d, int(last), st)
+                    assert err == 0, f"cudaError {err}"
+            return call
+
+        for name, lib in libs.items():
+            report(frames, 0, name, unit_calls(lib, plans),
+                   [f"{q} d{d}" for d in tv.DILATIONS for q in ("k7", "1x1")])
+        # block 0 with one tile forced on every pass, the plan's rule aside
+        for tile, (bm, bn) in enumerate(tv.TILE_SHAPES):
+            if c % bn == 0:
+                call = unit_calls(libs["base"], [(tile, tile)] * 3)
+                print(json.dumps({"frames": frames, "block": 0,
+                                  "variant": "base", "tile": f"{bm}x{bn}",
+                                  "ms": cs.time_ms(call, 5, 1)}), flush=True)
         for bi in range(1, len(packed["blocks"])):
             pb, stride = packed["blocks"][bi], ccfg.decoder_rates[bi]
             res = pb["res"]
@@ -234,19 +288,8 @@ def voc_phases(cs, dev, gen, frames_list) -> None:
                         1, t_in, c_in, c, stride, *tv.DILATIONS, int(final),
                         st)
                     assert err == 0, f"cudaError {err}"
-                call()
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    call()
-                    torch.cuda.synchronize()
-                print(json.dumps({
-                    "frames": frames, "block": bi, "variant": name,
-                    "ms": cs.time_ms(call, 5, 1),
-                    "kernels_us": [e.device_time_total for e in prof.events()
-                                   if e.device_type
-                                   == torch.autograd.DeviceType.CUDA],
-                    "passes": [q["name"] for q in plan["passes"]]}),
-                    flush=True)
+                report(frames, bi, name, call,
+                       [q["name"] for q in plan["passes"]])
             t_in = t
 
 
@@ -327,7 +370,7 @@ def main() -> int:
     ap.add_argument("--phases", action="store_true",
                     help="w4a8: time the tile loop without each phase; "
                          "voc: each pass, with and without its epilogue "
-                         "or snake")
+                         "or snake, and block 0 at each tile")
     ap.add_argument("--tree", help="time the package of this checkout")
     args = ap.parse_args()
     if args.tree:
@@ -374,10 +417,13 @@ def main() -> int:
                                 ("voc_block", blocks)):
                 for c in cases:
                     print(json.dumps({"kernel": name, **c}), flush=True)
-            print(json.dumps({
-                "kernel": "voc_block", "blocks": "1-3", "frames": frames,
-                **{k: sum(c[k] for c in blocks)
-                   for k in ("ms", "plain_ms", "bound_ms")}}), flush=True)
+            for name, cases, which in (("voc_res_stack", res, "0"),
+                                       ("voc_block", blocks, "1-3")):
+                print(json.dumps({
+                    "kernel": name, "blocks": which, "frames": frames,
+                    **{k: sum(c[k] for c in cases)
+                       for k in ("ms", "plain_ms", "bound_ms")}}),
+                    flush=True)
     else:
         packed = fast_stack(cfg, dev, gen)
         for c in cs.check_fast_sweep(chk, cfg, packed, dev, gen,

@@ -650,6 +650,41 @@ def test_res_stack(dev, d, tail):
     assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
 
 
+@pytest.mark.parametrize("short", [False, True], ids=["batch2", "t32"])
+@pytest.mark.parametrize("d", [1, 3, 9])
+def test_res_stack_s2pro(dev, d, short):
+    """The bf16 residual-unit kernel (three device kernels: the entry snake,
+    the k7 and 1x1 passes) at block 0's S2-Pro width, C = 768, with
+    non-zero conv biases, the tail snake on d = 9 as block 0's last unit
+    takes it: batch 2 over a T that is not a whole number of the plan's
+    row tiles, and batch 1 over T = 32 rows, fewer than the 6d of left
+    context at d = 9. One launch count a call; the pack with the K-major
+    weights ("w7t", "w1t", as pack_decoder keeps them) and without (then
+    transposed per call) give the same bits; against the plain twin 2^-5
+    of the output's scale (bf16 state, f32 sums in another order)."""
+    c = 768
+    b, t = (1, 32) if short else (2, 1000)
+    packed = _units(c, 1, 40 + d, dev)
+    tv_ = _tail(c, 44, dev) if d == 9 else None
+    plan = tv.voc_res_plan(b, t, c, d, _cuda.sm_count(dev.index or 0))
+    assert any(t % q["bm"] for q in plan["passes"])
+    x = torch.from_numpy(np.random.default_rng(45 + d).standard_normal(
+        (b, t, c))).to(dev, torch.bfloat16)
+    before = tv.RES_STACK.launches
+    got = tv.fused_res_stack(x, packed, dilations=(d,), tail_vec=tv_)
+    assert tv.RES_STACK.launches == before + 1
+    ref = tv.fused_res_stack_plain(x, packed, dilations=(d,), tail_vec=tv_)
+    w7t, w1t = tv.res_weights_t(packed)
+    again = tv.fused_res_stack(x, {**packed, "w7t": w7t, "w1t": w1t},
+                               dilations=(d,), tail_vec=tv_)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    scale = ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+
+
 @pytest.mark.parametrize("stride,final", [(4, False), (2, True)])
 def test_block(dev, stride, final):
     c, c_in = 64, 128

@@ -204,3 +204,101 @@ def test_voc_block_plan_small_input_takes_most_ctas():
 def test_voc_block_plan_refuses(c, c_in, dil):
     with pytest.raises(ValueError):
         tv.voc_block_plan(1, 16, c_in, c, 2, dil, False, 132)
+
+
+# --- the bf16 residual-unit kernel's plan (runs without a card) ------------
+
+# block 0 of the S2-Pro decoder: 768 channels, 32 rows a codec frame
+S2_PRO_BLOCK0 = (768, 32)
+
+
+@pytest.mark.parametrize("frames", [1, 16, 128])
+@pytest.mark.parametrize("b", [1, 2])
+def test_voc_res_plan_covers_once(frames, b):
+    """Both passes of a unit cover output rows [0, T) and all C columns
+    once (the grid's last row tile reaches past T by less than a tile, BN
+    divides C), with the k7 conv's 7 taps and the 1x1's one, each of K = C,
+    in tiles that fit the kernel's shared memory; one call runs three
+    device kernels (the entry snake, the two passes)."""
+    c, per_frame = S2_PRO_BLOCK0
+    t = per_frame * frames
+    for d in DIL:
+        plan = tv.voc_res_plan(b, t, c, d, 132)
+        assert plan["tiles"] == [q["tile"] for q in plan["passes"]]
+        assert plan["device_kernels"] == 3
+        assert [q["taps"] for q in plan["passes"]] == [7, 1]
+        for q in plan["passes"]:
+            assert (q["m_lo"], q["m_hi"], q["n"], q["k"]) == (0, t, c, c)
+            assert (q["bm"], q["bn"]) == tv.TILE_SHAPES[q["tile"]]
+            rows = -(-t // q["bm"])
+            assert (rows - 1) * q["bm"] < t <= rows * q["bm"]
+            assert c % q["bn"] == 0
+            assert q["ctas"] == rows * (c // q["bn"]) * b
+            assert q["smem"] == tv.tile_smem(q["bm"], q["bn"], c) \
+                <= tv.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("frames,tile", [(16, (64, 32)), (128, (128, 128))])
+def test_voc_res_plan_tiles_block0(frames, tile):
+    """Batch 1 on the H100's 132 SMs: at F = 128 the 128 x 128 tile fills
+    the card (192 CTAs); at F = 16 it would give 24, and the largest tile
+    with at least 132 CTAs is 64 x 32 (192). The rule is voc_block_plan's:
+    no larger tile reaches 132 CTAs."""
+    c, per_frame = S2_PRO_BLOCK0
+    plan = tv.voc_res_plan(1, per_frame * frames, c, 9, 132)
+    for q in plan["passes"]:
+        assert (q["bm"], q["bn"]) == tile and q["ctas"] >= 132
+        for bm, bn in tv.TILE_SHAPES:
+            if bm * bn > q["bm"] * q["bn"]:
+                assert -(-q["m_hi"] // bm) * (c // bn) < 132, (bm, bn)
+
+
+def test_voc_res_plan_small_input_takes_most_ctas():
+    """T = 32 (one frame): the tile with the most CTAs, and of those the
+    one with fewer rows."""
+    plan = tv.voc_res_plan(1, 32, 768, 9, 132)
+    for q in plan["passes"]:
+        assert (q["bm"], q["bn"]) == (64, 32) and q["ctas"] == 24
+
+
+@pytest.mark.parametrize("c", [48, 80, 784])
+def test_voc_res_plan_refuses(c):
+    with pytest.raises(ValueError):
+        tv.voc_res_plan(1, 64, c, 1, 132)
+
+
+def test_pack_decoder_keeps_unit_weights_t(monkeypatch):
+    """A bf16 block run as per-unit calls keeps its units' weights K-major
+    ("w7t", "w1t": the transposes of w7 and w1); fused blocks and int8
+    packs do not; decoder_fused hands them to each unit's call, and the
+    result is the pack's without them."""
+    from fish_speech_tpu_torch.codec import config as tcfg
+    from fish_speech_tpu_torch.codec import fastpath as tfast
+    from fish_speech_tpu_torch.codec.init import init_dac_params as init_t
+
+    cfg = tcfg.tiny_codec_config()
+    params = init_t(torch.Generator().manual_seed(0), cfg, device="cpu")
+    # block 0 (64 channels) as per-unit calls, as S2-Pro's 768-wide one
+    monkeypatch.setattr(tfast, "FUSED_BLOCK_MAX_C", 32)
+    packed = tfast.pack_decoder(params["decoder"], cfg, dtype=torch.bfloat16,
+                                quant=False)
+    res = packed["blocks"][0]["res"]
+    assert "tconv_pw" not in res
+    assert torch.equal(res["w7t"], res["w7"].transpose(2, 3))
+    assert torch.equal(res["w1t"], res["w1"].transpose(1, 2))
+    assert res["w7t"].is_contiguous() and res["w1t"].is_contiguous()
+    assert tv.res_weights_t(res) == (res["w7t"], res["w1t"])
+    bare = {k: v for k, v in res.items() if k not in ("w7t", "w1t")}
+    for a, b in zip(tv.res_weights_t(bare), tv.res_weights_t(res)):
+        assert torch.equal(a, b) and a.is_contiguous()
+    for blk in packed["blocks"][1:]:
+        assert "w7t" not in blk["res"] and "wt" in blk["res"]
+    quant = tfast.pack_decoder(params["decoder"], cfg, quant=True)
+    assert all("w7t" not in blk["res"] for blk in quant["blocks"])
+    z = torch.randn((1, 3, cfg.resolved_latent_dim),
+                    generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16)
+    got = tfast.decoder_fused(params["decoder"], cfg, z, packed=packed)
+    packed["blocks"][0]["res"] = bare
+    ref = tfast.decoder_fused(params["decoder"], cfg, z, packed=packed)
+    assert torch.isfinite(got.float()).all() and torch.equal(got, ref)
