@@ -474,26 +474,89 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
     return cases
 
 
-def w4a8_case_plan(m: int, n: int, k: int, pc: bool, dev) -> list:
-    """The W4A8 kernel's plan at these shapes (logged with each case)."""
+def w4a8_case_plan(m: int, n: int, k: int, pc: bool, dev) -> dict:
+    """The W4A8 kernel's plan at these shapes (logged with each case): the
+    stream's columns a CTA, cluster and part bytes (M <= 8), or the tile
+    and its K parts."""
     from fish_speech_tpu_torch.ops._cuda import sm_count
-    from fish_speech_tpu_torch.ops.w4a8 import w4a8_plan
+    from fish_speech_tpu_torch.ops.w4a8 import STREAM_BN, TILES, w4a8_plan
 
-    return list(w4a8_plan(m, n, k, k // GROUPSIZE, sm_count(dev.index or 0),
-                          pc))
+    tile, n_split, part = w4a8_plan(m, n, k, k // GROUPSIZE,
+                                    sm_count(dev.index or 0), pc)
+    if tile == 0:
+        return {"tile": "stream", "bn": STREAM_BN, "cluster": n_split,
+                "part": part}
+    return {"tile": "x".join(map(str, TILES[tile])), "n_split": n_split,
+            "part": part}
+
+
+# CUgraphNodeType of the CUDA driver API (cuda.h)
+GRAPH_NODE_KINDS = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "GRAPH", "EMPTY",
+                    "WAIT_EVENT", "EVENT_RECORD", "EXT_SEMAS_SIGNAL",
+                    "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE",
+                    "BATCH_MEM_OP", "CONDITIONAL")
+
+
+def graph_node_kinds(graph) -> list[str]:
+    """The kinds of the nodes of a graph captured with keep_graph=True
+    (cuGraphGetNodes, cuGraphNodeGetType): every kernel, memset and copy
+    the captured work enqueues is one node."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(GRAPH_NODE_KINDS[t.value]
+                     if 0 <= t.value < len(GRAPH_NODE_KINDS) else str(t.value))
+    return kinds
+
+
+def w4a8_capture(fn, x8, q4, gs) -> tuple[bool, list[str]]:
+    """One call captured in a CUDA graph and replayed against the eager
+    call: whether the two are equal bit for bit, and the kinds of the
+    graph's nodes (the device work one call enqueues)."""
+    eager = fn(x8, q4, gs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn(x8, q4, gs)
+    kinds = graph_node_kinds(graph)
+    graph.instantiate()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager)
+    del graph, out
+    return same, kinds
 
 
 def check_w4a8(chk: Checks, cfg, dev, gen,
-               rows=(1, BATCH_M, PREFILL_M),
+               rows=(1, 8, BATCH_M, PREFILL_M),
                plans: bool = True) -> tuple[list[dict], list[dict]]:
     """#11 and #12 at the slow stack's five products (wqkv, wo, w1, w3,
-    w2) at `rows` rows M (decode at 1, a batched decode at 40, prefill at
-    256), on int4 weights quantized from random ones; with `plans`, each
-    case logs the kernel's plan (tile, K parts, part bytes). Both kernels
-    must equal their plain versions bit for bit (exact int32 dots, the same
-    f32 steps). Library yardstick: one torch._int_mm of the same M x K by
-    K x N int8 product, on the int8 weights #12 reconstructs (for #11, the
-    W8A8 product this configuration replaces)."""
+    w2) at `rows` rows M (decode at 1, the weight stream's widest case at
+    8, a batched decode at 40, prefill at 256), on int4 weights quantized
+    from random ones; with `plans`, each case logs the kernel's plan (the
+    stream's cluster and part bytes, or the tile and its K parts) and, up
+    to 8 rows, the work one call enqueues, from the nodes of a CUDA graph
+    that captures it, which must be one kernel (the stream: no memset, no
+    second kernel), that graph's replay, which must equal the eager call,
+    and the device kernels the profiler records for a call, which must be
+    one where it keeps a record. Both kernels must equal their plain
+    versions bit for bit (exact int32 dots, the same f32 steps). Library
+    yardstick: one torch._int_mm of the same M x K by K x N int8 product,
+    on the int8 weights #12 reconstructs (for #11, the W8A8 product this
+    configuration replaces)."""
     from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
     from fish_speech_tpu_torch.ops.w4a8 import (
         pc_weights, w4a8_matmul, w4a8_matmul_pc, w4a8_matmul_pc_plain,
@@ -530,12 +593,32 @@ def check_w4a8(chk: Checks, cfg, dev, gen,
                 it = cycle(weights)
                 ms = time_ms(lambda: fn(x8, *next(it)), 2 * len(weights))
                 plain_ms = time_ms(lambda: plain(x8, *next(it)), 3, 1)
+                label = f"{name} M={m} N={n} K={k}"
+                extra = {}
+                if plans:
+                    extra["plan"] = w4a8_case_plan(m, n, k,
+                                                   fn is w4a8_matmul_pc, dev)
+                if plans and m <= 8:
+                    same, kinds = w4a8_capture(fn, x8, q4, gs)
+                    extra["graph_equal"] = same
+                    extra["graph_nodes"] = kinds
+                    if not same:
+                        chk.failed.append(f"{fn.__name__} [{label}]: the "
+                                          f"captured call differs")
+                    if kinds != ["KERNEL"]:
+                        chk.failed.append(f"{fn.__name__} [{label}]: a call "
+                                          f"enqueues {kinds}")
+                    # the profiler's record, where it keeps one, must agree
+                    names, _ = device_kernels(lambda: fn(x8, q4, gs))
+                    extra["device_kernels"] = sorted({s[:40] for s in names})
+                    if names and len(names) != 1:
+                        chk.failed.append(f"{fn.__name__} [{label}]: "
+                                          f"{len(names)} device kernels a "
+                                          f"call")
                 out.append(chk.case(
-                    fn.__name__, f"{name} M={m} N={n} K={k}",
-                    max_err(got, ref), 0.0, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, m=m,
-                    **({"plan": w4a8_case_plan(m, n, k, fn is w4a8_matmul_pc,
-                                               dev)} if plans else {}),
+                    fn.__name__, label, max_err(got, ref), 0.0, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=library_ms, m=m, **extra,
                     bit_equal=bool(torch.equal(got, ref))))
         del weights, lib_weights
     torch.cuda.empty_cache()
@@ -643,11 +726,16 @@ def _clone_cache(c, n_layer=None):
 def device_kernels(fn, tries: int = 3) -> tuple[list[str], int]:
     """Names of the device kernels (and copies) one call of fn runs, from
     torch.profiler, and the calls made. A profiler session now and then
-    records no device event at all (seen once in four on the H100): an
-    empty record is taken again, up to `tries` sessions in all."""
+    records no device event at all (seen once in four on the H100, and
+    three sessions in a row once): an empty record is taken again, after a
+    pause, up to `tries` sessions in all, each with one call of fn. The
+    names are the last session's, so those of one call; they are empty if
+    no session kept a record."""
     from torch.profiler import ProfilerActivity, profile
 
     for calls in range(1, tries + 1):
+        if calls > 1:
+            time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -24,14 +24,48 @@
 // operations, 0.0261 ms), far below what __dp4a's ~118 TOP/s allow.
 //
 // Design:
-//   gemv (M <= 8): one warp per output column, 8 columns per CTA. Each lane
-//     loads 16 packed bytes (32 int4 values) with one 16-byte load, and the
-//     two 16-byte activation slices they pair with (k = j and k = j + K/2),
-//     sign-extends the nibbles four at a time (__vsub4) and runs __dp4a. A
-//     group of gsz inputs spans gsz/16 lanes of one half: those lanes' int32
-//     partials are reduced exactly by shuffles, kept per group in shared
-//     memory, and summed in group order at the end. pc instead requantizes
-//     each nibble to int8 before the dot and reduces one int32 over K.
+//   stream (M <= 8): the card must read every packed byte once, so the
+//     kernel keeps the weight stream in flight and does little per byte.
+//     A CTA owns SB_N = 32 output columns and one K part of the packed
+//     bytes [z * part, z * part + part) (whole groups; w4a8_plan in
+//     ops/w4a8.py picks the part from the shapes and the SM count). The
+//     n_split CTAs of a column tile form one thread-block cluster along K
+//     (at most 8, cudaLaunchKernelEx with a cluster dimension), so a call
+//     is one device kernel: no memset, no atomics, no global scratch,
+//     deterministic, and capturable in a CUDA graph.
+//     One producer warp streams the part's rows into a ring of SB_STAGES
+//     stages of SB_K packed bytes a row with cp.async.bulk (one copy a
+//     column row, a lane a row; completion on an mbarrier a stage, freed
+//     by the consumers' arrivals on another), after copying x's M rows
+//     once into shared memory, only the columns the part pairs with (k = j
+//     and k = K/2 + j). Rows sit SB_LDW = SB_K + 64 bytes apart, so that
+//     rows 2p and 2p + 1 fall on different banks in a quarter-warp's
+//     16-byte loads.
+//     Two consumer warps, 16 columns each, multiply with int8 mma.sync
+//     m16n8k32 with the operands swapped: 16 weight columns as A, the
+//     <= 8 rows of x as B (rows past M are zeros), int32 sums exact. A
+//     lane's 16-byte load of a column row holds 16 values of each half;
+//     the same load of x's row holds their partners, and the dot is the
+//     same under any order of k shared by A and B, so a lane's first 8
+//     bytes feed one mma and its next 8 the other: no shuffle, no
+//     ldmatrix.
+//     grouped: a nibble q is taken as the byte 16 q (it is put in the
+//       byte's high half: one or two logic ops a word), so the sums are
+//       16 times the exact dot. At each group end the warp writes
+//       float(dot) * gs[n, g] for its (m, group, column) into the shared
+//       memory of the CTA that finishes that (m, column) (distributed
+//       shared memory; each CTA of the cluster finishes a share of the
+//       tile's outputs). After one cluster barrier each CTA adds its
+//       outputs' products in group order g = 0 .. G - 1, as the plain
+//       twin does.
+//     pc: the nibbles are requantized to int8 with the column's r16 of the
+//       group (computed per CTA into shared memory from cs = max_g gs),
+//       one int32 over the part, written the same way; the finishing CTA
+//       adds the parts' int32 sums and scales by cs * 8/127.
+//     What limits it (PERF.md, PR 13): 2.36-2.68 us of a call is the
+//     launch of its grid (a copy that returns at once), and the consumers'
+//     work is not hidden behind the stream: without it a product at M = 1
+//     takes 1.4-4.6 us less.
 //   tiles (M > 8): int8 tensor cores (mma.sync m16n8k32), BM x BN output
 //     tiles (64 x 64 with 8 warps, two CTAs an SM; 128 x 128 with 16 warps;
 //     the wrapper's w4a8_plan picks one from the shapes and the SM count). A
@@ -58,148 +92,35 @@
 //     What limits them (PERF.md, PR 10): shared-memory traffic (cp.async,
 //     the unpacked tile, ldmatrix) and instructions a step, not the tensor
 //     cores.
-// Not yet done: wgmma and TMA; split-K for the columns of a batch-1 product.
+// Not yet done: wgmma and TMA for the tiles.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int GV_WARPS = 8, GV_MAX_M = 8;
+constexpr int MAX_M_STREAM = 8;     // rows the stream takes (M <= 8)
+constexpr int SB_N = 32;            // columns a stream CTA
+constexpr int SB_WARPS = SB_N / 16; // its consumer warps, 16 columns each
+constexpr int SB_THREADS = 32 * (SB_WARPS + 1);   // and the producer warp
+constexpr int SB_K = 256;           // packed bytes of a row a stage
+constexpr int SB_LDW = SB_K + 64;   // a stage row's pitch in shared memory
+constexpr int SB_STAGES = 3;        // ring stages, at most
+constexpr int MAX_CLUSTER = 8;      // CTAs a cluster: the portable limit
+constexpr int SB_SMEM_MAX = 225 * 1024;   // dynamic shared memory a CTA
 constexpr int KW = 128;             // k values a step of the tiles takes
 constexpr int NST = 4;              // cp.async stages of the tiles
 constexpr int MAX_G = 160;          // groups a row, at most
 constexpr float S8_MUL = (float)(8.0 / 127.0);
 
-// the four low / high nibbles of w, sign-extended into four int8 lanes
-__device__ __forceinline__ int lo_nibbles(int w) {
-  return (int)__vsub4(((unsigned)w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-__device__ __forceinline__ int hi_nibbles(int w) {
-  return (int)__vsub4((((unsigned)w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
-                      0x08080808u);
-}
-
 __device__ __forceinline__ int pc_r16(float g, float cs) {
   return (int)rintf((256.f * (g / cs)) * 15.875f);
-}
-
-// four int8 lanes v -> (v * r + 128) >> 8 each, again as four int8 lanes
-__device__ __forceinline__ int requant4(int v, int r) {
-  int out = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = (int)((unsigned)v << (24 - 8 * i)) >> 24;
-    out |= (((e * r + 128) >> 8) & 0xFF) << (8 * i);
-  }
-  return out;
-}
-
-__device__ __forceinline__ int dp4a4(const int4& a, const int (&w)[4],
-                                     int acc) {
-  acc = __dp4a(a.x, w[0], acc);
-  acc = __dp4a(a.y, w[1], acc);
-  acc = __dp4a(a.z, w[2], acc);
-  return __dp4a(a.w, w[3], acc);
-}
-
-__device__ __forceinline__ float column_cs(const float* grow, int G,
-                                           int lane) {
-  float mx = 0.f;
-  for (int g = lane; g < G; g += 32) mx = fmaxf(mx, grow[g]);
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  return fmaxf(mx, 1e-12f);
-}
-
-// Dynamic shared memory (grouped only): GV_WARPS * M * G int32 group dots.
-template <bool PC>
-__global__ void __launch_bounds__(GV_WARPS * 32) w4a8_gemv_kernel(
-    const int8_t* __restrict__ x8, const int8_t* __restrict__ q4,
-    const float* __restrict__ gs, float* __restrict__ out, int M, int N,
-    int K, int G) {
-  extern __shared__ int sdot[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * GV_WARPS + warp;
-  if (n >= N) return;          // no block-wide barrier below
-  const int KH = K / 2, gsz = K / G, seg = gsz / 16, half = G / 2;
-  const int8_t* wrow = q4 + (size_t)n * KH;
-  const float* grow = gs + (size_t)n * G;
-  int* dots = sdot + warp * M * G;
-  const float cs = PC ? column_cs(grow, G, lane) : 0.f;
-  int acc[GV_MAX_M];
-#pragma unroll
-  for (int m = 0; m < GV_MAX_M; ++m) acc[m] = 0;
-
-  for (int base = 0; base < KH; base += 32 * 16) {
-    const int j = base + lane * 16;
-    const bool active = j < KH;
-    const int glo = active ? j / gsz : 0;
-    int lo[4] = {0, 0, 0, 0}, hi[4] = {0, 0, 0, 0};
-    if (active) {
-      const int4 wv = *reinterpret_cast<const int4*>(wrow + j);
-      const int ws[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        lo[i] = lo_nibbles(ws[i]);
-        hi[i] = hi_nibbles(ws[i]);
-      }
-      if (PC) {
-        const int rlo = pc_r16(grow[glo], cs), rhi = pc_r16(grow[glo + half],
-                                                            cs);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          lo[i] = requant4(lo[i], rlo);
-          hi[i] = requant4(hi[i], rhi);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < GV_MAX_M; ++m) {
-      if (m < M) {
-        int dlo = 0, dhi = 0;
-        if (active) {
-          const int8_t* xr = x8 + (size_t)m * K;
-          dlo = dp4a4(*reinterpret_cast<const int4*>(xr + j), lo, 0);
-          dhi = dp4a4(*reinterpret_cast<const int4*>(xr + KH + j), hi, 0);
-        }
-        if (PC) {
-          acc[m] += dlo + dhi;
-        } else {
-          for (int o = seg >> 1; o > 0; o >>= 1) {
-            dlo += __shfl_xor_sync(0xffffffffu, dlo, o);
-            dhi += __shfl_xor_sync(0xffffffffu, dhi, o);
-          }
-          if (active && lane % seg == 0) {
-            dots[m * G + glo] = dlo;
-            dots[m * G + glo + half] = dhi;
-          }
-        }
-      }
-    }
-  }
-
-  if (PC) {
-    const float s8 = cs * S8_MUL;
-#pragma unroll
-    for (int m = 0; m < GV_MAX_M; ++m) {
-      if (m < M) {
-        int a = acc[m];
-        for (int o = 16; o > 0; o >>= 1)
-          a += __shfl_xor_sync(0xffffffffu, a, o);
-        if (lane == 0) out[(size_t)m * N + n] = (float)a * s8;
-      }
-    }
-    return;
-  }
-  __syncwarp();
-  if (lane < M) {
-    float a = 0.f;
-    for (int g = 0; g < G; ++g) a = a + (float)dots[lane * G + g] * grow[g];
-    out[(size_t)lane * N + n] = a;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -622,9 +543,370 @@ int launch_tiles(const int8_t* x, const int8_t* w, const float* s, float* o,
   return (int)cudaGetLastError();
 }
 
-// tile 0: the weight stream (M <= 8); 1: 64 x 64 tiles; 2: 128 x 128.
-// n_split K parts of `part` packed bytes each (pc only; grouped: 1, K/2),
-// at whole groups and whole steps, covering K/2 once.
+// ---------------------------------------------------------------------------
+// M <= 8: the weight stream, one cluster of K parts a column tile
+// ---------------------------------------------------------------------------
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this CTA's shared memory, completing on mbarrier `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the consumer warps only (the producer warp is not waited for)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * SB_WARPS) : "memory");
+}
+
+// the four low / high nibbles q of w as 16 q, one a byte (signed int8:
+// the nibble in a byte's high half, zeros below)
+__device__ __forceinline__ int lo_x16(int w) {
+  return (int)(((unsigned)w << 4) & 0xF0F0F0F0u);
+}
+
+__device__ __forceinline__ int hi_x16(int w) {
+  return (int)((unsigned)w & 0xF0F0F0F0u);
+}
+
+// the nibbles q of w at bit `shift` (0 low, 4 high) requantized, (q * r +
+// 128) >> 8 as four int8 lanes: requant_u on the bytes' even and odd
+// nibbles taken straight from w (dd = requant_dd(r))
+__device__ __forceinline__ int rq8(int w, int shift, int r, unsigned dd) {
+  const unsigned e = ((((unsigned)w >> shift) & 0x000F000Fu) ^ 0x00080008u) *
+                         (unsigned)r + dd;
+  const unsigned o =
+      ((((unsigned)w >> (shift + 8)) & 0x000F000Fu) ^ 0x00080008u) *
+          (unsigned)r + dd;
+  return (int)(__byte_perm(e, o, 0x7351) ^ 0x80808080u);
+}
+
+// the split arrival and wait of the cluster's barrier (all threads)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// Dynamic shared memory of a stream CTA (byte offsets). part: the packed
+// bytes of the largest K part, gpp = part / gsz its groups in each half;
+// per: the (m, column) outputs a CTA of the cluster finishes.
+// ops/w4a8.py::stream_smem mirrors `total`.
+struct StreamLayout {
+  int stages, ldx, per, xs, tab, aux, total;
+};
+
+__host__ __device__ inline StreamLayout stream_layout(int M, int G, int part,
+                                                      int gpp, int n_split,
+                                                      bool pc) {
+  StreamLayout L;
+  const int need = (part + SB_K - 1) / SB_K;
+  L.stages = need < SB_STAGES ? need : SB_STAGES;
+  // x's rows: [low part | high part | 64], a pitch of 64 mod 128 bytes
+  L.ldx = 2 * part + 64;
+  L.per = (M * SB_N + n_split - 1) / n_split;
+  L.xs = L.stages * SB_N * SB_LDW;
+  // the sums this CTA finishes, written by every CTA of the cluster:
+  // grouped float(dot) * gs (G, per) f32; pc the parts' dots (n_split,
+  // per) int32
+  L.tab = L.xs + M * L.ldx;
+  L.aux = L.tab + 4 * L.per * (pc ? n_split : G);
+  // grouped: gs of the part's groups (2 gpp, SB_N) f32; pc: r16 of them
+  // (2 gpp, SB_N) int32, cs (SB_N) f32, then the tile's gs (SB_N, G) f32
+  L.total = L.aux + 4 * SB_N * (pc ? 2 * gpp + 1 + G : 2 * gpp);
+  return L;
+}
+
+// x8 (M, K) x unpack(q4 (N, K/2)).T for columns n0 = blockIdx.y * SB_N
+// .. + SB_N - 1 over the K part z = the CTA's rank in its cluster of
+// n_split = gridDim.x CTAs: packed bytes [z * part, z * part + part) (the
+// last part may be shorter), groups [z * gpp, ...) and the same + G/2.
+// The CTA of rank r finishes the tile's outputs e = m * SB_N + column in
+// [r * per, r * per + per): every CTA writes its sums for them into that
+// CTA's shared memory (distributed shared memory), then one cluster
+// barrier, then each finishes from its own.
+template <bool PC>
+__global__ void __launch_bounds__(SB_THREADS) w4a8_stream_kernel(
+    const int8_t* __restrict__ x8, const int8_t* __restrict__ q4,
+    const float* __restrict__ gs, float* __restrict__ out, int M, int N,
+    int K, int G, int part) {
+  extern __shared__ __align__(16) int8_t smem[];
+  __shared__ __align__(8) uint64_t full[SB_STAGES], empty[SB_STAGES], xbar;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_split = (int)cluster.num_blocks();
+  const int z = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int KH = K / 2, gsz = K / G, GH = G / 2, gsh = __ffs(gsz) - 1;
+  const int gpp = part >> gsh, g0 = z * gpp;
+  const int ng = min(gpp, GH - g0);      // this part's groups, each half
+  const int pz = ng << gsh, a0 = g0 << gsh;
+  const int n0 = blockIdx.y * SB_N, rows = min(SB_N, N - n0);
+  const int nst = (pz + SB_K - 1) / SB_K;
+  const StreamLayout L = stream_layout(M, G, part, gpp, n_split, PC);
+  const int per = L.per;
+  int8_t* ring = smem;
+  int8_t* xs = smem + L.xs;
+  float* tabf = reinterpret_cast<float*>(smem + L.tab);
+  int* tabi = reinterpret_cast<int*>(smem + L.tab);
+  float* gsp = reinterpret_cast<float*>(smem + L.aux);
+  int* r16s = reinterpret_cast<int*>(smem + L.aux);
+  float* cs_s = reinterpret_cast<float*>(smem + L.aux + 8 * gpp * SB_N);
+  float* gsf = cs_s + SB_N;
+
+  if (tid == 0) {
+    for (int s = 0; s < L.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], SB_WARPS);
+    }
+    mbar_init(&xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // this CTA has started: the others may write into its shared memory
+  // once they have waited for the barrier's phase
+  cluster_arrive();
+  __syncthreads();
+
+  if (warp == SB_WARPS) {
+    // producer: x's rows once, then the ring, a lane a column row
+    if (lane == 0) mbar_expect_tx(&xbar, 2 * M * pz);
+    __syncwarp();
+    if (lane < M) {
+      const int8_t* xr = x8 + (size_t)lane * K + a0;
+      bulk_load(xs + lane * L.ldx, xr, pz, &xbar);
+      bulk_load(xs + lane * L.ldx + part, xr + KH, pz, &xbar);
+    }
+    const int8_t* wr = q4 + (size_t)(n0 + lane) * KH + a0;
+    for (int st = 0, s = 0, ph = 0; st < nst; ++st) {
+      // stage s is free once the consumers have taken its last fill
+      if (st >= L.stages) mbar_wait(&empty[s], ph ^ 1);
+      const int nb = min(SB_K, pz - st * SB_K);
+      if (lane == 0) mbar_expect_tx(&full[s], nb * rows);
+      __syncwarp();
+      if (lane < rows)
+        bulk_load(ring + (s * SB_N + lane) * SB_LDW, wr + st * SB_K, nb,
+                  &full[s]);
+      if (++s == L.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    cluster_wait();
+  } else {
+    // consumers: warp cw takes columns cw * 16 .. + 15; lane (gq, tq)
+    // holds A rows gq, gq + 8 and x's row m = gq (B column gq)
+    const int gq = lane >> 2, tq = lane & 3, crow = warp * 16 + gq;
+    // while the copies land, the scales, all copies in flight at once:
+    // grouped those of the part's groups; pc the tile's rows, then cs and
+    // r16 from them
+    if (PC) {
+      for (int e = tid; e < rows * G; e += 32 * SB_WARPS)
+        cp_async4(gsf + e, gs + (size_t)n0 * G + e, 4);
+    } else {
+      for (int e = tid; e < 2 * ng * SB_N; e += 32 * SB_WARPS) {
+        const int r = e % SB_N, h = e / SB_N >= ng, gl = e / SB_N - h * ng;
+        float* at = gsp + (h * gpp + gl) * SB_N + r;
+        if (r < rows)
+          cp_async4(at, gs + (size_t)(n0 + r) * G + h * GH + g0 + gl, 4);
+        else
+          *at = 0.f;
+      }
+    }
+    cp_commit();
+    cp_wait<0>();
+    consumers_sync();
+    if (PC) {
+      // cs of column tid / 2, two lanes a column
+      const int c = tid >> 1;
+      float mx = 0.f;
+      if (c < rows)
+        for (int g = tid & 1; g < G; g += 2) mx = fmaxf(mx, gsf[c * G + g]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      if ((tid & 1) == 0) cs_s[c] = fmaxf(mx, 1e-12f);
+      consumers_sync();
+      for (int e = tid; e < 2 * ng * SB_N; e += 32 * SB_WARPS) {
+        const int r = e % SB_N, h = e / SB_N >= ng, gl = e / SB_N - h * ng;
+        r16s[(h * gpp + gl) * SB_N + r] =
+            r < rows ? pc_r16(gsf[r * G + h * GH + g0 + gl], cs_s[r]) : 0;
+      }
+      consumers_sync();
+    }
+    mbar_wait(&xbar, 0);
+    cluster_wait();     // every CTA of the cluster has started
+
+    const bool live = gq < M;
+    const int8_t* xrow = xs + gq * L.ldx + tq * 16;
+    const int8_t* wrow = ring + crow * SB_LDW + tq * 16;
+    // four independent int32 sums (low / high half, first / second mma of
+    // a chunk), so that consecutive mma do not wait for each other
+    int la[4] = {0, 0, 0, 0}, lb[4] = {0, 0, 0, 0};
+    int ha[4] = {0, 0, 0, 0}, hb[4] = {0, 0, 0, 0};
+    int rl0 = 0, rl8 = 0, rh0 = 0, rh8 = 0;   // pc: r16 of rows gq, gq + 8
+    unsigned dl0 = 0, dl8 = 0, dh0 = 0, dh8 = 0;
+    // accumulator e holds output (m, nl) = (2 tq + e % 2, crow + 8 (e / 2)):
+    // where its sums go, in the shared memory of the CTA that finishes it
+    float* dst[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * tq + (e & 1), nl = crow + 8 * (e >> 1);
+      const int o = m * SB_N + nl, r = o / per;
+      dst[e] = m < M && nl < rows
+                   ? cluster.map_shared_rank(tabf, r) + o - r * per
+                   : nullptr;
+    }
+
+    // the 64-byte chunk at byte c of a stage (ws), packed byte j of the part
+    auto chunk = [&](const int8_t* ws, int c, int j) {
+      const int gl = j >> gsh;
+      const int4 w0 = *reinterpret_cast<const int4*>(ws + c);
+      const int4 w8 = *reinterpret_cast<const int4*>(ws + 8 * SB_LDW + c);
+      int4 xl = make_int4(0, 0, 0, 0), xh = make_int4(0, 0, 0, 0);
+      if (live) {
+        xl = *reinterpret_cast<const int4*>(xrow + j);
+        xh = *reinterpret_cast<const int4*>(xrow + part + j);
+      }
+      if (PC) {
+        if ((j & (gsz - 1)) == 0) {
+          rl0 = r16s[gl * SB_N + crow];
+          rl8 = r16s[gl * SB_N + crow + 8];
+          rh0 = r16s[(gpp + gl) * SB_N + crow];
+          rh8 = r16s[(gpp + gl) * SB_N + crow + 8];
+          dl0 = requant_dd(rl0);
+          dl8 = requant_dd(rl8);
+          dh0 = requant_dd(rh0);
+          dh8 = requant_dd(rh8);
+        }
+        const int a0l[4] = {rq8(w0.x, 0, rl0, dl0), rq8(w8.x, 0, rl8, dl8),
+                            rq8(w0.y, 0, rl0, dl0), rq8(w8.y, 0, rl8, dl8)};
+        mma_s8(la, a0l, xl.x, xl.y);
+        const int a1l[4] = {rq8(w0.z, 0, rl0, dl0), rq8(w8.z, 0, rl8, dl8),
+                            rq8(w0.w, 0, rl0, dl0), rq8(w8.w, 0, rl8, dl8)};
+        mma_s8(lb, a1l, xl.z, xl.w);
+        const int a0h[4] = {rq8(w0.x, 4, rh0, dh0), rq8(w8.x, 4, rh8, dh8),
+                            rq8(w0.y, 4, rh0, dh0), rq8(w8.y, 4, rh8, dh8)};
+        mma_s8(ha, a0h, xh.x, xh.y);
+        const int a1h[4] = {rq8(w0.z, 4, rh0, dh0), rq8(w8.z, 4, rh8, dh8),
+                            rq8(w0.w, 4, rh0, dh0), rq8(w8.w, 4, rh8, dh8)};
+        mma_s8(hb, a1h, xh.z, xh.w);
+        return;
+      }
+      const int a0l[4] = {lo_x16(w0.x), lo_x16(w8.x), lo_x16(w0.y),
+                          lo_x16(w8.y)};
+      mma_s8(la, a0l, xl.x, xl.y);
+      const int a1l[4] = {lo_x16(w0.z), lo_x16(w8.z), lo_x16(w0.w),
+                          lo_x16(w8.w)};
+      mma_s8(lb, a1l, xl.z, xl.w);
+      const int a0h[4] = {hi_x16(w0.x), hi_x16(w8.x), hi_x16(w0.y),
+                          hi_x16(w8.y)};
+      mma_s8(ha, a0h, xh.x, xh.y);
+      const int a1h[4] = {hi_x16(w0.z), hi_x16(w8.z), hi_x16(w0.w),
+                          hi_x16(w8.w)};
+      mma_s8(hb, a1h, xh.z, xh.w);
+      if (((j + 64) & (gsz - 1)) == 0) {
+        // group gl (and GH + gl) ends: its exact dot is the sums / 16;
+        // float(dot) * gs into the finishing CTA's shared memory
+        const int at = (g0 + gl) * per, ah = at + GH * per;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (dst[e]) {
+            const int nl = crow + 8 * (e >> 1);
+            dst[e][at] = (float)((la[e] + lb[e]) >> 4) * gsp[gl * SB_N + nl];
+            dst[e][ah] =
+                (float)((ha[e] + hb[e]) >> 4) * gsp[(gpp + gl) * SB_N + nl];
+          }
+          la[e] = lb[e] = ha[e] = hb[e] = 0;
+        }
+      }
+    };
+
+    for (int st = 0, s = 0, ph = 0; st < nst; ++st) {
+      mbar_wait(&full[s], ph);
+      const int8_t* ws = wrow + s * SB_N * SB_LDW;
+      const int nb = min(SB_K, pz - st * SB_K);
+      if (nb == SB_K) {
+#pragma unroll
+        for (int c = 0; c < SB_K; c += 64) chunk(ws, c, st * SB_K + c);
+      } else {
+        for (int c = 0; c < nb; c += 64) chunk(ws, c, st * SB_K + c);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == L.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    if (PC) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (dst[e])
+          reinterpret_cast<int*>(dst[e])[z * per] =
+              la[e] + lb[e] + ha[e] + hb[e];
+    }
+  }
+
+  // every CTA's sums are in place: each finishes its outputs from its own
+  // shared memory
+  cluster.sync();
+  const int cnt = min(per, M * SB_N - z * per);
+  for (int i = tid; i < cnt; i += SB_THREADS) {
+    const int o = z * per + i, m = o / SB_N, nl = o % SB_N;
+    if (nl >= rows) continue;
+    float v;
+    if (PC) {
+      int sum = 0;
+      for (int r = 0; r < n_split; ++r) sum += tabi[r * per + i];
+      v = (float)sum * (cs_s[nl] * S8_MUL);
+    } else {
+      // g = 0 .. G - 1 in order, as the plain twin adds them
+      v = 0.f;
+      for (int g = 0; g < G; ++g) v = v + tabf[g * per + i];
+    }
+    out[(size_t)m * N + n0 + nl] = v;
+  }
+}
+
+template <bool PC>
+int launch_stream(const int8_t* x, const int8_t* w, const float* s, float* o,
+                  int M, int N, int K, int G, int n_split, int part,
+                  cudaStream_t st) {
+  const int tiles = (N + SB_N - 1) / SB_N;
+  const StreamLayout L =
+      stream_layout(M, G, part, part / (K / G), n_split, PC);
+  if (n_split > MAX_CLUSTER || tiles > 65535 || L.total > SB_SMEM_MAX ||
+      (uintptr_t)x % 16 || (uintptr_t)w % 16)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = w4a8_stream_kernel<PC>;
+  // per call: the attribute holds for the current device only
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, tiles);
+  cfg.blockDim = dim3(SB_THREADS);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, x, w, s, o, M, N, K, G, part);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// tile 0: the weight stream (M <= 8), a cluster of n_split CTAs along K;
+// 1: 64 x 64 tiles; 2: 128 x 128. n_split K parts of `part` packed bytes
+// each (the tiles: pc only, grouped 1, K/2), at whole groups, covering
+// K/2 once.
 template <bool PC>
 int launch(const void* x8, const void* q4, const void* gs, void* out, int M,
            int N, int K, int G, int tile, int n_split, int part,
@@ -634,23 +916,19 @@ int launch(const void* x8, const void* q4, const void* gs, void* out, int M,
   const int gsz = K / G, KH = K / 2;
   if (gsz % 64 || gsz > 512 || (gsz & (gsz - 1)))
     return (int)cudaErrorInvalidValue;
-  if ((M <= GV_MAX_M) != (tile == 0) || tile < 0 || tile > 2 || G > MAX_G ||
-      n_split < 1 || part < 1 || (long long)(n_split - 1) * part >= KH ||
-      (long long)n_split * part < KH || (!PC && n_split != 1) ||
-      (n_split > 1 && part % gsz))
+  if ((M <= MAX_M_STREAM) != (tile == 0) || tile < 0 || tile > 2 ||
+      G > MAX_G || n_split < 1 || part < 1 ||
+      (long long)(n_split - 1) * part >= KH ||
+      (long long)n_split * part < KH || (!PC && tile && n_split != 1) ||
+      ((n_split > 1 || !tile) && part % gsz))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* x = (const int8_t*)x8;
   const int8_t* w = (const int8_t*)q4;
   const float* s = (const float*)gs;
   float* o = (float*)out;
-  if (tile == 0) {
-    const size_t smem = PC ? 0 : (size_t)GV_WARPS * M * G * sizeof(int);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    w4a8_gemv_kernel<PC><<<(N + GV_WARPS - 1) / GV_WARPS, GV_WARPS * 32, smem,
-                           st>>>(x, w, s, o, M, N, K, G);
-    return (int)cudaGetLastError();
-  }
+  if (tile == 0)
+    return launch_stream<PC>(x, w, s, o, M, N, K, G, n_split, part, st);
   if (tile == 1)
     return launch_tiles<64, 64, PC>(x, w, s, o, M, N, K, G, n_split, part,
                                     st);

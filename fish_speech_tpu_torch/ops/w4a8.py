@@ -18,8 +18,9 @@ applies their scale after it; W4A8_KERNEL=pc selects the second kernel, as
 in the JAX package.
 
 Each wrapper launches its CUDA kernel (csrc/w4a8.cu) for CUDA tensors, at
-any M, with the tiles and K split of `w4a8_plan`, and runs its plain
-PyTorch version for CPU tensors.
+any M, with the tiles and K split of `w4a8_plan` (up to 8 rows a weight
+stream, one cluster of K parts a column tile), and runs its plain PyTorch
+version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -83,18 +84,77 @@ def w4a8_matmul_pc_plain(x8: torch.Tensor, q4: torch.Tensor,
     return int8_matmul_t(x8, w8).float() * s8
 
 
+# The weight stream (tile 0, M <= 8; csrc/w4a8.cu SB_*): output columns a
+# CTA, packed bytes a stage row, ring stages, the largest cluster (the
+# portable limit), the largest dynamic shared memory a CTA takes and the
+# shared memory of an SM (the card keeps 1 KB of it a CTA)
+STREAM_BN, STREAM_SK, STREAM_STAGES, MAX_CLUSTER = 32, 256, 3, 8
+STREAM_SMEM_MAX, SM_SMEM = 225 * 1024, 228 * 1024
+# CTAs an SM the stream's cluster size aims at
+STREAM_CTAS_PER_SM = 4
+
+
+def stream_smem(m: int, g: int, gsz: int, part: int, n_split: int,
+                pc: bool) -> int:
+    """Dynamic shared memory of a stream CTA at K parts of `part` packed
+    bytes (csrc/w4a8.cu `stream_layout`): the ring, x's rows, the sums of
+    the outputs the CTA finishes (grouped: f32 products a (group, output);
+    pc: an int32 a (part, output)) and the scales (grouped: gs of its
+    part's groups; pc: r16 of them, cs and the tile's gs)."""
+    gpp = part // gsz
+    stages = min(STREAM_STAGES, -(-part // STREAM_SK))
+    per = -(-m * STREAM_BN // n_split)
+    ring = stages * STREAM_BN * (STREAM_SK + 64)
+    xs = m * (2 * part + 64)
+    sums = 4 * per * (n_split if pc else g)
+    scales = 4 * STREAM_BN * (2 * gpp + 1 + g if pc else 2 * gpp)
+    return ring + xs + sums + scales
+
+
+def stream_plan(m: int, n: int, k: int, g: int, n_sm: int,
+                pc: bool) -> tuple[int, int]:
+    """(n_split, part) of the weight stream: a column tile's cluster of
+    n_split CTAs, each a K part of `part` packed bytes (whole groups; the
+    last part may hold fewer). The smallest cluster that gives every SM
+    STREAM_CTAS_PER_SM CTAs (N/32 tiles x n_split), at most 8 and one a
+    group; then smaller while the grid would not fit on the card at once
+    (a second wave of CTAs waits for the first), and larger while a CTA's
+    shared memory would not fit."""
+    units, gsz = g // 2, k // g
+    tiles = -(-n // STREAM_BN)
+
+    def split(c):
+        per = -(-units // c)
+        return -(-units // per), per * gsz
+
+    def smem(c):
+        n_split, part = split(c)
+        return stream_smem(m, g, gsz, part, n_split, pc)
+
+    top = min(MAX_CLUSTER, units)
+    c = 1
+    while c < top and tiles * split(c)[0] < STREAM_CTAS_PER_SM * n_sm:
+        c += 1
+    while c > 1 and tiles * split(c)[0] > n_sm * (SM_SMEM // (smem(c) + 1024)):
+        c -= 1
+    while c < top and smem(c) > STREAM_SMEM_MAX:
+        c += 1
+    return split(c)
+
+
 def w4a8_plan(m: int, n: int, k: int, g: int, n_sm: int,
               pc: bool) -> tuple[int, int, int]:
     """(tile, n_split, part) of the kernel at these shapes, from the shapes
-    and the SM count only. tile 0 is the weight stream (M <= 8); 1 and 2
-    the 64 x 64 and 128 x 128 int8 tensor-core tiles. The packed K (K/2
-    bytes) is cut into n_split parts of `part` bytes (the last may be
-    shorter), each of whole groups: only the per-channel product (pc)
-    splits, its int32 sum being exact in any order; the grouped one adds
-    its groups in order and takes smaller tiles instead."""
+    and the SM count only. tile 0 is the weight stream (M <= 8, a cluster
+    of n_split CTAs along K, `stream_plan`); 1 and 2 the 64 x 64 and
+    128 x 128 int8 tensor-core tiles. The packed K (K/2 bytes) is cut into
+    n_split parts of `part` bytes (the last may be shorter), each of whole
+    groups. Of the tiles only the per-channel product (pc) splits, its
+    int32 sum being exact in any order; the grouped one adds its groups in
+    order and takes smaller tiles instead."""
     kh = k // 2
     if m <= 8:
-        return 0, 1, kh
+        return (0, *stream_plan(m, n, k, g, n_sm, pc))
 
     def ctas(tile):
         bm, bn = TILES[tile]

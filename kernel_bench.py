@@ -3,7 +3,7 @@
 checks, at S2-Pro width and the rows or batches given.
 
     python3 kernel_bench.py w4a8 [--rows 1,9,40,256] [--tree DIR]
-    python3 kernel_bench.py w4a8 --phases [--rows 9,256]
+    python3 kernel_bench.py w4a8 --phases [--rows 1,8,9,256]
     python3 kernel_bench.py sweep [--batches 256,1] [--tree DIR]
     python3 kernel_bench.py voc [--frames 16,128] [--tree DIR]
     python3 kernel_bench.py voc --phases [--frames 16,128]
@@ -20,8 +20,16 @@ times each device kernel of #4 and #3 bf16 (`voc_phases`): variants of
 csrc/voc_fused.cu without the passes' epilogue or the snake, beside an
 unchanged copy, and block 0 at each tile.
 
-w4a8 --phases asks what paces the tiled (M > 8) product instead. It
-builds copies of csrc/w4a8.cu with one phase of the tile loop taken out
+w4a8 --phases asks what paces the products instead. Rows up to 8 (the
+weight stream): copies of csrc/w4a8.cu that return at once (`empty`: the
+launch alone), without the chunks' work (`no_mma`: the consumers only
+wait for and free each stage) or without the finishing adds
+(`no_finish`), timed beside an unchanged copy, and a
+`strace` copy that records %globaltimer in each CTA (its start, after its
+setup, after its chunks, after the cluster barrier, its end): one line
+per (product, rows, kernel) with each copy's ms, the kernel's span, the
+spread of the CTAs' starts and each phase's median and largest us. Rows
+above 8 (the tiles): copies with one phase of the tile loop taken out
 (`no_mma`: the mma.sync products, replaced by an xor of their fragments
 so that the ldmatrix loads stay; `no_unpack`: the int4 unpack into the
 shared int8 tile; `no_load`: the loop's cp.async copies) and times each
@@ -137,10 +145,62 @@ extern "C" int w4a8_trace_get(void* dst, int clear) {
 """
 
 
+# text edits of csrc/w4a8.cu's weight stream (M <= 8), each asserted to
+# apply once: empty returns at once (the launch alone, on the same grid),
+# no_mma skips every chunk (the consumers still wait for each stage and
+# free it), no_finish skips the finishing adds; strace records
+# %globaltimer (ns) in each CTA's thread 0 at its start (0), after its
+# setup, x's arrival and the cluster's start (1), after its chunks (2),
+# after the cluster barrier (3) and at its end (4)
+_S_REC = ("  if (threadIdx.x == 0 && blockIdx.y * gridDim.x + blockIdx.x < "
+          "8192) {{\n    unsigned long long t_;\n"
+          "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_));\n"
+          "    w4a8_strace[blockIdx.y * gridDim.x + blockIdx.x][{}] = t_;\n"
+          "  }}\n")
+_S_START = "  cluster_arrive();\n  __syncthreads();\n"
+_S_SETUP = "    cluster_wait();     // every CTA of the cluster has started\n"
+_S_LOOP = ("    if (PC) {\n#pragma unroll\n      for (int e = 0; e < 4; ++e)\n"
+           "        if (dst[e])\n")
+_S_SYNC = "  cluster.sync();\n  const int cnt"
+_S_END = "    out[(size_t)m * N + n0 + nl] = v;\n  }\n}\n"
+STREAM_VARIANTS = {
+    "base": [],
+    "empty": [("  cg::cluster_group cluster = cg::this_cluster();\n",
+               "  if (M > 0) return;\n"
+               "  cg::cluster_group cluster = cg::this_cluster();\n")],
+    "no_mma": [("      const int nb = min(SB_K, pz - st * SB_K);\n      if (nb == "
+                "SB_K) {\n", "      const int nb = 0;\n      if (nb == SB_K) {\n")],
+    "no_finish": [("  for (int i = tid; i < cnt; i += SB_THREADS) {\n",
+                   "  for (int i = tid; i < 0; i += SB_THREADS) {\n")],
+    "strace": [
+        ("namespace {\n",
+         "__device__ unsigned long long w4a8_strace[8192][5];\nnamespace {\n"),
+        (_S_START, _S_REC.format(0) + _S_START),
+        (_S_SETUP, _S_SETUP + _S_REC.format(1)),
+        (_S_LOOP, _S_REC.format(2) + _S_LOOP),
+        (_S_SYNC, _S_SYNC.replace("  const int cnt", _S_REC.format(3)
+                                  + "  const int cnt")),
+        (_S_END, _S_END[:-2] + _S_REC.format(4) + "}\n")],
+}
+_STRACE_C = """
+extern "C" int w4a8_strace_get(void* dst, int clear) {
+  void* at;
+  cudaError_t e = cudaGetSymbolAddress(&at, w4a8_strace);
+  if (e == cudaSuccess && dst)
+    e = cudaMemcpy(dst, at, sizeof(w4a8_strace), cudaMemcpyDeviceToHost);
+  if (e == cudaSuccess && clear) e = cudaMemset(at, 0, sizeof(w4a8_strace));
+  return (int)e;
+}
+"""
+
+
 def phase_libs(source: str = "w4a8", variants: dict | None = None,
-               fns=("w4a8_matmul", "w4a8_matmul_pc")) -> dict:
+               fns=("w4a8_matmul", "w4a8_matmul_pc"),
+               appended: dict | None = None) -> dict:
     """The variants of csrc/<source>.cu, built in parallel into the
-    package's build directory: {name: ctypes library}."""
+    package's build directory: {name: ctypes library}. `appended`: C text
+    added to a variant's source, by name (default: the tile trace's
+    getter to "trace")."""
     import ctypes
     import subprocess
 
@@ -156,11 +216,11 @@ def phase_libs(source: str = "w4a8", variants: dict | None = None,
         for a, b in edits:
             assert text.count(a) == 1, f"{name}: the source has changed"
             text = text.replace(a, b)
-        if name == "trace":
-            text += _TRACE_C
+        text += ({"trace": _TRACE_C} if appended is None
+                 else appended).get(name, "")
         (out / f"{source}_{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o",
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
              str(out / f"{source}_{name}.so"),
              str(out / f"{source}_{name}.cu")])
     libs = {}
@@ -358,6 +418,80 @@ def phases(cs, cfg, dev, gen, rows) -> None:
         torch.cuda.empty_cache()
 
 
+def stream_phases(cs, cfg, dev, gen, rows) -> None:
+    """Prints one JSON line per (product, rows, kernel) of the weight
+    stream (M <= 8): each variant's device time (ms, STREAM_VARIANTS, on
+    weights cycled over more than twice the L2), and from the strace copy
+    of one call: the kernel's span (first CTA start to last CTA end), the
+    spread of the CTAs' starts, and the median and largest time (us) of
+    each CTA's phases: setup (scales, x, the cluster's start), chunks,
+    the wait at the cluster barrier, finish. The variants' outputs are
+    wrong by design."""
+    import ctypes
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.ops import _cuda
+    from fish_speech_tpu_torch.ops import w4a8 as tw
+    from fish_speech_tpu_torch.ops.quant import quantize_weight_int4_packed
+
+    libs = phase_libs("w4a8", STREAM_VARIANTS,
+                      appended={"strace": _STRACE_C})
+    d, inter = cfg.dim, cfg.intermediate_size
+    products = (("wqkv", (cfg.n_head + 2 * cfg.n_local_heads) * cfg.head_dim,
+                 d), ("wo", d, cfg.n_head * cfg.head_dim), ("w1", inter, d),
+                ("w2", d, inter))
+    buf = np.zeros((8192, 5), np.uint64)
+    st = torch.cuda.current_stream().cuda_stream
+    for name, n, k in products:
+        qw = quantize_weight_int4_packed(
+            torch.randn((n, k), generator=gen, device=dev) * 0.02,
+            cs.GROUPSIZE)
+        weights = cs.rotation((qw["q4"], qw["gs"]))
+        g = k // cs.GROUPSIZE
+        for m in (m for m in rows if m <= 8):
+            x8 = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                               dtype=torch.int8)
+            out = torch.empty((m, n), device=dev)
+            for fn in ("w4a8_matmul", "w4a8_matmul_pc"):
+                plan = tw.w4a8_plan(m, n, k, g, _cuda.sm_count(dev.index),
+                                    fn == "w4a8_matmul_pc")
+                row = {"product": name, "m": m, "kernel": fn,
+                       "plan": list(plan), "ms": {}}
+
+                def call(f, q4, gs):
+                    err = f(x8.data_ptr(), q4.data_ptr(), gs.data_ptr(),
+                            out.data_ptr(), m, n, k, g, *plan, st)
+                    assert err == 0, f"cudaError {err}"
+
+                for var, lib in libs.items():
+                    it = cs.cycle(weights)
+                    row["ms"][var] = cs.time_ms(
+                        lambda: call(getattr(lib, fn), *next(it)),
+                        2 * len(weights))
+                lib = libs["strace"]
+                q4, gs = weights[-1]
+                call(getattr(lib, fn), q4, gs)     # warm
+                torch.cuda.synchronize()
+                assert lib.w4a8_strace_get(None, 1) == 0
+                call(getattr(lib, fn), *weights[0])
+                torch.cuda.synchronize()
+                assert lib.w4a8_strace_get(
+                    ctypes.c_void_p(buf.ctypes.data), 0) == 0
+                ctas = plan[1] * -(-n // tw.STREAM_BN)
+                t = buf[:ctas].astype(np.int64)
+                t0 = t[:, 0].min()
+                row["span_us"] = float(t[:, 4].max() - t0) / 1e3
+                row["start_spread_us"] = float(t[:, 0].max() - t0) / 1e3
+                for ph, a, b in (("setup", 0, 1), ("chunks", 1, 2),
+                                 ("cluster_wait", 2, 3), ("finish", 3, 4)):
+                    v = (t[:, b] - t[:, a]) / 1e3
+                    row[ph + "_us"] = [float(np.median(v)), float(v.max())]
+                print(json.dumps(row), flush=True)
+        del weights
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("kernel", choices=("w4a8", "sweep", "voc"))
@@ -394,7 +528,10 @@ def main() -> int:
     if args.phases and args.kernel == "voc":
         voc_phases(cs, dev, gen, args.frames)
     elif args.phases:
-        phases(cs, cfg, dev, gen, args.rows)
+        if any(m <= 8 for m in args.rows):
+            stream_phases(cs, cfg, dev, gen, args.rows)
+        if any(m > 8 for m in args.rows):
+            phases(cs, cfg, dev, gen, args.rows)
     elif args.kernel == "w4a8":
         groups = cs.check_w4a8(chk, cfg, dev, gen, rows=args.rows,
                                plans=False)

@@ -396,32 +396,60 @@ def _w4a8_case(dev, m, n, k, gsz, kernel):
                         kernel == "pc")
 
 
-# M = 1 and 3 take the kernels' one-warp-per-column product; 9 (the first
-# tiled M), 40, 100 (a partial row tile) and 256 (a prefill) their int8
-# tensor-core tiles
+# M = 1, 2, 3 and 8 take the kernels' weight stream (a cluster of K parts
+# a 32-column tile); 9 (the first tiled M), 40, 100 (a partial row tile)
+# and 256 (a prefill) their int8 tensor-core tiles
 @pytest.mark.parametrize("kernel", ["grouped", "pc"])
 @pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
-@pytest.mark.parametrize("m", [1, 3, 9, 40, 100, 256])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 9, 40, 100, 256])
 def test_w4a8(dev, m, product, kernel):
     n, k = S2_PRO_PRODUCTS[product]
     tile, n_split, _ = _w4a8_case(dev, m, n, k, 128, kernel)
     assert (tile == 0) == (m <= 8)
-    if kernel == "grouped":
+    if kernel == "grouped" and tile:
         assert n_split == 1
 
 
 # N = 200 and 136: a partial column tile; K = 384 at group size 64: a
 # packed K (192 bytes) that is not a whole number of the grouped tiles'
-# 128-byte steps; group size 256: split parts of whole groups. The
-# per-channel product splits K in every case here (few column tiles)
+# 128-byte steps, nor of the stream's 256-byte stages; group size 256:
+# split parts of whole groups; K = 20480 at group size 128: 160 groups,
+# the most the kernels take, in the stream's largest cluster. The tiles'
+# per-channel product splits K in every case here (few column tiles), and
+# so does every stream
 @pytest.mark.parametrize("kernel", ["grouped", "pc"])
 @pytest.mark.parametrize("n,k,gsz", [(200, 512, 128), (200, 384, 64),
-                                     (136, 2048, 256)])
-@pytest.mark.parametrize("m", [9, 100])
+                                     (136, 2048, 256), (136, 20480, 128)])
+@pytest.mark.parametrize("m", [1, 8, 9, 100])
 def test_w4a8_tails(dev, m, n, k, gsz, kernel):
     tile, n_split, _ = _w4a8_case(dev, m, n, k, gsz, kernel)
-    assert tile in (1, 2)
-    assert n_split == 1 if kernel == "grouped" else n_split > 1
+    assert (tile == 0) == (m <= 8)
+    if tile:
+        assert n_split == 1 if kernel == "grouped" else n_split > 1
+    else:
+        assert 1 < n_split <= tw.MAX_CLUSTER
+
+
+# One M = 1 product of each kernel (the stream, one device kernel a call)
+# captured in a CUDA graph and replayed equals the eager call bit for bit
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+def test_w4a8_graph(dev, kernel):
+    g = _gen(dev, 12)
+    n, k = S2_PRO_PRODUCTS["w2"]
+    qw = quantize_weight_int4_packed(
+        torch.randn((n, k), generator=g, device=dev) * 0.02, 128)
+    x8 = torch.randint(-127, 128, (1, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    fn = tw.w4a8_matmul if kernel == "grouped" else tw.w4a8_matmul_pc
+    eager = fn(x8, qw["q4"], qw["gs"])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x8, qw["q4"], qw["gs"])
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # The tiles' dynamic shared-memory limit holds per card: set on card 0 by

@@ -126,14 +126,15 @@ S2_PRO_PRODUCTS = {"wqkv": (6144, 2560), "wo": (2560, 4096),
 
 
 @pytest.mark.parametrize("n_sm", [108, 132])
-@pytest.mark.parametrize("m", [1, 9, 40, 256])
+@pytest.mark.parametrize("m", [1, 8, 9, 40, 256])
 @pytest.mark.parametrize("product", list(S2_PRO_PRODUCTS))
 def test_plan(product, m, n_sm):
     """The kernel's plan (what the wrapper passes to csrc/w4a8.cu) at the
-    S2-Pro products: the weight stream up to 8 rows, else a tile; #12's K
-    parts are whole groups and cover the packed K once; #11 never splits K
-    (its groups add in order); no split takes more CTAs than the SMs
-    hold."""
+    S2-Pro products: the weight stream up to 8 rows, else a tile; K parts
+    are whole groups and cover the packed K once. The stream: a cluster
+    of at most 8 parts a 32-column tile, a grid that gives every SM a CTA
+    and fits on the card at once. The tiles: #11 never splits K (its
+    groups add in order); no split takes more CTAs than the SMs hold."""
     n, k = S2_PRO_PRODUCTS[product]
     gsz, kh = 128, k // 2
     for pc in (False, True):
@@ -141,22 +142,68 @@ def test_plan(product, m, n_sm):
         assert (tile == 0) == (m <= 8)
         assert part % gsz == 0 or (n_split == 1 and part == kh)
         assert (n_split - 1) * part < kh <= n_split * part
+        if tile == 0:
+            assert part % gsz == 0 and 1 <= n_split <= tw.MAX_CLUSTER
+            ctas = -(-n // tw.STREAM_BN) * n_split
+            smem = tw.stream_smem(m, k // gsz, gsz, part, n_split, pc)
+            assert ctas >= n_sm
+            assert ctas <= n_sm * (tw.SM_SMEM // (smem + 1024))
+            assert smem <= tw.STREAM_SMEM_MAX
+            continue
         if not pc:
             assert (n_split, part) == (1, kh)
-        if tile:
-            bm, bn = tw.TILES[tile]
-            rows, cols = -(-m // bm), -(-n // bn)
-            assert rows * bm >= m > (rows - 1) * bm
-            assert cols * bn >= n > (cols - 1) * bn
-            ctas, per_sm = rows * cols, 2 if tile == 1 else 1
-            assert n_split == 1 or ctas * n_split <= per_sm * n_sm
+        bm, bn = tw.TILES[tile]
+        rows, cols = -(-m // bm), -(-n // bn)
+        assert rows * bm >= m > (rows - 1) * bm
+        assert cols * bn >= n > (cols - 1) * bn
+        ctas, per_sm = rows * cols, 2 if tile == 1 else 1
+        assert n_split == 1 or ctas * n_split <= per_sm * n_sm
+
+
+# (n, k, gsz, m): the kernels' envelope, the most groups (160) and the
+# largest groups (512), at the stream's widest rows
+@pytest.mark.parametrize("shape", [(200, 20480, 128, 8), (136, 81920, 512, 8),
+                                   (40, 384, 64, 1)])
+@pytest.mark.parametrize("pc", [False, True])
+def test_stream_plan_fits(shape, pc):
+    n, k, gsz, m = shape
+    g = k // gsz
+    tile, n_split, part = tw.w4a8_plan(m, n, k, g, 132, pc)
+    assert tile == 0 and 1 <= n_split <= tw.MAX_CLUSTER
+    assert part % gsz == 0 and (n_split - 1) * part < k // 2 <= n_split * part
+    assert tw.stream_smem(m, g, gsz, part, n_split, pc) <= tw.STREAM_SMEM_MAX
+
+
+def _grouped_split(x8, q4, gs, plan):
+    """#11 as the stream kernel computes it under a cluster's K split: per
+    K part (packed bytes [z * part, z * part + part)), the exact int32 dot
+    of each of its groups, low (k = j) and high (k = K/2 + j); then the
+    finishing CTA's f32 sum of float(dot) * gs[n, g] in group order g = 0
+    .. G - 1, reading the parts' dots."""
+    _, n_split, part = plan
+    k, (n, kh), g = x8.shape[1], q4.shape, gs.shape[1]
+    gsz = k // g
+    unp = tq.unpack_int4(q4)
+    dots = {}
+    for z in range(n_split):
+        for j in range(z * part, min(z * part + part, kh), gsz):
+            for half in (0, 1):
+                cols = slice(half * kh + j, half * kh + j + gsz)
+                dots[half * (g // 2) + j // gsz] = tq.int8_matmul_t(
+                    x8[:, cols].contiguous(), unp[:, cols].contiguous())
+    # the parts cover every group once
+    assert sorted(dots) == list(range(g))
+    acc = torch.zeros((x8.shape[0], n), dtype=torch.float32)
+    for gi in range(g):
+        acc = acc + dots[gi].float() * gs[:, gi]
+    return acc
 
 
 def _pc_split(x8, q4, gs, plan):
-    """#12 as the tiled kernel computes it under a K split: per K part, per
-    step of 64 packed bytes, one exact int32 product of both nibble halves
-    (x columns j.. and K/2 + j..), the parts' int32 sums added, then
-    float(sum) * cs * 8/127."""
+    """#12 as the tiled kernel and the stream compute it under a K split:
+    per K part, per step of 64 packed bytes, one exact int32 product of
+    both nibble halves (x columns j.. and K/2 + j..), the parts' int32 sums
+    added, then float(sum) * cs * 8/127."""
     _, n_split, part = plan
     w8, s8 = tw.pc_weights(q4, gs)
     kh = q4.shape[1]
@@ -187,6 +234,35 @@ def test_pc_split_matches_pallas(n_sm):
                                                     q4, gs))
     ref = np.asarray(jw4a8_pc(jnp.asarray(x8), qj["q4"], qj["gs"], gsz=gsz,
                               n_tile=128, interpret=True))
+    # as test_plain_matches_pallas
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+# S2-Pro's group counts (K 2560 and 9728 in groups of 128) on 256 columns:
+# the stream's cluster splits K into 5 and 8 parts
+@pytest.mark.parametrize("kernel", ["grouped", "pc"])
+@pytest.mark.parametrize("k", [2560, 9728])
+@pytest.mark.parametrize("m", [1, 8])
+def test_stream_split_matches_pallas(kernel, k, m):
+    n, gsz = 256, 128
+    w, x8, gsz = _w4a8_inputs(m, n, k, gsz, seed=11)
+    plan = tw.w4a8_plan(m, n, k, k // gsz, 132, kernel == "pc")
+    assert plan[0] == 0 and plan[1] > 1       # a cluster's split
+    qj = jq.quantize_weight_int4_packed(jnp.asarray(w), gsz)
+    q4, gs = (torch.from_numpy(np.array(qj["q4"])),
+              torch.from_numpy(np.array(qj["gs"])))
+    x8t = torch.from_numpy(x8)
+    model, plain, jfn = ((_grouped_split, tw.w4a8_matmul_plain, jw4a8)
+                         if kernel == "grouped" else
+                         (_pc_split, tw.w4a8_matmul_pc_plain, jw4a8_pc))
+    got = model(x8t, q4, gs, plan)
+    # exact int32 dots; the same f32 steps in the same order: bit-equal
+    assert torch.equal(got, plain(x8t, q4, gs))
+    # JAX takes rows in multiples of 32: x8 padded, its first m rows
+    x8p = np.concatenate([x8, np.zeros((32 - m, k), np.int8)])
+    ref = np.asarray(jfn(jnp.asarray(x8p), qj["q4"], qj["gs"], gsz=gsz,
+                         n_tile=128, interpret=True))[:m]
     # as test_plain_matches_pallas
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
