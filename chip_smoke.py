@@ -31,10 +31,12 @@ Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
 Phase 3 also checks the position-major bf16 attention entry and the int8
-vocoder entries against their plain versions.
+vocoder entries against their plain versions, and measures the int8
+vocoder's waveform against the bf16 one's (not a check).
 
-Output: one JSON line per request, then the `{"kernels": [...]}` line, the
-card's name and power limit, and last the `{"ok": true, ...}` line.
+Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
+then the `{"kernels": [...]}` line, the card's name and power limit, and
+last the `{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
@@ -723,14 +725,16 @@ def _clone_cache(c, n_layer=None):
                                                           c.vs)))
 
 
-def device_kernels(fn, tries: int = 3) -> tuple[list[str], int]:
+def device_kernels(fn, tries: int = 3,
+                   times: list | None = None) -> tuple[list[str], int]:
     """Names of the device kernels (and copies) one call of fn runs, from
     torch.profiler, and the calls made. A profiler session now and then
     records no device event at all (seen once in four on the H100, and
     three sessions in a row once): an empty record is taken again, after a
     pause, up to `tries` sessions in all, each with one call of fn. The
     names are the last session's, so those of one call; they are empty if
-    no session kept a record."""
+    no session kept a record. `times`, where given, receives each of them
+    with its device time in us, in launch order."""
     from torch.profiler import ProfilerActivity, profile
 
     for calls in range(1, tries + 1):
@@ -741,11 +745,13 @@ def device_kernels(fn, tries: int = 3) -> tuple[list[str], int]:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
             break
-    return names, calls
+    if times is not None:
+        times[:] = [(e.name[:40], e.device_time_total) for e in events]
+    return [e.name for e in events], calls
 
 
 def sweep_capture_equal(packed, x, base, freqs, pos: int, kw: dict) -> bool:
@@ -936,11 +942,11 @@ def unit_flops(t: int, c: int, n_units: int) -> int:
 
 
 def pass_plan(plan_name: str, dev, *args) -> dict:
-    """A bf16 vocoder kernel's plan for this call (logged with its case):
-    `voc_block_plan` or `voc_res_plan` of ops/voc_fused.py at `args` and
-    the card's SM count; each pass's tile and CTAs, and the device kernels
-    a call runs; {} for a package without that plan (kernel_bench
-    --tree)."""
+    """A vocoder kernel's plan for this call (logged with its case):
+    `voc_block_plan`, `voc_res_plan` or `voc_i8_plan` of ops/voc_fused.py
+    at `args` and the card's SM count; each pass's tile and CTAs, and the
+    device kernels a call runs; {} for a package without that plan
+    (kernel_bench --tree)."""
     from fish_speech_tpu_torch.ops import _cuda, voc_fused
 
     plan_fn = getattr(voc_fused, plan_name, None)
@@ -1060,6 +1066,23 @@ def i8_unit_ops(rows: int, n_tiles: int, c: int, dilations, v: int = 0
     return ops
 
 
+def i8_launches(chk: Checks, kernel, name: str, label: str, fn,
+                n_calls: int) -> dict:
+    """The device kernels one call of an int8 vocoder wrapper runs
+    (profiler) and their device times, for a case's record; fails the
+    case unless each of fn's n_calls calls counted one launch."""
+    before = kernel.launches
+    times = []
+    names, calls = device_kernels(fn, times=times)
+    per_call = (kernel.launches - before) / (n_calls * calls)
+    if per_call != 1:
+        chk.failed.append(f"{name} [{label}]: one call made {per_call} "
+                          f"launches")
+    return {"device_kernels_per_call": len(names) / n_calls,
+            "device_kernels": sorted({n[:40] for n in names}),
+            "device_kernels_us": times}
+
+
 def check_vocoder_i8(chk: Checks, engine, frames: int, dev,
                      gen) -> tuple[list[dict], list[dict]]:
     """#4 and #3 on the int8 pack (VOC_QUANT) of the engine's decoder
@@ -1068,12 +1091,14 @@ def check_vocoder_i8(chk: Checks, engine, frames: int, dev,
     activations to the same codes and sum them exactly, and the f32 steps
     round alike (-fmad=false): bit-equal is expected; the tolerance is one
     int8 step, 2^-7 of the largest output (2^-7 absolute for the
-    waveform)."""
+    waveform). Each case logs the kernel's plan and the device kernels one
+    call runs, with their times (profiler); a call must count one
+    launch."""
     from fish_speech_tpu_torch.codec.fastpath import (
         RES_STACK_TILE_CAP, _tile_cap, _tile_for, pack_decoder)
     from fish_speech_tpu_torch.ops.voc_fused import (
-        DILATIONS, fused_block, fused_block_plain, fused_res_stack,
-        fused_res_stack_plain, halo_for)
+        BLOCK_I8, DILATIONS, RES_STACK_I8, fused_block, fused_block_plain,
+        fused_res_stack, fused_res_stack_plain, halo_for)
 
     ccfg = engine.codec_cfg
     packed = pack_decoder(engine.codec_params["decoder"], ccfg,
@@ -1094,11 +1119,19 @@ def check_vocoder_i8(chk: Checks, engine, frames: int, dev,
               for d in DILATIONS)
     b_ms, b_by = bound(3 * nbytes(x, got) + nbytes(*(pb["res"][k] for k in (
         "w7", "w1", "vec"))), {"int8": ops})
+    label = f"block 0 F={frames} T={t} C={c} tt={tt}"
+    plans = [pass_plan("voc_i8_plan", dev, 1, t, c, (d,), tt, None, False)
+             for d in DILATIONS]
+    plan = {"plan": sum((q["plan"] for q in plans), []),
+            "plan_device_kernels": plans[0]["plan_device_kernels"]} \
+        if plans[0] else {}
     res_cases.append(chk.case(
-        "voc_res_stack_i8", f"block 0 F={frames} T={t} C={c} tt={tt}",
-        max_err(got, ref), 2 ** -7 * ref.float().abs().max().item(), ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bit_equal=bool(torch.equal(got, ref))))
+        "voc_res_stack_i8", label, max_err(got, ref),
+        2 ** -7 * ref.float().abs().max().item(), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, bit_equal=bool(torch.equal(got, ref)),
+        block=0, frames=frames, **plan, **i8_launches(
+            chk, RES_STACK_I8, "voc_res_stack_i8", label,
+            lambda: res_stack_block0(x, pb, fused_res_stack, tt), 3)))
     x = ref
     for bi in range(1, len(blocks)):
         pb, stride = blocks[bi], ccfg.decoder_rates[bi]
@@ -1124,13 +1157,48 @@ def check_vocoder_i8(chk: Checks, engine, frames: int, dev,
                                       "vec")]
         b_ms, b_by = bound(nbytes(x, got, *wts), ops)
         scale = 1.0 if final else ref.float().abs().max().item()
+        label = (f"block {bi} F={frames} T={t} C={c_in}->{c} tt={tt}"
+                 f"{' final' if final else ''}")
         block_cases.append(chk.case(
-            "voc_block_i8", f"block {bi} F={frames} T={t} C={c_in}->{c} "
-            f"tt={tt}{' final' if final else ''}", max_err(got, ref),
-            2 ** -7 * scale, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, bit_equal=bool(torch.equal(got, ref))))
+            "voc_block_i8", label, max_err(got, ref), 2 ** -7 * scale, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bit_equal=bool(torch.equal(got, ref)), block=bi, frames=frames,
+            **pass_plan("voc_i8_plan", dev, 1, t, c, DILATIONS, tt,
+                        (c_in, stride), final),
+            **i8_launches(chk, BLOCK_I8, "voc_block_i8", label,
+                          lambda: fused_block(x, pb["res"], **kw), 1)))
         x = ref
     return res_cases, block_cases
+
+
+def voc_quant_vs_bf16(engine, frames: int, dev, gen) -> dict:
+    """The int8 vocoder (VOC_QUANT) against the bf16 one on the engine's
+    decoder weights and `frames` random codes, both through the fused
+    decoder (`dac_from_indices_fused`): the relative max error (over the
+    bf16 waveform's largest value) and the correlation of the two
+    waveforms. JAX holds its int8 decoder to under 0.05 and above 0.995
+    against its bf16 conv path (tests/test_torch_voc_quant.py); this is a
+    measurement of the int8 function, not a check of the kernels."""
+    from fish_speech_tpu_torch.codec.fastpath import (dac_from_indices_fused,
+                                                      pack_decoder)
+
+    ccfg = engine.codec_cfg
+    codes = torch.randint(0, ccfg.rvq.codebook_size,
+                          (1, ccfg.rvq.n_codebooks + 1, frames),
+                          generator=gen, device=dev)
+    i8 = pack_decoder(engine.codec_params["decoder"], ccfg,
+                      dtype=torch.bfloat16, quant=True)
+    ref = dac_from_indices_fused(engine.codec_params, ccfg, codes,
+                                 packed=engine.packed_decoder,
+                                 device=dev).float()
+    got = dac_from_indices_fused(engine.codec_params, ccfg, codes,
+                                 packed=i8, device=dev).float()
+    scale = max(ref.abs().max().item(), 1e-9)
+    return {"frames": frames, "samples": ref.numel(),
+            "rel_max_err": (got - ref).abs().max().item() / scale,
+            "corr": torch.corrcoef(torch.stack(
+                [got.flatten(), ref.flatten()]))[0, 1].item(),
+            "bf16_max_abs": scale, "jax_criteria": "rel < 0.05, corr > 0.995"}
 
 
 # ---------------------------------------------------------------------------
@@ -1309,6 +1377,10 @@ def main() -> int:
                              dev, gen)
     res, blk = check_vocoder(chk, engine, FRAMES, dev, gen)
     res_i8, blk_i8 = check_vocoder_i8(chk, engine, FRAMES, dev, gen)
+    accuracy = voc_quant_vs_bf16(engine, FRAMES, dev, gen)
+    log(f"  int8 vocoder vs bf16 (S2-Pro, F={FRAMES}): rel max err "
+        f"{accuracy['rel_max_err']:.4g}, corr {accuracy['corr']:.6f}")
+    print(json.dumps({"voc_quant_vs_bf16": accuracy}), flush=True)
     torch.cuda.empty_cache()
 
     shared = ("fast_sweep", "voc_block", "voc_res_stack")

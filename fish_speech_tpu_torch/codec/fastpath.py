@@ -167,9 +167,10 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
     units (ops/voc_fused.pack_res_stack), the transposed conv as phase
     matrices (stacked for the fused block), and the next snake as the
     block's tail; the final conv as an (8, C) f32 block (7 taps + a bias
-    row) for the last block's kernel. bf16 packs also keep the weights the
-    kernels' passes read, transposed: a fused block's as "wt", the units'
-    of a block run one unit a call as "w7t" and "w1t" (not int8 packs).
+    row) for the last block's kernel. Packs also keep the weights the
+    kernels' passes read, transposed (K-major, in the pack's dtype): a
+    fused block's as "wt", the units' of a block run one unit a call as
+    "w7t" and "w1t".
 
     quant=True (None: the VOC_QUANT environment variable, "1") packs the
     fused kernels' convolutions as int8: the units per pack_res_stack, and
@@ -194,9 +195,8 @@ def pack_decoder(params: dict, cfg: DACConfig, dtype=torch.bfloat16,
                 pb = torch.stack([pb, div_exact(ps, 127.0)])
             res["tconv_pw"] = pw.contiguous()
             res["tconv_pb"] = pb.contiguous()
-            if not quant:
-                res["wt"] = block_weights_t(res)
-        elif not quant:
+            res["wt"] = block_weights_t(res)
+        else:
             res["w7t"], res["w1t"] = res_weights_t(res)
         nxt = (blocks[i + 1]["snake_alpha"] if i + 1 < len(blocks)
                else params["snake_alpha"])

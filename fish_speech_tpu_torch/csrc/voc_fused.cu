@@ -30,15 +30,12 @@
 #include <stdint.h>
 
 #include "mbarrier.cuh"
+#include "voc_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
 constexpr int NTHR = 256, NWARP = NTHR / 32;
 constexpr int SMEM_LIMIT = 227 * 1024;
-
-__device__ __forceinline__ float b2f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf16 f2b(float x) { return __float2bfloat16(x); }
 
 // -------------------------------------------------------------------- block
 //
@@ -108,49 +105,6 @@ struct Pass {
   int C, R, H, T, stride;
 };
 
-// x + sin^2(alpha x) / (alpha + eps) with alpha_pi = alpha / pi, through
-// the TPU kernel's polynomial. trunc(y), which the plain twin (snake_poly)
-// takes by an int conversion, is round-to-nearest by the 1.5 * 2^23 shift
-// (exact for |y| < 2^22) stepped toward zero, on the FP32 pipe: the same
-// value, bit for bit; (int) conversion above
-__device__ __forceinline__ float snake8_one(float x, float alpha_pi,
-                                            float inv) {
-  const float y = alpha_pi * x;
-  float r = (y + 12582912.f) - 12582912.f;
-  r = y >= 0.f ? (r > y ? r - 1.f : r) : (r < y ? r + 1.f : r);
-  if (fabsf(y) >= 4194304.f) r = (float)(int)y;
-  const float t = y - r;
-  const float v = t * t;
-  float s2 = 0.45029592f;
-  s2 = -3.38355759f + v * s2;
-  s2 = 12.78106835f + v * s2;
-  s2 = -29.93828299f + v * s2;
-  s2 = 42.68612315f + v * s2;
-  s2 = -32.46507037f + v * s2;
-  s2 = 9.86943246f + v * s2;
-  s2 = v * s2;
-  return x + s2 * inv;
-}
-
-// 8 values: bf16 rounding (two an instruction), packing, unpacking
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-  return u;
-}
-
-__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[2 * j] = __low2float(h[j]);
-    v[2 * j + 1] = __high2float(h[j]);
-  }
-}
-
 // the tile's per-column constants in shared memory: bias, then the snake's
 // alpha/pi and 1/(alpha+eps) (TCONV: unit 0's, by channel n % C; K7: the
 // second snake's; RES: the next unit's or the tail's)
@@ -168,13 +122,6 @@ __device__ __forceinline__ void load_prm(const Pass& p, int n0, int bn,
     t.sa[j] = sa ? sa[c] : 0.f;
     t.si[j] = sa ? si[c] : 0.f;
   }
-}
-
-__device__ __forceinline__ void prm8(const float* a, int j, float (&v)[8]) {
-  const float4 lo = *reinterpret_cast<const float4*>(a + j);
-  const float4 hi = *reinterpret_cast<const float4*>(a + j + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
 }
 
 // where the epilogue of output row r, columns [n, n + 8), batch row b
@@ -265,16 +212,6 @@ __device__ __forceinline__ void tile_epilogue(const Pass& p, const TilePrm& t,
   }
 }
 
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
-                                          int c0, int c1, int c2,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 // a K-major tile of BK-wide bf16 rows (2 * BK bytes) in the swizzle of
 // that width (8-row atoms of 16 * BK bytes): start address, LBO 1
 // (unused), SBO 16 * BK bytes, layout B128 (BK = 64) or B64 (BK = 32)
@@ -282,17 +219,6 @@ template <int BK>
 __device__ __forceinline__ uint64_t wg_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)BK << 32) | ((BK == 64 ? 1ull : 2ull) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
@@ -392,14 +318,6 @@ __device__ __forceinline__ void wgmma_bn(float (&d)[BN / 2], uint64_t da,
   else if constexpr (BN == 64) wgmma_n64(d, da, db);
   else if constexpr (BN == 96) wgmma_n96(d, da, db);
   else wgmma_n128(d, da, db);
-}
-
-// the most stages (up to st) of `stage` bytes with which two CTAs still fit
-// on an SM
-constexpr int wg_stages(int stage, int st) {
-  return st > 2 && 2 * (st * stage + 1024 + 2048) > 227 * 1024
-             ? wg_stages(stage, st - 1)
-             : st;
 }
 
 template <int BM, int BN, int BK>
@@ -525,44 +443,14 @@ __global__ void __launch_bounds__(NTHR) final_conv_kernel(
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 g_encode = nullptr;
-
-// a 3-D bf16 tensor map (inner, rows, outer), box (bk, box_rows, 1),
-// the swizzle of 2 * bk bytes (bk 64 or 32), zeros outside
-cudaError_t make_map(CUtensorMap* m, const void* base, int inner, int rows,
-                     int outer, int box_rows, int bk) {
-  if (!g_encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &q);
-    if (e != cudaSuccess) return e;
-    if (q != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
-    g_encode = (PFN_cuTensorMapEncodeTiled_v12000)fn;
-  }
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)rows * inner * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)bk, (cuuint32_t)box_rows, 1};
-  const cuuint32_t es[3] = {1, 1, 1};
-  const CUresult r = g_encode(
-      m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // K in steps of 64 (128-byte swizzle) where 64 divides it, else of 32
 // (64-byte swizzle)
 template <int BM, int BN, int BK>
 cudaError_t launch_wg_k(const Pass& p, int B, cudaStream_t st) {
   using S = WgShape<BM, BN, BK>;
   CUtensorMap ta, tb;
-  cudaError_t e = make_map(&ta, p.a, p.K, p.a_rows, B, BM, BK);
-  if (e == cudaSuccess) e = make_map(&tb, p.wt, p.K, p.N, p.n_taps, BN, BK);
+  cudaError_t e = make_map(&ta, p.a, 2, p.K, p.a_rows, B, BM, BK);
+  if (e == cudaSuccess) e = make_map(&tb, p.wt, 2, p.K, p.N, p.n_taps, BN, BK);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(wg_pass_kernel<BM, BN, BK>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -77,12 +77,15 @@ SIGNATURES = {
     # C stride d0 d1 d2 final | stream
     "voc_block": ("voc_fused", [_P] * 12 + [ctypes.POINTER(_I)] + [_I] * 9
                   + [_P]),
-    # the int8 packs: x y w7t w1t vec tail st s2 amax | B T C d tt halo
-    # has_tail | stream
-    "voc_res_stack_i8": ("voc_fused_i8", [_P] * 9 + [_I] * 7 + [_P]),
-    # x y pwt pb w7t w1t vec tail fw st s2 amax | B T_in C_in C stride d0
-    # d1 d2 tt halo final | stream
-    "voc_block_i8": ("voc_fused_i8", [_P] * 12 + [_I] * 11 + [_P]),
+    # the int8 packs: x y w7t w1t vec tail st q s2 amax | tiles (2 ints:
+    # k7, 1x1; ops/voc_fused.py::voc_i8_plan) | B T C d tt halo has_tail |
+    # stream
+    "voc_res_stack_i8": ("voc_fused_i8", [_P] * 10 + [ctypes.POINTER(_I)]
+                         + [_I] * 7 + [_P]),
+    # x y pwt pb w7t w1t vec tail fw st q s2 amax | tiles (7 ints) | B T_in
+    # C_in C stride d0 d1 d2 tt halo final | stream
+    "voc_block_i8": ("voc_fused_i8", [_P] * 13 + [ctypes.POINTER(_I)]
+                     + [_I] * 11 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -213,8 +213,8 @@ def fused_res_stack(x: torch.Tensor, packed: dict, dilations=DILATIONS,
     """The residual units of `packed` over x (B, T, C). The CUDA kernels
     take one unit per call (the 768-channel decoder block's use): a bf16
     pack runs as whole-sequence passes (`voc_res_plan`) in scratch
-    allocated here; an int8 pack needs the tile `tt` (see
-    fused_res_stack_plain)."""
+    allocated here; an int8 pack as int8 passes over the per-tile state
+    (`voc_i8_plan`), in the tiles `tt` (see fused_res_stack_plain)."""
     if not x.is_cuda:
         return fused_res_stack_plain(x, packed, dilations, tail_vec, tt)
     b, t, c = x.shape
@@ -240,21 +240,31 @@ def fused_res_stack(x: torch.Tensor, packed: dict, dilations=DILATIONS,
                   sn.data_ptr(), s2.data_ptr(), *plan["tiles"], b, t, c,
                   dilations[0], int(tail_vec is not None))
         return y
-    _check_tile(t, tt)
-    halo = halo_for(dilations)
-    n = b * (t // tt)
-    # per-tile state and second-snake scratch, the tiles' scales (zeroed:
-    # the kernels take their maxima with atomics), weights as (out, in)
-    st = torch.empty((n, halo + tt, c), dtype=torch.bfloat16, device=dev)
-    s2 = torch.empty((n, halo + tt, c), dtype=torch.float32, device=dev)
-    amax = torch.zeros((2, n), dtype=torch.float32, device=dev)
-    w7t = packed["w7"][0].transpose(1, 2).contiguous()
-    w1t = packed["w1"][0].t().contiguous()
+    plan = voc_i8_plan(b, t, c, dilations, tt,
+                       n_sm=_cuda.sm_count(dev.index))
+    w7t, w1t = res_weights_t(packed)
+    _cuda.check(w7t, "w7t", torch.int8, (1, 7, c, c), dev)
+    _cuda.check(w1t, "w1t", torch.int8, (1, c, c), dev)
+    st, q, s2, amax = _i8_scratch(plan, c, dev, 2)
+    tiles = (ctypes.c_int * 2)(*plan["tiles"])
     RES_STACK_I8(x.data_ptr(), y.data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
                  packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
-                 st.data_ptr(), s2.data_ptr(), amax.data_ptr(), b, t, c,
-                 dilations[0], tt, halo, int(tail_vec is not None))
+                 st.data_ptr(), q.data_ptr(), s2.data_ptr(), amax.data_ptr(),
+                 tiles, b, t, c, dilations[0], tt, plan["halo"],
+                 int(tail_vec is not None))
     return y
+
+
+def _i8_scratch(plan: dict, c: int, dev, n_max: int) -> tuple:
+    """The int8 kernels' scratch for `plan` (voc_i8_plan): the per-tile
+    state (bf16), the codes (int8, q_bytes), the second snake (f32) and
+    n_max tile maxima a tile (f32, zeroed by the C entry: the passes take
+    their maxima with atomics)."""
+    shape = (plan["n"], plan["rows"], c)
+    return (torch.empty(shape, dtype=torch.bfloat16, device=dev),
+            torch.empty(plan["q_bytes"], dtype=torch.int8, device=dev),
+            torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty((n_max, plan["n"]), dtype=torch.float32, device=dev))
 
 
 def _block_i8_plain(x: torch.Tensor, packed: dict, stride: int, dilations,
@@ -330,24 +340,31 @@ GEMM_K = 32
 SMEM_LIMIT = 227 * 1024
 
 
-def tile_smem(bm: int, bn: int, k: int) -> int:
-    """Dynamic shared memory (bytes) of one pass CTA over K = k: 1024 bytes
-    of alignment, then the ring of A (bm x BK) and W^T (bn x BK) stages,
-    as many (up to 8) as let two CTAs share an SM, whose bytes then hold
-    the f32 output tile (rows of bn + 8)."""
-    bk = 64 if k % 64 == 0 else 32
-    stage = (bm + bn) * bk * 2
+def _ring_smem(bm: int, bn: int, step_bytes: int) -> int:
+    """Dynamic shared memory (bytes) of one pass CTA: 1024 bytes of
+    alignment, then the ring of A (bm rows) and W^T (bn rows) stages of
+    step_bytes a row, as many (up to 8) as let two CTAs share an SM, whose
+    bytes then hold the 4-byte output tile (rows of bn + 8); the C
+    launchers' rule (csrc/voc_common.cuh, wg_stages)."""
+    stage = (bm + bn) * step_bytes
     stages = 8
     while stages > 2 and 2 * (stages * stage + 1024 + 2048) > SMEM_LIMIT:
         stages -= 1
     return 1024 + max(stages * stage, bm * (bn + 8) * 4)
 
 
+def tile_smem(bm: int, bn: int, k: int) -> int:
+    """The bf16 passes' `_ring_smem` over K = k: steps of 64 elements
+    where 64 divides k, else of 32."""
+    return _ring_smem(bm, bn, 2 * (64 if k % 64 == 0 else 32))
+
+
 def res_weights_t(packed: dict) -> tuple:
     """The residual units' weights as the K-major (taps, N, K) tiles the
-    bf16 passes load: w7 (U, 7, C, C) and w1 (U, C, C), each [.., out, in].
-    `pack_decoder` keeps them in block 0's pack ("w7t", "w1t"); a pack
-    without them is transposed here, per call."""
+    passes load (bf16 or int8, the pack's dtype): w7 (U, 7, C, C) and w1
+    (U, C, C), each [.., out, in]. `pack_decoder` keeps them in block 0's
+    pack ("w7t", "w1t"); a pack without them is transposed here, per
+    call."""
     if "w7t" in packed:
         return packed["w7t"], packed["w1t"]
     return (packed["w7"].transpose(2, 3).contiguous(),
@@ -355,10 +372,11 @@ def res_weights_t(packed: dict) -> tuple:
 
 
 def block_weights_t(packed: dict) -> tuple:
-    """The bf16 block kernel's weights as the K-major (taps, N, K) tiles its
-    passes load: the tconv phases (2, stride*C, C_in), then w7 and w1 as
-    `res_weights_t` gives them. `pack_decoder` keeps them in the pack
-    ("wt"); a pack without them is transposed here, per call."""
+    """The block kernels' weights as the K-major (taps, N, K) tiles their
+    passes load (bf16 or int8, the pack's dtype): the tconv phases (2,
+    stride*C, C_in), then w7 and w1 as `res_weights_t` gives them.
+    `pack_decoder` keeps them in the pack ("wt"); a pack without them is
+    transposed here, per call."""
     if "wt" in packed:
         return packed["wt"]
     return (packed["tconv_pw"].transpose(1, 2).contiguous(),
@@ -366,27 +384,29 @@ def block_weights_t(packed: dict) -> tuple:
 
 
 def _plan_pass(b: int, name: str, m_lo: int, m_hi: int, n: int, taps: int,
-               k: int, n_sm: int) -> dict:
+               k: int, n_sm: int, shapes=TILE_SHAPES, smem=tile_smem) -> dict:
     """One GEMM pass of output rows [m_lo, m_hi) and n columns over `taps`
-    taps of K = k, with its tile: the largest (BM x BN, then BM) whose grid
-    has at least n_sm CTAs, else the one with the most CTAs (then the
-    smaller BM). Raises if no tile's BN divides n."""
+    taps of K = k, b times (the grid's third axis), with its tile from
+    `shapes` (its index is the tile id): the largest (BM x BN, then BM)
+    whose grid has at least n_sm CTAs, else the one with the most CTAs
+    (then the smaller BM); `smem(bm, bn, k)` its CTA's dynamic shared
+    memory. Raises if no tile's BN divides n."""
     def ctas(i):
-        bm, bn = TILE_SHAPES[i]
+        bm, bn = shapes[i]
         return -(-(m_hi - m_lo) // bm) * (n // bn) * b
 
-    fit = sorted((i for i, (_, bn) in enumerate(TILE_SHAPES) if n % bn == 0),
-                 key=lambda i: (TILE_SHAPES[i][0] * TILE_SHAPES[i][1],
-                                TILE_SHAPES[i][0]), reverse=True)
+    fit = sorted((i for i, (_, bn) in enumerate(shapes) if n % bn == 0),
+                 key=lambda i: (shapes[i][0] * shapes[i][1], shapes[i][0]),
+                 reverse=True)
     if not fit:
         raise ValueError(f"no tile of the pass kernel divides {n} columns")
     full = [i for i in fit if ctas(i) >= n_sm]
-    tile = full[0] if full else max(
-        fit, key=lambda i: (ctas(i), -TILE_SHAPES[i][0]))
-    bm, bn = TILE_SHAPES[tile]
+    tile = full[0] if full else max(fit, key=lambda i: (ctas(i),
+                                                        -shapes[i][0]))
+    bm, bn = shapes[tile]
     return {"name": name, "m_lo": m_lo, "m_hi": m_hi, "n": n, "taps": taps,
             "k": k, "bm": bm, "bn": bn, "tile": tile, "ctas": ctas(tile),
-            "smem": tile_smem(bm, bn, k)}
+            "smem": smem(bm, bn, k)}
 
 
 def voc_block_plan(b: int, t_in: int, c_in: int, c: int, stride: int,
@@ -434,13 +454,75 @@ def voc_res_plan(b: int, t: int, c: int, d: int, n_sm: int = 132) -> dict:
             "device_kernels": 1 + len(passes)}
 
 
+# The int8 kernels' GEMM passes (csrc/voc_fused_i8.cu, i8_pass_kernel):
+# tiles (BM, BN) by the C entries' tile id; K (a multiple of GEMM_K bytes)
+# in steps of 128 bytes where 128 divides it, else of 64 or 32
+I8_TILES = ((64, 32), (128, 96), (128, 128))
+
+
+def i8_k_step(k: int) -> int:
+    """The int8 passes' K step (bytes) for K = k: 128, 64 or 32."""
+    return 128 if k % 128 == 0 else 64 if k % 64 == 0 else 32
+
+
+def i8_tile_smem(bm: int, bn: int, k: int) -> int:
+    """The int8 passes' `_ring_smem` over K = k (steps of i8_k_step(k)
+    bytes; the int32 output tile)."""
+    return _ring_smem(bm, bn, i8_k_step(k))
+
+
+def voc_i8_plan(b: int, t: int, c: int, dilations, tt: int,
+                tconv: tuple | None = None, final: bool = False,
+                n_sm: int = 132) -> dict:
+    """The int8 kernels' passes over b batch rows of t output rows and c
+    channels in the TPU kernel's tiles of tt rows, on a card of n_sm SMs:
+    a block (`tconv` = (c_in, stride): voc_block_i8, `final` with the final
+    conv) or a residual stack (voc_res_stack_i8, one unit). Gives the
+    tiles' `halo`, `rows` (halo + tt) and count `n`, the bytes of the codes'
+    scratch `q_bytes` (a tile's state or, larger at block 3, its slab), and
+    per pass (the transposed conv over the slab's rows [0, rows/stride);
+    per unit a k7 and a 1x1 pass over rows [v + 6d, rows)) its tile as
+    `_plan_pass` picks one from I8_TILES, with its K step `bk`. `tiles`:
+    the tile ids the C entry takes; `device_kernels`: what one call runs (a
+    memset; the slab max, its quantize and the tconv pass, or the gather;
+    per unit two quantize kernels and two passes; out or the final conv; a
+    pack without "wt" / "w7t" adds three / two transposes). Raises unless
+    the channels are multiples of GEMM_K and the tiles divide t."""
+    if c % GEMM_K or (tconv and tconv[0] % GEMM_K):
+        raise ValueError(f"the int8 vocoder kernels take channels a "
+                         f"multiple of {GEMM_K}")
+    _check_tile(t, tt)
+    halo = halo_for(dilations, 6 if final else 0)
+    rows, n = halo + tt, b * (t // tt)
+    spans, q_rows = [], rows * c
+    if tconv:
+        c_in, stride = tconv
+        if tt % stride or halo % stride:
+            raise ValueError(f"stride {stride} must divide tt={tt} and the "
+                             f"halo {halo}")
+        spans.append(("tconv", 0, rows // stride, stride * c, 2, c_in))
+        q_rows = max(q_rows, (rows // stride + 1) * c_in)
+    v = 0
+    for d in dilations:
+        v += 6 * d
+        spans += [(f"k7 d{d}", v, rows, c, 7, c), (f"1x1 d{d}", v, rows, c,
+                                                   1, c)]
+    passes = [{**q, "bk": i8_k_step(q["k"])} for q in (
+        _plan_pass(n, *span, n_sm, I8_TILES, i8_tile_smem) for span in spans)]
+    return {"halo": halo, "rows": rows, "n": n, "q_bytes": n * q_rows,
+            "passes": passes, "tiles": [q["tile"] for q in passes],
+            "device_kernels": 1 + (3 if tconv else 1) + 4 * len(dilations)
+            + 1}
+
+
 def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
                 dilations=DILATIONS, tail_vec: torch.Tensor | None = None,
                 final_w: torch.Tensor | None = None,
                 tt: int | None = None) -> torch.Tensor:
     """One decoder block; see fused_block_plain for shapes. The bf16 kernel
     runs whole-sequence passes (`voc_block_plan`) in scratch allocated
-    here; an int8 pack needs the TPU kernel's `tt`."""
+    here; an int8 pack int8 passes over the per-tile state (`voc_i8_plan`)
+    in the TPU kernel's tiles `tt`."""
     if not x.is_cuda:
         return fused_block_plain(x, packed, stride=stride,
                                  dilations=dilations, tail_vec=tail_vec,
@@ -486,22 +568,19 @@ def fused_block(x: torch.Tensor, packed: dict, *, stride: int,
               s2.data_ptr(), tiles, b, t_in, c_in, c, stride, *dilations,
               int(final_w is not None))
         return y
-    _check_tile(t, tt)
-    halo = halo_for(dilations, 6 if final_w is not None else 0)
-    if tt % stride:
-        raise ValueError(f"stride {stride} must divide tt={tt}")
-    n = b * (t // tt)
-    st = torch.empty((n, halo + tt, c), dtype=torch.bfloat16, device=dev)
-    s2 = torch.empty((n, halo + tt, c), dtype=torch.float32, device=dev)
-    amax = torch.zeros((1 + 2 * len(dilations), n), dtype=torch.float32,
-                       device=dev)
-    pwt = pw.transpose(1, 2).contiguous()
-    w7t = packed["w7"].transpose(2, 3).contiguous()
-    w1t = packed["w1"].transpose(1, 2).contiguous()
+    plan = voc_i8_plan(b, t, c, dilations, tt, (c_in, stride),
+                       final_w is not None, _cuda.sm_count(dev.index))
+    pwt, w7t, w1t = block_weights_t(packed)
+    for name, w, shape in (("tconv_pwt", pwt, (2, stride * c, c_in)),
+                           ("w7t", w7t, (3, 7, c, c)),
+                           ("w1t", w1t, (3, c, c))):
+        _cuda.check(w, name, torch.int8, shape, dev)
+    st, q, s2, amax = _i8_scratch(plan, c, dev, 1 + 2 * len(dilations))
+    tiles = (ctypes.c_int * len(plan["tiles"]))(*plan["tiles"])
     BLOCK_I8(x.data_ptr(), y.data_ptr(), pwt.data_ptr(),
              packed["tconv_pb"].data_ptr(), w7t.data_ptr(), w1t.data_ptr(),
              packed["vec"].data_ptr(), _cuda.ptr(tail_vec),
-             _cuda.ptr(final_w), st.data_ptr(), s2.data_ptr(),
-             amax.data_ptr(), b, t_in, c_in, c, stride, *dilations, tt, halo,
-             int(final_w is not None))
+             _cuda.ptr(final_w), st.data_ptr(), q.data_ptr(), s2.data_ptr(),
+             amax.data_ptr(), tiles, b, t_in, c_in, c, stride, *dilations,
+             tt, plan["halo"], int(final_w is not None))
     return y

@@ -6,7 +6,8 @@ checks, at S2-Pro width and the rows or batches given.
     python3 kernel_bench.py w4a8 --phases [--rows 1,8,9,256]
     python3 kernel_bench.py sweep [--batches 256,1] [--tree DIR]
     python3 kernel_bench.py voc [--frames 16,128] [--tree DIR]
-    python3 kernel_bench.py voc --phases [--frames 16,128]
+    python3 kernel_bench.py voc --quant [--frames 16,128] [--tree DIR]
+    python3 kernel_bench.py voc [--quant] --phases [--frames 16,128]
 
 w4a8: #11 `w4a8_matmul` and #12 `w4a8_matmul_pc` at the slow stack's five
 products (`chip_smoke.check_w4a8`). sweep: #2 `fused_fast_sweep` on seeded
@@ -15,10 +16,16 @@ bf16 (block 0, its conv biases drawn at random) and #3 bf16 (blocks 1-3)
 on a seeded random S2-Pro decoder at each number of codec frames
 (`chip_smoke.check_vocoder`): per block ms, plain ms, bound ms, the
 kernel's plan and the device kernels a call, then one line with block 0's
-three calls together and one with blocks 1-3 together. voc --phases
+three calls together and one with blocks 1-3 together. voc --quant
+does the same for #4 int8 and #3 int8 on the decoder's int8 pack
+(`chip_smoke.check_vocoder_i8`), each case with its device kernels' times
+in launch order (`device_kernels_us`: the per-pass split). voc --phases
 times each device kernel of #4 and #3 bf16 (`voc_phases`): variants of
 csrc/voc_fused.cu without the passes' epilogue or the snake, beside an
-unchanged copy, and block 0 at each tile.
+unchanged copy, and block 0 at each tile; voc --quant --phases each
+device kernel of #4 and #3 int8 (`voc_i8_phases`): variants of
+csrc/voc_fused_i8.cu without the passes' epilogue, without their wgmma,
+and with the k7 passes over one tap.
 
 w4a8 --phases asks what paces the products instead. Rows up to 8 (the
 weight stream): copies of csrc/w4a8.cu that return at once (`empty`: the
@@ -208,6 +215,10 @@ def phase_libs(source: str = "w4a8", variants: dict | None = None,
 
     variants = VARIANTS if variants is None else variants
     src = (_cuda.CSRC / f"{source}.cu").read_text()
+    # the shared vocoder helpers inline, so that edits may reach them
+    common = '#include "voc_common.cuh"\n'
+    if common in src:
+        src = src.replace(common, (_cuda.CSRC / "voc_common.cuh").read_text())
     out = _cuda.BUILD_ROOT / "phases"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -350,6 +361,115 @@ def voc_phases(cs, dev, gen, frames_list) -> None:
                     assert err == 0, f"cudaError {err}"
                 report(frames, bi, name, call,
                        [q["name"] for q in plan["passes"]])
+            t_in = t
+
+
+# text edits of csrc/voc_fused_i8.cu's pass kernel, each asserted to apply
+# once: no epilogue (the sums are staged, nothing is rescaled or written),
+# no wgmma (the ring is filled and drained, nothing multiplied), the k7
+# passes over one tap instead of seven
+VOC_I8_VARIANTS = {
+    "base": [],
+    "no_epilogue": [("    if (r0 + row >= p.m_hi) continue;\n",
+                     "    if (r0 + row >= p.m_hi || p.m_lo >= 0) continue;\n")],
+    "no_mma": [("      if (kk * 32 < bk) wgmma_s8<BN>(",
+                "      if (kk * 32 < bk && p.m_lo < 0) wgmma_s8<BN>(")],
+    "one_tap": [("  p.n_taps = 7;\n", "  p.n_taps = 1;\n")],
+}
+
+
+def voc_i8_phases(cs, dev, gen, frames_list) -> None:
+    """Prints one JSON line per (frames, block, variant) of the int8
+    vocoder kernels on the seeded S2-Pro decoder's int8 pack and random
+    inputs of the block's shape: the call's device time (ms) and each
+    device kernel's (us, in launch order), from variants of
+    csrc/voc_fused_i8.cu (VOC_I8_VARIANTS). Block 0 (#4 int8): its first
+    unit's call (d = 1); blocks 1-3 (#3 int8). The variants' outputs are
+    wrong by design."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.codec.fastpath import (
+        RES_STACK_TILE_CAP, _tile_cap, _tile_for, pack_decoder)
+    from fish_speech_tpu_torch.ops import _cuda
+    from fish_speech_tpu_torch.ops import voc_fused as tv
+
+    libs = phase_libs("voc_fused_i8", VOC_I8_VARIANTS,
+                      ("voc_block_i8", "voc_res_stack_i8"))
+    eng = decoder(dev, gen)
+    ccfg = eng.codec_cfg
+    packed = pack_decoder(eng.codec_params["decoder"], ccfg,
+                          dtype=torch.bfloat16, quant=True)
+    st = torch.cuda.current_stream().cuda_stream
+    n_sm = _cuda.sm_count(dev.index)
+
+    def report(frames, bi, name, call, plan):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        print(json.dumps({
+            "frames": frames, "block": bi, "variant": name,
+            "ms": cs.time_ms(call, 5, 1),
+            "kernels_us": [(e.name[:24], e.device_time_total)
+                           for e in prof.events() if e.device_type
+                           == torch.autograd.DeviceType.CUDA],
+            "passes": [f"{q['name']}: {q['bm']}x{q['bn']}"
+                       for q in plan["passes"]]}), flush=True)
+
+    for frames in frames_list:
+        t_in = frames * ccfg.frame_length // math.prod(ccfg.decoder_rates[1:])
+        pb = packed["blocks"][0]
+        res = {k: v[:1] for k, v in pb["res"].items()}
+        w7t, w1t = tv.res_weights_t(res)
+        c = w1t.shape[-1]
+        tt = _tile_for(t_in, RES_STACK_TILE_CAP)
+        x = torch.randn((1, t_in, c), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        y = torch.empty_like(x)
+        plan = tv.voc_i8_plan(1, t_in, c, (1,), tt, n_sm=n_sm)
+        scratch = tv._i8_scratch(plan, c, dev, 2)
+        tiles = (ctypes.c_int * 2)(*plan["tiles"])
+        for name, lib in libs.items():
+            def call():
+                err = lib.voc_res_stack_i8(
+                    x.data_ptr(), y.data_ptr(), w7t.data_ptr(),
+                    w1t.data_ptr(), res["vec"].data_ptr(), None,
+                    *(t.data_ptr() for t in scratch), tiles, 1, t_in, c, 1,
+                    tt, plan["halo"], 0, st)
+                assert err == 0, f"cudaError {err}"
+            report(frames, 0, name, call, plan)
+        for bi in range(1, len(packed["blocks"])):
+            pb, stride = packed["blocks"][bi], ccfg.decoder_rates[bi]
+            res = pb["res"]
+            pwt, w7t, w1t = tv.block_weights_t(res)
+            c, c_in = w1t.shape[-1], pwt.shape[-1]
+            t = t_in * stride
+            tt = _tile_for(t, _tile_cap(c))
+            final = bi == len(packed["blocks"]) - 1 and tt % 128 == 0
+            fw = packed["final_fw"] if final else None
+            x = torch.randn((1, t_in, c_in), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            y = torch.empty((1, t) if final else (1, t, c),
+                            dtype=torch.bfloat16, device=dev)
+            plan = tv.voc_i8_plan(1, t, c, tv.DILATIONS, tt, (c_in, stride),
+                                  final, n_sm)
+            scratch = tv._i8_scratch(plan, c, dev, 7)
+            tiles = (ctypes.c_int * 7)(*plan["tiles"])
+            for name, lib in libs.items():
+                def call():
+                    err = lib.voc_block_i8(
+                        x.data_ptr(), y.data_ptr(), pwt.data_ptr(),
+                        res["tconv_pb"].data_ptr(), w7t.data_ptr(),
+                        w1t.data_ptr(), res["vec"].data_ptr(),
+                        pb["tail_vec"].data_ptr(), _cuda.ptr(fw),
+                        *(t.data_ptr() for t in scratch), tiles, 1, t_in,
+                        c_in, c, stride, *tv.DILATIONS, tt, plan["halo"],
+                        int(final), st)
+                    assert err == 0, f"cudaError {err}"
+                report(frames, bi, name, call, plan)
             t_in = t
 
 
@@ -501,6 +621,8 @@ def main() -> int:
                     help="sweep: the batches")
     ap.add_argument("--frames", type=ints, default=[16, 128],
                     help="voc: the codec frames")
+    ap.add_argument("--quant", action="store_true",
+                    help="voc: the int8 kernels (#4 int8, #3 int8)")
     ap.add_argument("--phases", action="store_true",
                     help="w4a8: time the tile loop without each phase; "
                          "voc: each pass, with and without its epilogue "
@@ -526,7 +648,8 @@ def main() -> int:
     chk = cs.Checks()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
     if args.phases and args.kernel == "voc":
-        voc_phases(cs, dev, gen, args.frames)
+        (voc_i8_phases if args.quant else voc_phases)(cs, dev, gen,
+                                                      args.frames)
     elif args.phases:
         if any(m <= 8 for m in args.rows):
             stream_phases(cs, cfg, dev, gen, args.rows)
@@ -548,14 +671,16 @@ def main() -> int:
                     flush=True)
     elif args.kernel == "voc":
         eng = decoder(dev, gen)
+        check = cs.check_vocoder_i8 if args.quant else cs.check_vocoder
+        i8 = "_i8" if args.quant else ""
         for frames in args.frames:
-            res, blocks = cs.check_vocoder(chk, eng, frames, dev, gen)
-            for name, cases in (("voc_res_stack", res),
-                                ("voc_block", blocks)):
+            res, blocks = check(chk, eng, frames, dev, gen)
+            for name, cases in ((f"voc_res_stack{i8}", res),
+                                (f"voc_block{i8}", blocks)):
                 for c in cases:
                     print(json.dumps({"kernel": name, **c}), flush=True)
-            for name, cases, which in (("voc_res_stack", res, "0"),
-                                       ("voc_block", blocks, "1-3")):
+            for name, cases, which in ((f"voc_res_stack{i8}", res, "0"),
+                                       (f"voc_block{i8}", blocks, "1-3")):
                 print(json.dumps({
                     "kernel": name, "blocks": which, "frames": frames,
                     **{k: sum(c[k] for c in cases)

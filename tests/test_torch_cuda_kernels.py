@@ -828,13 +828,11 @@ def test_res_stack_i8(dev, d, tail, b):
     _close_i8(got, ref)
 
 
-@pytest.mark.parametrize("b", [1, 2])
-@pytest.mark.parametrize("stride,final,tt", [(8, False, 64), (4, False, 32),
-                                             (2, True, 128)])
-def test_block_i8(dev, stride, final, tt, b):
-    c, c_in = 64, 128
-    g = np.random.default_rng(23)
-    packed = _units(c, 3, 25, dev, quant=True)
+def _block_i8_pack(c_in, c, stride, final, seed, dev):
+    """Three int8 units and an int8 tconv pack (phase scales per output
+    column), and with `final` the final conv's (8, c) taps and bias."""
+    g = np.random.default_rng(seed)
+    packed = _units(c, 3, seed + 2, dev, quant=True)
     pwf = torch.from_numpy(g.normal(0, 0.05, (2, c_in, stride * c))).float()
     ps = pwf.abs().amax(dim=(0, 1)).clamp_min(1e-12)
     packed["tconv_pw"] = torch.round(pwf / ps * 127.0).to(dev, torch.int8)
@@ -846,6 +844,15 @@ def test_block_i8(dev, stride, final, tt, b):
         fwn[7] = 0.0
         fwn[7, 0] = 0.03
         fw = torch.from_numpy(fwn).to(dev, torch.float32)
+    return packed, fw
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("stride,final,tt", [(8, False, 64), (4, False, 32),
+                                             (2, True, 128)])
+def test_block_i8(dev, stride, final, tt, b):
+    c, c_in = 64, 128
+    packed, fw = _block_i8_pack(c_in, c, stride, final, 23, dev)
     kw = dict(stride=stride, tail_vec=_tail(c, 26, dev), final_w=fw, tt=tt)
     x = torch.randn(b, 3 * tt // stride, c_in, device=dev).to(torch.bfloat16)
     before = tv.BLOCK_I8.launches
@@ -854,3 +861,45 @@ def test_block_i8(dev, stride, final, tt, b):
     torch.cuda.synchronize()
     assert tv.BLOCK_I8.launches == before + 1
     _close_i8(got, ref, 1.0 if final else None)
+
+
+# the int8 passes at S2-Pro's widths: C = 96 (32-byte K steps), 384 and
+# 768 (128-byte), a tile shorter than its halo, two batch rows; bit for bit
+# where no final conv is fused (its f32 sum over 7 x C may take another
+# order: one int8 step, 2^-7, there)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("c,d,tt", [(96, 1, 64), (384, 3, 64),
+                                    (768, 9, 32),    # halo 64 > tt
+                                    (768, 1, 256)])
+def test_res_stack_i8_widths(dev, c, d, tt, b):
+    packed = _units(c, 1, 40 + d, dev, quant=True)
+    tail = _tail(c, 41, dev) if d == 9 else None
+    x = torch.randn(b, 4 * tt, c, device=dev).to(torch.bfloat16)
+    before = tv.RES_STACK_I8.launches
+    got = tv.fused_res_stack(x, packed, dilations=(d,), tail_vec=tail, tt=tt)
+    ref = tv.fused_res_stack_plain(x, packed, dilations=(d,), tail_vec=tail,
+                                   tt=tt)
+    torch.cuda.synchronize()
+    assert tv.RES_STACK_I8.launches == before + 1
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("c_in,c,stride,tt,final", [
+    (768, 384, 8, 64, False), (384, 192, 4, 32, False),
+    (192, 96, 2, 64, False), (192, 96, 2, 128, True)])
+def test_block_i8_widths(dev, c_in, c, stride, tt, final, b):
+    packed, fw = _block_i8_pack(c_in, c, stride, final, 50 + stride, dev)
+    kw = dict(stride=stride, tail_vec=_tail(c, 51, dev), final_w=fw, tt=tt)
+    x = torch.randn(b, 3 * tt // stride, c_in, device=dev).to(torch.bfloat16)
+    before = tv.BLOCK_I8.launches
+    got = tv.fused_block(x, packed, **kw)
+    ref = tv.fused_block_plain(x, packed, **kw)
+    torch.cuda.synchronize()
+    assert tv.BLOCK_I8.launches == before + 1
+    if final:
+        _close_i8(got, ref, 1.0)
+    else:
+        assert got.shape == ref.shape and torch.equal(got, ref)

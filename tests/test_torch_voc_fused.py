@@ -269,9 +269,10 @@ def test_voc_res_plan_refuses(c):
 
 def test_pack_decoder_keeps_unit_weights_t(monkeypatch):
     """A bf16 block run as per-unit calls keeps its units' weights K-major
-    ("w7t", "w1t": the transposes of w7 and w1); fused blocks and int8
-    packs do not; decoder_fused hands them to each unit's call, and the
-    result is the pack's without them."""
+    ("w7t", "w1t": the transposes of w7 and w1); fused blocks do not (they
+    keep "wt"), and an int8 pack's per-unit blocks keep int8 ones;
+    decoder_fused hands them to each unit's call, and the result is the
+    pack's without them."""
     from fish_speech_tpu_torch.codec import config as tcfg
     from fish_speech_tpu_torch.codec import fastpath as tfast
     from fish_speech_tpu_torch.codec.init import init_dac_params as init_t
@@ -294,7 +295,9 @@ def test_pack_decoder_keeps_unit_weights_t(monkeypatch):
     for blk in packed["blocks"][1:]:
         assert "w7t" not in blk["res"] and "wt" in blk["res"]
     quant = tfast.pack_decoder(params["decoder"], cfg, quant=True)
-    assert all("w7t" not in blk["res"] for blk in quant["blocks"])
+    assert quant["blocks"][0]["res"]["w7t"].dtype == torch.int8
+    assert all(blk["res"]["wt"][1].dtype == torch.int8
+               for blk in quant["blocks"][1:])
     z = torch.randn((1, 3, cfg.resolved_latent_dim),
                     generator=torch.Generator().manual_seed(1)).to(
         torch.bfloat16)
