@@ -24,6 +24,17 @@ Phases, in order; any failure exits non-zero:
   4d. the int8 vocoder (VOC_QUANT): the same engine, its packed decoder
      replaced by pack_decoder(quant=True) of the same weights, one `tts`
      request;
+  6. the continuous-batching scheduler on the int8 path (run after 4d, on
+     phase 4's weights): TTSEngine(scheduler_slots=4, scheduler_chunk=4,
+     prefill_chunk=64), its batcher greedy, answers six requests (two sharing a system
+     prompt, one prompt longer than the prefill chunk, all of different
+     lengths) once one at a time and once from six threads with staggered
+     arrival, on two fresh batchers with the same seed; each request's
+     codes must be the same in both runs, and so must the prefix hits and
+     misses and the chunked prefills; one `tts` through the scheduler must
+     give a finite waveform. Each request's agreement with the
+     non-scheduler path at batch 1 (greedy) is logged, not checked, and at
+     the first frame where the two differ, both paths' logits there;
   5. the W4A8 serving path: that engine freed, build_engine(serving=True,
      quant="w4a8", kv_fold=True) from the same seed, then three `tts`
      requests, the last with W4A8_KERNEL=pc.
@@ -35,7 +46,7 @@ vocoder entries against their plain versions, and measures the int8
 vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
-then the `{"kernels": [...]}` line, the card's name and power limit, and
+the `{"scheduler": ...}` line, then the `{"kernels": [...]}` line, the card's name and power limit, and
 last the `{"ok": true, ...}` line.
 """
 
@@ -66,6 +77,25 @@ GROUPSIZE = 128       # int4 group size of the W4A8 path
 PREFILL_M = 256       # rows of a prefill product (a 256-token prompt bucket)
 BATCH_M = 40          # rows of a batched decode product
 L2_BYTES = 50e6       # timing loops rotate over more than twice this
+SCHED_SLOTS = 4       # phase 6: decode slots,
+SCHED_CHUNK = 4       # decode ticks a read-back while no request waits,
+PREFILL_CHUNK = 64    # prompt columns a prefill chunk
+SCHED_STAGGER_S = 0.4  # between the concurrent requests' arrivals
+# phase 6's requests: (text, voice reference (its frames) or None, frames
+# at most). Without a reference the system prompt is the default one, a
+# prefix all of them share (the first misses, the others hit); the two
+# references are prefixes of their own. The suffix is the text's bytes + 20
+# tokens: only the fourth is longer than PREFILL_CHUNK (prefilled in
+# chunks). Every prompt has another length.
+SCHED_REQUESTS = (
+    ("Hello there, this is request one.", None, 40),
+    ("Request two shares the system prompt.", None, 48),
+    ("Request three has a voice reference.", 12, 32),
+    ("The fourth request is the long one: its prompt does not fit in one "
+     "prefill chunk, so it is prefilled in pieces.", None, 44),
+    ("Four and a fifth.", 20, 36),
+    ("Six: the last one.", None, 40),
+)
 TEXTS = (
     "Hello there. This is the first request to the serving path.",
     "<|speaker:0|>A second request, spoken by one tagged speaker.",
@@ -1289,6 +1319,13 @@ def profile_request(engine, n_rows: int, path: str) -> None:
         _, codes, lm_s = engine.tts_with_codes(req)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_profile(prof, f"profile {path}: {codes.shape[1]} frames, wall "
+                f"{wall * 1e3:.1f} ms (LM {lm_s * 1e3:.1f} ms)", wall, n_rows)
+
+
+def log_profile(prof, head: str, wall: float, n_rows: int) -> None:
+    """The device busy time and idle share of a profiled window of `wall`
+    seconds, then its n_rows costliest device kernels (to stderr)."""
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -1296,11 +1333,377 @@ def profile_request(engine, n_rows: int, path: str) -> None:
             rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile {path}: {codes.shape[1]} frames, wall {wall * 1e3:.1f} ms "
-        f"(LM {lm_s * 1e3:.1f} ms), device busy {busy:.1f} ms, idle share "
+    log(f"{head}, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / (wall * 1e3):.3f}")
     for ms, n, key in rows[:n_rows]:
         log(f"  {ms:10.3f} ms {ms / busy:6.1%} {n:7d}x  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the continuous-batching scheduler
+# ---------------------------------------------------------------------------
+
+
+def scheduler_requests(engine) -> list:
+    """SCHED_REQUESTS as GenerateLongRequests (random reference codes drawn
+    from a seeded numpy generator)."""
+    import numpy as np
+
+    from fish_speech_tpu_torch.engine.generate import GenerateLongRequest
+
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i, (text, ref, frames) in enumerate(SCHED_REQUESTS):
+        kw = {}
+        if ref:
+            kw = dict(prompt_text=[f"reference speaker {i}"],
+                      prompt_tokens=[rng.integers(
+                          0, engine.cfg.codebook_size,
+                          (engine.cfg.num_codebooks, ref))])
+        reqs.append(GenerateLongRequest(text=text, max_new_tokens=frames,
+                                        seed=SEED + i, **kw))
+    return reqs
+
+
+def codes_of(engine, req):
+    """The request's (K, n) codes through generate_long (one segment)."""
+    import numpy as np
+
+    return np.concatenate([r.codes for r in engine.generate_long(req)
+                           if r.action == "sample"], axis=1)
+
+
+def scheduler_engine(engine):
+    """An engine on `engine`'s weights (and codec) that serves through a
+    fresh ContinuousBatcher: SCHED_SLOTS slots, greedy, the batcher's
+    default seed."""
+    from fish_speech_tpu_torch.engine.generate import TTSEngine
+
+    eng = TTSEngine(engine.params, engine.cfg, engine.tokenizer,
+                    engine.codec_params, engine.codec_cfg,
+                    cache_len=engine.cache_len, device=engine.device,
+                    scheduler_slots=SCHED_SLOTS,
+                    scheduler_chunk=SCHED_CHUNK,
+                    prefill_chunk=PREFILL_CHUNK)
+    eng.scheduler.batcher.greedy = True     # before any request is queued
+    return eng
+
+
+def record_segments(eng) -> list:
+    """Wrap `eng._generate_codes`: each segment's prompt (padded, start),
+    max_new, prefix_id / prefix_len and the (K+1, n) codes it returned, in
+    order."""
+    segs = []
+    inner = eng._generate_codes
+
+    def recorded(padded, start, max_new, req, gen, **kw):
+        codes = inner(padded, start, max_new, req, gen, **kw)
+        segs.append(dict(padded=padded, start=start, max_new=max_new,
+                         codes=codes, **kw))
+        return codes
+
+    eng._generate_codes = recorded
+    return segs
+
+
+def batch1_codes(engine, seg: dict, max_new: int):
+    """The segment through the engine's non-scheduler path (the decode
+    loop at batch 1, `generate`), greedy: (K+1, n) codes."""
+    from fish_speech_tpu_torch.models.decode import SamplingConfig, generate
+
+    codes, lengths = generate(
+        engine.params, engine.cfg, torch.from_numpy(seg["padded"])[None],
+        torch.tensor([seg["start"]], dtype=torch.int32), None,
+        SamplingConfig.create(), engine._bias, max_new_tokens=max_new,
+        im_end_id=engine.im_end_id, greedy=True, cache_len=engine.cache_len,
+        device=engine.device)
+    return codes[0, :, :int(lengths[0])].cpu().numpy()
+
+
+def scheduler_replay(engine, seg: dict, max_new: int,
+                     slots: int = SCHED_SLOTS):
+    """The segment alone through a fresh batcher of `slots` slots, built
+    otherwise as phase 6's engine builds it (slot 0, a prefix miss,
+    per-step ticks: the same values as a hit and as chunked ticks):
+    (K+1, n) codes."""
+    import numpy as np
+
+    from fish_speech_tpu_torch.engine.scheduler import (ContinuousBatcher,
+                                                        SlotRequest)
+
+    b = ContinuousBatcher(engine.params, engine.cfg, num_slots=slots,
+                          cache_len=engine.cache_len,
+                          im_end_id=engine.im_end_id, bias=engine._bias,
+                          greedy=True, prefill_chunk=PREFILL_CHUNK,
+                          device=engine.device)
+    req = SlotRequest(request_id=0, prompt=np.ascontiguousarray(
+        seg["padded"][:, seg["start"]:]).astype(np.int32),
+        max_new_tokens=max_new, prefix_id=seg["prefix_id"],
+        prefix_len=seg["prefix_len"])
+    return b.run([req])[0]
+
+
+class LogitRecorder:
+    """Within `with`, a copy of the logits of every sampling call of
+    models/decode.py (the slow head's, then each fast codebook's), in
+    order."""
+
+    def __enter__(self):
+        import fish_speech_tpu_torch.models.decode as dec
+
+        self.dec, self.inner, self.calls = dec, dec._sample, []
+
+        def recorded(logits, *args):
+            self.calls.append(logits.detach().float().clone())
+            return self.inner(logits, *args)
+
+        dec._sample = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.dec._sample = self.inner
+
+
+def split_witness(engine, seg: dict, ref, f: int) -> dict:
+    """Frame f is the first where the scheduler's codes (seg) leave the
+    batch-1 path's (ref). Replays both up to frame f with their logits
+    recorded and returns, for the sampling call of the first differing
+    code row, the batch-1 logits' top-two gap beside the largest
+    difference between the two paths' logits there, at frame 0's calls
+    (the prefills) and at every earlier call. Both replays must reproduce
+    their codes (`replay_equal`).
+
+    Two more replays run the request alone in a 1-slot batcher (the same
+    cache layout as the scheduler's, no other row): `one_slot` as it
+    comes, `one_slot_b4_split` with #1 splitting the keys as it does at
+    B = SCHED_SLOTS (`head_split`, a choice from shapes only). Each gives
+    its largest logit difference from the SCHED_SLOTS replay up to the
+    split call and whether its codes equal the scheduler's."""
+    import numpy as np
+
+    from fish_speech_tpu_torch.ops import attention
+
+    sched = seg["codes"]
+    row = int(np.flatnonzero(sched[:, f] != ref[:, f])[0])
+    # code row 0 is the slow head's sample, row 1 is derived from it, row
+    # j >= 2 is fast codebook call j - 1; a frame has num_codebooks calls
+    per_frame = engine.cfg.num_codebooks
+    i = f * per_frame + max(row - 1, 0)
+    with LogitRecorder() as r1:
+        b1 = batch1_codes(engine, seg, f + 1)
+    with LogitRecorder() as r2:
+        sc = scheduler_replay(engine, seg, f + 1)
+    with LogitRecorder() as r3:
+        one = scheduler_replay(engine, seg, f + 1, slots=1)
+    inner = attention.head_split
+    attention.head_split = lambda s, b, *a, **kw: inner(
+        s, max(b, SCHED_SLOTS), *a, **kw)
+    try:
+        with LogitRecorder() as r4:
+            one_b4 = scheduler_replay(engine, seg, f + 1, slots=1)
+    finally:
+        attention.head_split = inner
+    # row 0 of every call: batch 1, or slot 0 of the replay's ticks
+    a, b, c, d = ([t[0] for t in r.calls] for r in (r1, r2, r3, r4))
+
+    def maxdiff(xs, ys):
+        out = 0.0
+        for x, y in zip(xs, ys):
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            out = max(out, float((x[fin] - y[fin]).abs().max()))
+        return out
+
+    def against_sched(calls, codes):
+        return {"max_logit_diff": maxdiff(calls[:i + 1], b[:i + 1]),
+                "codes_equal": bool(np.array_equal(codes,
+                                                   sched[:, :f + 1]))}
+
+    top = a[i].topk(2).values
+    return {"frame": f, "code_row": row,
+            "top2_gap": float(top[0] - top[1]),
+            "max_logit_diff": maxdiff(a[i:i + 1], b[i:i + 1]),
+            "max_logit_diff_frame0": maxdiff(a[:per_frame], b[:per_frame]),
+            "max_logit_diff_before": maxdiff(a[:i], b[:i]),
+            "logit_absmax": float(a[i][torch.isfinite(a[i])].abs().max()),
+            "argmax_batch1_sched": [int(a[i].argmax()), int(b[i].argmax())],
+            "replay_equal": bool(np.array_equal(b1, ref[:, :f + 1])
+                                 and np.array_equal(sc, sched[:, :f + 1])),
+            "one_slot": against_sched(c, one),
+            "one_slot_b4_split": against_sched(d, one_b4)}
+
+
+def batcher_counts(b) -> dict:
+    return {k: getattr(b, k) for k in (
+        "ticks", "chunked_ticks", "prefix_hits", "prefix_misses",
+        "chunked_prefills", "ticks_while_prefilling")}
+
+
+def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
+                  stagger_s: float = SCHED_STAGGER_S) -> dict:
+    """Phase 6 on `engine`'s weights; returns the path's launch counts.
+    The concurrent requests arrive `stagger_s` apart."""
+    import threading
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    fl = engine.codec_cfg.frame_length
+    for k in kernels.values():
+        k.launches = 0
+    runs = {}
+    # (a) solo: each request submitted once the previous one has finished
+    eng = scheduler_engine(engine)
+    segs = record_segments(eng)
+    try:
+        t0 = time.perf_counter()
+        solo = [codes_of(eng, r) for r in scheduler_requests(engine)]
+        torch.cuda.synchronize()
+        runs["solo"] = (time.perf_counter() - t0, solo,
+                        batcher_counts(eng.scheduler.batcher))
+    finally:
+        eng.close()
+    # (b) concurrent: six threads, arrivals stagger_s apart
+    eng = scheduler_engine(engine)
+    try:
+        got, errors = {}, {}
+
+        def worker(i, req):
+            time.sleep(i * stagger_s)
+            try:
+                got[i] = codes_of(eng, req)
+            except Exception as e:  # noqa: BLE001 - fails the phase below
+                errors[i] = repr(e)
+
+        threads = [threading.Thread(target=worker, args=(i, r))
+                   for i, r in enumerate(scheduler_requests(engine))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        torch.cuda.synchronize()
+        runs["concurrent"] = (time.perf_counter() - t0,
+                              [got.get(i) for i in range(len(threads))],
+                              batcher_counts(eng.scheduler.batcher))
+        # one tts through the scheduler: codes and the vocoder
+        text, _, frames = SCHED_REQUESTS[0]
+        from fish_speech_tpu_torch.engine.generate import GenerateLongRequest
+
+        wav, tts_codes, _ = eng.tts_with_codes(GenerateLongRequest(
+            text=text, max_new_tokens=frames, seed=SEED))
+        torch.cuda.synchronize()
+    finally:
+        eng.close()
+    launches = {n: k.launches for n, k in kernels.items()}
+
+    problems = [f"request {i}: {e}" for i, e in sorted(errors.items())]
+    solo_codes, conc_codes = runs["solo"][1], runs["concurrent"][1]
+    for i, (a, b) in enumerate(zip(solo_codes, conc_codes)):
+        if b is None or a.shape[1] < 1:
+            problems.append(f"request {i}: no codes")
+        elif a.shape != b.shape or not (a == b).all():
+            diff = next((j for j in range(min(a.shape[1], b.shape[1]))
+                         if not (a[:, j] == b[:, j]).all()),
+                        min(a.shape[1], b.shape[1]))
+            problems.append(f"request {i}: concurrent codes {b.shape} != "
+                            f"solo {a.shape} from frame {diff}")
+    c_solo, c_conc = runs["solo"][2], runs["concurrent"][2]
+    for k in ("prefix_hits", "prefix_misses", "chunked_prefills"):
+        if c_solo[k] != c_conc[k]:
+            problems.append(f"{k}: solo {c_solo[k]} != concurrent "
+                            f"{c_conc[k]}")
+    if c_conc["ticks_while_prefilling"] < 1:
+        problems.append("no tick ran while a chunked prefill was in flight")
+    if c_conc["prefix_hits"] < 1 or c_conc["chunked_prefills"] < 1:
+        problems.append(f"no prefix hit or no chunked prefill: {c_conc}")
+    n = tts_codes.shape[1]
+    if n < 1 or wav.shape != (n * fl,) or not np.isfinite(wav).all():
+        problems.append(f"tts: {n} frames, waveform {wav.shape}, finite "
+                        f"{bool(np.isfinite(wav).all())}")
+    route = ("decode_attention_stream", "fast_sweep", "voc_block",
+             "voc_res_stack")
+    missing = [k for k in route if launches[k] < 1]
+    stray = [k for k in launches if k not in route and launches[k] > 0]
+    if missing or stray:
+        problems.append(f"not launched {missing}, launched off route "
+                        f"{stray}")
+
+    # the non-scheduler path at batch 1 (greedy), logged, not checked: the
+    # two paths bucket the prompt differently. At the first frame where
+    # they differ, both paths' logits there (split_witness)
+    shared, splits = [], []
+    if len(segs) != len(solo_codes):
+        problems.append(f"{len(segs)} segments for {len(solo_codes)} "
+                        f"requests")
+        segs = []
+    for seg in segs:
+        a = seg["codes"]
+        ref = batch1_codes(engine, seg, seg["max_new"])
+        m = min(a.shape[1], ref.shape[1])
+        same = [bool((a[:, j] == ref[:, j]).all()) for j in range(m)]
+        shared.append(same.index(False) if False in same else m)
+        splits.append(split_witness(engine, seg, ref, shared[-1])
+                      if shared[-1] < m else None)
+
+    def rate(run):
+        wall, codes, _ = runs[run]
+        frames = sum(c.shape[1] for c in codes if c is not None)
+        return {"wall_s": wall, "frames": frames,
+                "frames_per_s": frames / wall}
+
+    report = {"scheduler": {
+        "card": card, "slots": SCHED_SLOTS, "chunk": SCHED_CHUNK,
+        "prefill_chunk": PREFILL_CHUNK, "requests": len(SCHED_REQUESTS),
+        "frames": [c.shape[1] for c in solo_codes],
+        "solo": {**rate("solo"), **c_solo},
+        "concurrent": {**rate("concurrent"), **c_conc},
+        "tts_frames": n, "launches": launches,
+        "frames_shared_with_batch1": shared,
+        "first_split": splits,
+        "phase_s": time.perf_counter() - t_phase}}
+    print(json.dumps(report), flush=True)
+    log(f"scheduler ({card}): solo {rate('solo')['frames_per_s']:.2f} "
+        f"frames/s, concurrent {rate('concurrent')['frames_per_s']:.2f} "
+        f"frames/s at {SCHED_SLOTS} slots; {c_conc}")
+    if problems:
+        chk.failed.append("scheduler: " + "; ".join(problems))
+    return launches
+
+
+def profile_scheduler(engine, n_rows: int) -> None:
+    """SCHED_SLOTS requests of 16 frames at once through the scheduler
+    under torch.profiler: device time by kernel and the device's idle
+    share of the wall time (to stderr)."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fish_speech_tpu_torch.engine.generate import GenerateLongRequest
+
+    eng = scheduler_engine(engine)
+    reqs = [GenerateLongRequest(text=t, max_new_tokens=16, seed=SEED)
+            for t, ref, _ in SCHED_REQUESTS if ref is None][:SCHED_SLOTS]
+    try:
+        codes_of(eng, reqs[0])           # the prefix entry, out of the trace
+        torch.cuda.synchronize()
+        ticks = eng.scheduler.batcher.ticks
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=codes_of, args=(eng, r))
+                       for r in reqs]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ticks = eng.scheduler.batcher.ticks - ticks
+    finally:
+        eng.close()
+    log_profile(prof, f"profile scheduler: {len(reqs)} requests x 16 "
+                f"frames, {ticks} ticks, wall {wall * 1e3:.1f} ms", wall,
+                n_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -1427,6 +1830,12 @@ def main() -> int:
           "voc_res_stack_i8"))], kernels, chk)
     engine.packed_decoder = bf16_decoder
 
+    # phase 6: the continuous-batching scheduler on the int8 path, phase
+    # 4's weights (before phase 5 frees them)
+    by_path["scheduler"] = run_scheduler(engine, kernels, chk, card)
+    if args.profile:
+        profile_scheduler(engine, args.profile)
+
     # phase 5: the W4A8 path with the KV-write fold, same seed
     del engine
     gc.collect()
@@ -1479,7 +1888,7 @@ def main() -> int:
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
-              "int8"),
+              ["int8", "scheduler"]),
         entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
               attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
@@ -1493,12 +1902,12 @@ def main() -> int:
                            "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
                            decode(w4a8_pc), "w4a8_fold")),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
-              sweep[3:4], "int8"),
+              sweep[3:4], ["int8", "scheduler"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
-              "int8"),
+              ["int8", "scheduler"]),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              res[:1], "int8"),
+              res[:1], ["int8", "scheduler"]),
         # the int8 configurations (VOC_QUANT)
         entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
               blk_i8, "voc_quant"),

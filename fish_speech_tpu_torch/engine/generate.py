@@ -1,16 +1,18 @@
 """Long-text generation and the end-to-end TTS engine.
 
-Counterpart of `fish_speech_tpu/engine/generate.py` without the
-continuous-batching scheduler: speaker-tag splitting, byte/speaker-bounded
-batching, a system prompt carrying the voice-cloning reference, per-batch
-conversation growth, the decode loop of models/decode.py and the fused
-vocoder of codec/fastpath.py.
+Counterpart of `fish_speech_tpu/engine/generate.py`: speaker-tag
+splitting, byte/speaker-bounded batching, a system prompt carrying the
+voice-cloning reference, per-batch conversation growth, the decode loop of
+models/decode.py or the continuous-batching scheduler of
+engine/scheduler.py, and the fused vocoder of codec/fastpath.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import re
+import threading
 import time
 from dataclasses import dataclass
 from typing import Iterator, Literal
@@ -115,13 +117,23 @@ def build_base_conversation(prompt_text: list[str] | None,
 
 
 class TTSEngine:
-    """text -> codes -> waveform on one device."""
+    """text -> codes -> waveform on one device.
+
+    With `scheduler_slots > 0`, generation goes through the
+    continuous-batching scheduler (engine/scheduler.py): calls from
+    different threads share decode ticks instead of taking turns, each
+    segment's system prompt is prefilled once and then copied from the
+    prefix cache, prompts longer than `prefill_chunk` prefill a chunk at a
+    time between ticks, and a tick runs `scheduler_chunk` decode steps per
+    read-back while no request waits. `close()` stops the scheduler's
+    thread."""
 
     def __init__(self, params: dict, cfg: DualARConfig, tokenizer,
                  codec_params: dict | None = None,
                  codec_cfg: DACConfig | None = None,
                  cache_len: int | None = None, device=None,
-                 voc_quant: bool | None = None):
+                 voc_quant: bool | None = None, scheduler_slots: int = 0,
+                 scheduler_chunk: int = 1, prefill_chunk: int | None = None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -142,11 +154,59 @@ class TTSEngine:
             self.packed_decoder = pack_decoder(codec_params["decoder"],
                                                 codec_cfg, dtype=dtype,
                                                 quant=voc_quant)
+        self.scheduler = None
+        self._next_request_id = 0
+        self._id_lock = threading.Lock()
+        if scheduler_slots > 0:
+            from .scheduler import ContinuousBatcher, SchedulerThread
+
+            batcher = ContinuousBatcher(
+                params, cfg, num_slots=scheduler_slots,
+                cache_len=self.cache_len, im_end_id=self.im_end_id,
+                bias=self._bias, prefill_chunk=prefill_chunk,
+                device=self.device)
+            self.scheduler = SchedulerThread(batcher,
+                                             chunk_steps=scheduler_chunk)
+
+    def close(self) -> None:
+        """Stop the scheduler's thread (no-op without one)."""
+        if self.scheduler is not None:
+            self.scheduler.stop()
+
+    def _system_prefix(self, conversation: Conversation) -> tuple[str, int]:
+        """(prefix_id, prefix_len) of the shared system prompt: the
+        scheduler's prefix cache keys its rows by this hash."""
+        sys_encoded = conversation.encode_for_inference(
+            self.tokenizer, num_codebooks=self.cfg.num_codebooks)
+        pid = hashlib.sha256(np.ascontiguousarray(
+            sys_encoded).tobytes()).hexdigest()[:16]
+        return pid, sys_encoded.shape[1]
 
     def _generate_codes(self, padded: np.ndarray, start: int, max_new: int,
                         req: GenerateLongRequest,
-                        gen: torch.Generator) -> np.ndarray:
-        """One segment: (K+1, Tpad) left-padded prompt -> (K+1, n) codes."""
+                        gen: torch.Generator, *, prefix_id: str | None = None,
+                        prefix_len: int = 0) -> np.ndarray:
+        """One segment: (K+1, Tpad) left-padded prompt -> (K+1, n) codes.
+        On the scheduler path the request carries the prompt's unpadded
+        columns and its own sampling parameters (the scheduler draws from
+        its own generator)."""
+        if self.scheduler is not None:
+            from .scheduler import SlotRequest, stack_columns
+
+            with self._id_lock:
+                self._next_request_id += 1
+                rid = self._next_request_id
+            slot_req = SlotRequest(
+                request_id=rid, prompt=padded[:, start:].astype(np.int32),
+                max_new_tokens=max_new, temperature=req.temperature,
+                top_p=req.top_p, top_k=req.top_k, prefix_id=prefix_id,
+                prefix_len=prefix_len)
+            self.scheduler.submit(slot_req)
+            if not slot_req.done.wait(timeout=3600):
+                raise TimeoutError("scheduler request timed out")
+            if slot_req.error is not None:
+                raise slot_req.error
+            return stack_columns(slot_req.result, padded.shape[0])
         sampling = SamplingConfig.create(req.temperature, req.top_p)
         codes, lengths = generate(
             self.params, self.cfg, torch.from_numpy(padded)[None],
@@ -190,6 +250,10 @@ class TTSEngine:
                                             max_bytes=req.chunk_length)
                    if turns else [req.text])
         gen = torch.Generator(device=self.device).manual_seed(req.seed)
+        # the system prompt is the same for every segment: on the scheduler
+        # path it is marked as a prefix, prefilled once per reference
+        prefix_id, prefix_len = (self._system_prefix(conversation)
+                                 if self.scheduler is not None else (None, 0))
 
         for batch_text in batches:
             conversation.append(Message(
@@ -217,7 +281,9 @@ class TTSEngine:
             if req.max_new_tokens:
                 max_new = min(max_new, req.max_new_tokens)
             t0 = time.perf_counter()
-            full = self._generate_codes(padded, start, max_new, req, gen)
+            full = self._generate_codes(padded, start, max_new, req, gen,
+                                        prefix_id=prefix_id,
+                                        prefix_len=prefix_len)
             n_valid = full.shape[1]
             wall = time.perf_counter() - t0
 
@@ -287,7 +353,9 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
                  kv_layout: str = "pos", kv_cache: str = "int8",
                  attn: str = "stream",
                  stack_mode: str = "carry",
-                 voc_quant: bool | None = None) -> TTSEngine:
+                 voc_quant: bool | None = None, scheduler_slots: int = 0,
+                 scheduler_chunk: int = 1,
+                 prefill_chunk: int | None = None) -> TTSEngine:
     """An engine with seeded random weights drawn on `device` (CUDA by
     default): S2-Pro LM and codec unless configs are given, a byte
     tokenizer whose semantic ids span the codebook. serving=True applies
@@ -300,7 +368,9 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     decode attention kernel (`serving_config`); a native KV cache keeps
     the quantized weights, whose activations are bf16. voc_quant=True packs
     the vocoder with int8 weights and per-tile activation scales (None:
-    the VOC_QUANT environment variable, "1" for int8)."""
+    the VOC_QUANT environment variable, "1" for int8). scheduler_slots,
+    scheduler_chunk and prefill_chunk go to `TTSEngine`
+    (scheduler_slots > 0: the continuous-batching scheduler)."""
     from ..codec.init import init_dac_params
     from ..models.init import init_dual_ar_params
     from ..ops.fast_fused import enable_fused_fast_head
@@ -332,4 +402,6 @@ def build_engine(device=None, serving: bool = True, *, seed: int = 0,
     codec_params = init_dac_params(gen, codec_cfg, device=device)
     return TTSEngine(params, served, tokenizer, codec_params, codec_cfg,
                      cache_len=min(cache_len, cfg.max_seq_len), device=device,
-                     voc_quant=voc_quant)
+                     voc_quant=voc_quant, scheduler_slots=scheduler_slots,
+                     scheduler_chunk=scheduler_chunk,
+                     prefill_chunk=prefill_chunk)

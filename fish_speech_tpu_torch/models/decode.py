@@ -40,8 +40,13 @@ from .dual_ar import (
 
 @dataclass
 class SamplingConfig:
-    temperature: float = 0.7
-    top_p: float = 0.7
+    """temperature and top_p: Python floats or per-row (B,) f32 tensors;
+    top_k_row: None, or each row's top-k (an int or a (B,) int32 tensor)
+    inside the static top_k roof that `decode_one_token` extracts, so one
+    decode step serves rows with different k."""
+    temperature: float | torch.Tensor = 0.7
+    top_p: float | torch.Tensor = 0.7
+    top_k_row: int | torch.Tensor | None = None
 
     @staticmethod
     def create(temperature: float = 0.7, top_p: float = 0.7) -> "SamplingConfig":
@@ -67,11 +72,11 @@ def _sample(logits, sampling: SamplingConfig, top_k: int, greedy: bool, gen):
     if greedy:
         return greedy_one(logits)
     return sample_one(logits, sampling.temperature, sampling.top_p, top_k,
-                      gen=gen)
+                      sampling.top_k_row, gen=gen)
 
 
 def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
-                     cache: KVCache, input_pos: int,
+                     cache: KVCache, input_pos: int | torch.Tensor,
                      freqs_table: torch.Tensor, fast_freqs_table: torch.Tensor,
                      bias: torch.Tensor, sampling: SamplingConfig,
                      prev_window: torch.Tensor | None, *, top_k: int,
@@ -79,19 +84,25 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
                      rope_positions: torch.Tensor | None = None,
                      key_valid_from: torch.Tensor | None = None,
                      sample_support: tuple | None = None,
+                     sample_at: int | None = None,
                      fast_cache=None) -> torch.Tensor:
     """One full Dual-AR step. x: (B, K+1, T) — the prompt on prefill (T>1)
-    or the last column (T=1). sample_support: optional (semantic_begin,
-    semantic_end, im_end): logits and sampling over only those rows (the
-    bias must be -inf elsewhere, as semantic_logit_bias is).
+    or the last column (T=1). input_pos: a host int, or a (B,) int32
+    tensor of per-row write positions (`forward_generate`).
+    sample_support: optional (semantic_begin, semantic_end, im_end): logits
+    and sampling over only those rows (the bias must be -inf elsewhere, as
+    semantic_logit_bias is). sample_at: the column to sample from instead
+    of the last (a right-padded prefill block's last real column).
     Returns the new column (B, K+1) int32."""
     b = x.shape[0]
     out = forward_generate(params, cfg, x, cache, input_pos, freqs_table,
                            rope_positions=rope_positions,
                            key_valid_from=key_valid_from,
-                           logit_support=sample_support)
-    logits_col = out.logits[:, -1, :]
-    hidden = out.hidden[:, -1, :]
+                           logit_support=sample_support,
+                           last_only=sample_at is None)
+    col = -1 if sample_at is None else sample_at
+    logits_col = out.logits[:, col, :]
+    hidden = out.hidden[:, col, :]
     if sample_support is not None:
         sb, se, im = sample_support
         bias_r = torch.cat([bias[sb:se + 1], bias[im:im + 1]])
@@ -108,7 +119,8 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
 
     if prev_window is not None and not greedy:
         tn, th = sample_main_and_high(logits, sampling.temperature,
-                                      sampling.top_p, top_k, gen=gen)
+                                      sampling.top_p, top_k,
+                                      sampling.top_k_row, gen=gen)
         token = ras_select(unmap(tn), unmap(th), prev_window,
                            cfg.semantic_begin_id, cfg.semantic_end_id)
     else:

@@ -8,6 +8,9 @@ int8 or native cache read by the stream, blocks, rows or per-layer kernel)
 and the unquantized head-major branch the parity goldens need. The
 tensor-parallel branches are not ported.
 
+A decode step writes every row at one shared slot, or (continuous
+batching) each row at its own slot given as a (B,) tensor on the device.
+
 Parameters are the nested dicts of models/init.py, layers stacked along a
 leading depth axis. Unlike the JAX package, which threads immutable caches
 through a scan, the caches here are written IN PLACE (one slab per layer
@@ -129,15 +132,21 @@ class KVCache:
                        self.pos_major)
 
 
-def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor,
-                 v: torch.Tensor) -> None:
-    """Write new (B, T, Hkv, D) k/v rows at slots [pos, pos+T) of `layer`."""
+def _write_cache(cache: KVCache, layer: int, pos: int | torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write new (B, T, Hkv, D) k/v rows of `layer`: at slots [pos, pos+T)
+    for a host int `pos`, or each row b at its own slots [pos[b],
+    pos[b]+T) for a (B,) tensor (`_scatter_cache`)."""
     b, t, hkv, _ = k.shape
+    k_sc = v_sc = None
     if cache.ks is not None:
         k, k_sc = quantize_kv_rows(k)   # scales (B, T, Hkv)
         v, v_sc = quantize_kv_rows(v)
     k = k.to(cache.k.dtype)
     v = v.to(cache.v.dtype)
+    if isinstance(pos, torch.Tensor):
+        _scatter_cache(cache, layer, pos, k, v, k_sc, v_sc)
+        return
     if cache.pos_major:
         cache.k[layer, pos:pos + t] = k.transpose(0, 1)
         cache.v[layer, pos:pos + t] = v.transpose(0, 1)
@@ -150,6 +159,37 @@ def _write_cache(cache: KVCache, layer: int, pos: int, k: torch.Tensor,
         if cache.ks is not None:
             cache.ks[layer, :, :, pos:pos + t] = k_sc.transpose(1, 2)
             cache.vs[layer, :, :, pos:pos + t] = v_sc.transpose(1, 2)
+
+
+def _scatter_cache(cache: KVCache, layer: int, pos: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor,
+                   k_sc: torch.Tensor | None = None,
+                   v_sc: torch.Tensor | None = None) -> None:
+    """Per-row write positions (continuous batching: rows decode at
+    different offsets): row b's T new rows go to slots pos[b] + [0, T),
+    one indexed write per tensor. k/v (B, T, Hkv, D) in the cache's type;
+    scales (B, T, Hkv). Position-major flat scales take element [b,
+    slot*Hkv + h]."""
+    b, t, hkv, _ = k.shape
+    rows = torch.arange(b, device=k.device)[:, None]              # (B, 1)
+    cols = pos.long()[:, None] + torch.arange(t, device=k.device)  # (B, T)
+    if cache.pos_major:
+        # a (B, T) pair of indices on the (S, B) axes: values (B, T, Hkv, D)
+        cache.k[layer].index_put_((cols, rows), k)
+        cache.v[layer].index_put_((cols, rows), v)
+        if k_sc is not None:
+            flat = (cols[:, :, None] * hkv
+                    + torch.arange(hkv, device=k.device)).reshape(b, -1)
+            cache.ks[layer].index_put_((rows, flat), k_sc.reshape(b, -1))
+            cache.vs[layer].index_put_((rows, flat), v_sc.reshape(b, -1))
+        return
+    # head-major (B, Hkv, S, D): the indices on B and S, split by the head
+    # slice, put (B, T) first, so the values keep k/v's own (B, T, Hkv, D)
+    cache.k[layer][rows, :, cols] = k
+    cache.v[layer][rows, :, cols] = v
+    if k_sc is not None:
+        cache.ks[layer][rows, :, cols] = k_sc
+        cache.vs[layer][rows, :, cols] = v_sc
 
 
 def _read_cache(cache: KVCache, layer: int):
@@ -214,14 +254,15 @@ def _decode_kernel(ad: AttnDims, q: torch.Tensor, cache: KVCache, layer: int,
 
 def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
               mask: torch.Tensor, cache: KVCache | None = None,
-              layer: int = 0, input_pos: int = 0,
+              layer: int = 0, input_pos: int | torch.Tensor = 0,
               bounds: DecodeBounds | None = None,
               stacked: bool = True) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D). mask: (B or 1, 1, T, S) bool. With
     `bounds`, a T=1 step goes through the decode attention kernel the
     configuration selects (`_decode_kernel`); with `ad.kv_fold` as well, on
-    a position-major int8 cache, the fold kernel writes this step's k/v rows
-    itself (the gate of the JAX function). stacked=False: `cache` is one
+    a position-major int8 cache and a host-int `input_pos`, the fold kernel
+    writes this step's k/v rows itself (the gate of the JAX function; a
+    per-row (B,) `input_pos` takes the scatter write and the read kernel). stacked=False: `cache` is one
     layer's depth-1 view (the per-layer stack modes)."""
     b, t, _ = x.shape
     h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
@@ -319,7 +360,8 @@ def _layer(layers: dict, i: int) -> dict:
 
 def run_stack(layers: dict, ad: AttnDims, eps: float, x: torch.Tensor,
               freqs_cis, mask, cache: KVCache | None = None,
-              input_pos: int = 0, bounds: DecodeBounds | None = None,
+              input_pos: int | torch.Tensor = 0,
+              bounds: DecodeBounds | None = None,
               mode: str = "") -> torch.Tensor:
     """The layer stack, one layer at a time, each writing its own slab of
     the stacked cache in place. `mode` is the JAX function's cached-decode
@@ -409,27 +451,37 @@ def _fast_input(params: dict, cfg: DualARConfig, x: torch.Tensor,
 
 
 def forward_generate(params: dict, cfg: DualARConfig, inp: torch.Tensor,
-                     cache: KVCache, input_pos: int,
+                     cache: KVCache, input_pos: int | torch.Tensor,
                      freqs_table: torch.Tensor, *, last_only: bool = True,
                      rope_positions: torch.Tensor | None = None,
                      key_valid_from: torch.Tensor | None = None,
                      logit_support: tuple | None = None) -> SlowOut:
     """Slow-stack forward with the KV cache (prefill T>=1 or decode T=1).
 
-    input_pos: first cache slot written by `inp` (host int).
+    input_pos: first cache slot written by `inp`: a host int shared by all
+    rows, or a (B,) int tensor on the device, each row's own (continuous
+    batching; the causal mask, the default RoPE rows and the decode
+    kernels' bounds are then per row, and the cache write a scatter).
     rope_positions: optional (B, T) per-row RoPE positions (left-padded
     batches); defaults to input_pos + arange(T).
     key_valid_from: optional (B,) — keys before this slot are masked out."""
     b, _, t = inp.shape
     dev = inp.device
     x = embed_tokens(params, cfg, inp)
-    positions = input_pos + torch.arange(t, device=dev)
+    per_row = isinstance(input_pos, torch.Tensor)
+    if per_row:
+        positions = input_pos.long()[:, None] + torch.arange(t, device=dev)
+    else:
+        positions = input_pos + torch.arange(t, device=dev)
     if rope_positions is None:
-        freqs_cis = freqs_table[positions]
+        freqs_cis = freqs_table[positions]                # (T | B, T, ., 2)
     else:
         freqs_cis = freqs_table[rope_positions.long()]         # (B, T, ., 2)
     key_pos = torch.arange(cache.seq_len, device=dev)
-    mask = (key_pos[None, :] <= positions[:, None])[None, None]   # (1,1,T,S)
+    if per_row:
+        mask = (key_pos <= positions[:, :, None])[:, None]       # (B,1,T,S)
+    else:
+        mask = (key_pos[None, :] <= positions[:, None])[None, None]
     if key_valid_from is not None:
         valid = key_pos[None, :] >= key_valid_from[:, None]        # (B, S)
         mask = mask & valid[:, None, None, :]
@@ -438,8 +490,11 @@ def forward_generate(params: dict, cfg: DualARConfig, inp: torch.Tensor,
     if cfg.use_pallas_attention and t == 1:
         starts = (key_valid_from.int() if key_valid_from is not None
                   else torch.zeros(b, dtype=torch.int32, device=dev))
-        lengths = torch.full((b,), input_pos + 1, dtype=torch.int32,
-                             device=dev)
+        if per_row:
+            lengths = (positions[:, -1] + 1).int()
+        else:
+            lengths = torch.full((b,), input_pos + 1, dtype=torch.int32,
+                                 device=dev)
         bounds = DecodeBounds(lengths, starts)
     x = run_stack(params["layers"], cfg.slow_attn, cfg.norm_eps, x, freqs_cis,
                   mask, cache, input_pos, bounds, mode=cfg.decode_stack_mode)

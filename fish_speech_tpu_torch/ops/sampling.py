@@ -34,10 +34,26 @@ def uniforms(gen: torch.Generator | None, shape, device) -> torch.Tensor:
     return u.clamp_min(_TINY)
 
 
-def _candidates(logits: torch.Tensor, top_k: int):
+def _mask_topk_rows(vals: torch.Tensor, top_k_row) -> torch.Tensor:
+    """Per-row top-k inside a static roof: `vals` is the (B, roof)
+    descending candidate matrix; candidates at positions >= k_row become
+    -inf, which is what extracting topk(logits, k_row) would have kept
+    (later candidates never reach the kept prefix's cumsum). top_k_row:
+    None (no-op), a scalar or a (B,) int."""
+    if top_k_row is None:
+        return vals
+    k = torch.as_tensor(top_k_row, dtype=torch.int32, device=vals.device)
+    pos = torch.arange(vals.shape[-1], dtype=torch.int32, device=vals.device)
+    keep = pos[None, :] < (k[:, None] if k.ndim == 1 else k)
+    return torch.where(keep, vals, torch.tensor(-torch.inf,
+                                                device=vals.device))
+
+
+def _candidates(logits: torch.Tensor, top_k: int, top_k_row=None):
     logits = logits.float()
     z = torch.logsumexp(logits, dim=-1, keepdim=True)
     vals, idx = torch.topk(logits, top_k, dim=-1)
+    vals = _mask_topk_rows(vals, top_k_row)
     return vals, idx, torch.cumsum(torch.exp(vals - z), dim=-1)
 
 
@@ -52,12 +68,14 @@ def _draw(vals, idx, cum, temperature, top_p, u) -> torch.Tensor:
     return torch.gather(idx, 1, choice[:, None])[:, 0].to(torch.int32)
 
 
-def sample_one(logits: torch.Tensor, temperature, top_p, top_k: int, *,
-               gen: torch.Generator | None = None,
+def sample_one(logits: torch.Tensor, temperature, top_p, top_k: int,
+               top_k_row=None, *, gen: torch.Generator | None = None,
                u: torch.Tensor | None = None) -> torch.Tensor:
-    """One token per row. logits (B, V); temperature/top_p scalar or (B,).
-    u: optional (B, top_k) uniforms; drawn from `gen` otherwise."""
-    vals, idx, cum = _candidates(logits, top_k)
+    """One token per row. logits (B, V); temperature/top_p scalar or (B,);
+    top_k: the static candidate roof, top_k_row: None or each row's k
+    within it (scalar or (B,)). u: optional (B, top_k) uniforms; drawn from
+    `gen` otherwise."""
+    vals, idx, cum = _candidates(logits, top_k, top_k_row)
     if u is None:
         u = uniforms(gen, vals.shape, vals.device)
     return _draw(vals, idx, cum, temperature, top_p, u)
@@ -68,15 +86,40 @@ def greedy_one(logits: torch.Tensor) -> torch.Tensor:
 
 
 def sample_main_and_high(logits: torch.Tensor, temperature, top_p,
-                         top_k: int, *, gen: torch.Generator | None = None,
+                         top_k: int, top_k_row=None, *,
+                         gen: torch.Generator | None = None,
                          u: torch.Tensor | None = None):
     """The normal-parameter draw and the RAS high-temperature fallback from
-    ONE candidate pass. u: optional (2, B, top_k) uniforms (normal, high)."""
-    vals, idx, cum = _candidates(logits, top_k)
+    ONE candidate pass (top_k_row as in `sample_one`). u: optional (2, B,
+    top_k) uniforms (normal, high)."""
+    vals, idx, cum = _candidates(logits, top_k, top_k_row)
     if u is None:
         u = uniforms(gen, (2, *vals.shape), vals.device)
     return (_draw(vals, idx, cum, temperature, top_p, u[0]),
             _draw(vals, idx, cum, RAS_HIGH_TEMP, RAS_HIGH_TOP_P, u[1]))
+
+
+def sampling_probs(logits: torch.Tensor, temperature, top_p,
+                   top_k: int) -> torch.Tensor:
+    """(B, V) probabilities this sampler draws from: the candidates'
+    probabilities scattered back over the vocabulary, zero elsewhere."""
+    vals, idx, cum = _candidates(logits, top_k)
+    remove = cum > _per_row(top_p, vals)
+    remove[:, 0] = False
+    cand = torch.where(remove, torch.tensor(-torch.inf, device=vals.device),
+                       vals)
+    probs = torch.softmax(cand / _per_row(temperature, vals).clamp_min(1e-5),
+                          dim=-1)
+    return torch.zeros_like(logits, dtype=torch.float32).scatter(1, idx,
+                                                                 probs)
+
+
+def sample_token(logits: torch.Tensor, temperature, top_p, top_k: int = 30,
+                 greedy: bool = False, *, gen: torch.Generator | None = None,
+                 u: torch.Tensor | None = None) -> torch.Tensor:
+    if greedy:
+        return greedy_one(logits)
+    return sample_one(logits, temperature, top_p, top_k, gen=gen, u=u)
 
 
 def ras_select(token_normal: torch.Tensor, token_high: torch.Tensor,

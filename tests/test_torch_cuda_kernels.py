@@ -903,3 +903,198 @@ def test_block_i8_widths(dev, c_in, c, stride, tt, final, b):
         _close_i8(got, ref, 1.0)
     else:
         assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+# --- the continuous-batching path (per-row write positions) ----------------
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_scatter_write_pos_int8(dev, t):
+    """Each row's k/v at its own columns of the position-major int8 cache
+    (one indexed write per tensor) equals writing each row alone through
+    its slot's view at a host-int position: bit for bit, scales too."""
+    from fish_speech_tpu_torch.engine.scheduler import slice_slot_cache
+
+    g = _gen(dev, 21)
+    n_layer, s, b, hkv, d = 2, 256, 4, 8, 128
+    cache = KVCache.create(n_layer, b, s, hkv, d, dtype=torch.int8,
+                           pos_major=True, device=dev)
+    for a in (cache.k, cache.v):
+        a.copy_(torch.randint(-127, 128, a.shape, generator=g, device=dev))
+    for a in (cache.ks, cache.vs):
+        a.copy_(torch.rand(a.shape, generator=g, device=dev) * 0.02)
+    rowwise = KVCache(*(a.clone() for a in (cache.k, cache.v, cache.ks,
+                                           cache.vs)), pos_major=True)
+    k = torch.randn((b, t, hkv, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((b, t, hkv, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.tensor([5, 100, s - t, 17], dtype=torch.int32, device=dev)
+    _write_cache(cache, 1, pos, k, v)
+    for r in range(b):
+        _write_cache(slice_slot_cache(rowwise, r), 1, int(pos[r]),
+                     k[r:r + 1], v[r:r + 1])
+    torch.cuda.synchronize()
+    for name in ("k", "v", "ks", "vs"):
+        assert torch.equal(getattr(cache, name), getattr(rowwise, name)), name
+
+
+def _tick_model(dev):
+    """A one-layer int8 serving model whose slow attention fits the decode
+    kernel (head_dim 128, 2 query heads a kv head) and whose one-layer fast
+    stack fits the sweep kernel (dim 256, 4 heads)."""
+    from fish_speech_tpu_torch.engine.generate import serving_config
+    from fish_speech_tpu_torch.models.config import DualARConfig
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.ops.quant import quantize_lm_params
+
+    cfg = serving_config(DualARConfig(
+        vocab_size=160, n_layer=1, n_head=4, n_local_heads=2, dim=256,
+        head_dim=128, intermediate_size=512, max_seq_len=256,
+        rope_base=10000.0, codebook_size=32, num_codebooks=4,
+        n_fast_layer=1, fast_dim=256, fast_n_head=4, fast_n_local_heads=4,
+        fast_head_dim=64, fast_intermediate_size=768, semantic_begin_id=64,
+        semantic_end_id=95))
+    params = init_dual_ar_params(_gen(dev, 3), cfg, dtype=torch.bfloat16,
+                                 device=dev)
+    return cfg, ff.enable_fused_fast_head(quantize_lm_params(params))
+
+
+def test_scheduler_tick_pos_int8(dev, monkeypatch):
+    """A 4-slot tick on the card through #1 and #2 (three active rows at
+    different offsets, one left-padded, one prefix-cached with start 0, and
+    one free slot writing at row cache_len - 1), against the same tick with
+    both kernels' plain twins run on the card: the same int8 cache rows and
+    scales bit for bit (the one-layer stack writes them before any
+    attention), the same slot state; the attention kernel at the tick's
+    per-row bounds within its stated tolerance."""
+    from fish_speech_tpu_torch.engine.scheduler import (
+        ContinuousBatcher,
+        SlotRequest,
+    )
+    from fish_speech_tpu_torch.models import dual_ar
+    from fish_speech_tpu_torch.ops.sampling import semantic_logit_bias
+
+    cfg, params = _tick_model(dev)
+    rng = np.random.default_rng(8)
+
+    def prompt(t):
+        p = rng.integers(0, 64, (cfg.num_codebooks + 1, t)).astype(np.int32)
+        p[0, t // 2:] = rng.integers(64, 96, t - t // 2)
+        p[1:, :t // 2] = 0
+        p[1:] %= cfg.codebook_size
+        return p
+
+    prefix = prompt(11)
+    prompts = [prompt(9), np.concatenate([prefix, prompt(6)], axis=1),
+               prompt(21)]
+
+    def batcher():
+        b = ContinuousBatcher(
+            params, cfg, num_slots=4, cache_len=256, im_end_id=4,
+            bias=semantic_logit_bias(cfg.vocab_size, 64, 95, 4, device=dev),
+            greedy=True, prompt_bucket=16, device=dev)
+        for i, p in enumerate(prompts):
+            b._assign(SlotRequest(request_id=i, prompt=p, max_new_tokens=8,
+                                  prefix_id="p" if i == 1 else None,
+                                  prefix_len=11 if i == 1 else 0), i)
+        return b
+
+    kern = batcher()
+    n1, n2 = ta.KERNEL.launches, ff.KERNEL.launches
+    kern.step()
+    torch.cuda.synchronize()
+    assert ta.KERNEL.launches - n1 == cfg.n_layer
+    assert ff.KERNEL.launches - n2 == cfg.num_codebooks
+    with monkeypatch.context() as m:
+        m.setattr(dual_ar, "decode_attention_stream",
+                  ta.decode_attention_stream_plain)
+        m.setattr(ff, "fused_fast_sweep", ff.fused_fast_sweep_plain)
+        plain = batcher()
+        n1, n2 = ta.KERNEL.launches, ff.KERNEL.launches
+        plain.step()
+        torch.cuda.synchronize()
+        assert (ta.KERNEL.launches, ff.KERNEL.launches) == (n1, n2)
+    assert kern.start.tolist() == [7, 0, 11, 0]
+    for name in ("pos", "start", "active"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert kern.pos.tolist()[:3] == [17, 18, 33]
+    for name in ("k", "v", "ks", "vs"):
+        assert torch.equal(getattr(kern.cache, name),
+                           getattr(plain.cache, name)), name
+    # the free slot wrote its row at cache_len - 1, the active ones at pos
+    assert kern.cache.k[0, 255, 3].abs().sum().item() > 0
+    assert kern.cache.k[0, 16, 0].abs().sum().item() > 0
+    # the attention kernel over the tick's bounds (lengths up to the cache
+    # for the free slot, start 0 for the prefix-cached one) vs its twin
+    write = torch.where(kern.active, kern.pos - 1,
+                        torch.full_like(kern.pos, 255))
+    lengths, starts = (write + 1).int(), kern.start
+    q = torch.randn((4, 2, 2, 128), generator=_gen(dev, 4),
+                    device=dev).to(torch.bfloat16)
+    c = kern.cache
+    got = decode_attention_stream(q, c.k, c.v, c.ks, c.vs, 0, lengths,
+                                  starts, cfg.slow_attn.pallas_int8_scores,
+                                  pos_major=True)
+    ref = decode_attention_stream_plain(q, c.k, c.v, c.ks, c.vs, 0, lengths,
+                                        starts,
+                                        cfg.slow_attn.pallas_int8_scores,
+                                        pos_major=True)
+    torch.cuda.synchronize()
+    # as test_decode_attention_stream: a few bf16 ulps
+    assert (got.float() - ref.float()).abs().max().item() < 1.5e-2
+
+
+def test_per_row_step_matches_rowwise(dev):
+    """One decode step of four rows at per-row positions (#1 at B = 4 over
+    the per-row bounds) against each row stepped alone at batch 1 with a
+    host-int position (#1 at B = 1, another split of the keys): the same
+    int8 cache rows and scales bit for bit (written before any attention),
+    and the logits within the attention kernel's bf16 rounding."""
+    from fish_speech_tpu_torch.engine.scheduler import slice_slot_cache
+    from fish_speech_tpu_torch.models.dual_ar import forward_generate
+
+    cfg, params = _tick_model(dev)
+    g = _gen(dev, 9)
+    b, s = 4, 256
+    cache = KVCache.create(cfg.n_layer, b, s, cfg.n_local_heads,
+                           cfg.head_dim, dtype=torch.int8, pos_major=True,
+                           device=dev)
+    for a in (cache.k, cache.v):
+        a.copy_(torch.randint(-127, 128, a.shape, generator=g, device=dev))
+    for a in (cache.ks, cache.vs):
+        a.copy_(torch.rand(a.shape, generator=g, device=dev) * 0.02 + 1e-3)
+    rowwise = KVCache(*(a.clone() for a in (cache.k, cache.v, cache.ks,
+                                           cache.vs)), pos_major=True)
+    pos = torch.tensor([16, 200, 255, 37], dtype=torch.int32, device=dev)
+    starts = torch.tensor([7, 0, 0, 11], dtype=torch.int32, device=dev)
+    x = torch.randint(64, 96, (b, cfg.num_codebooks + 1, 1), generator=g,
+                      device=dev, dtype=torch.int32)
+    x[:, 1:] %= cfg.codebook_size
+    table = precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base, dev)
+    support = (64, 95, 4)
+    out = forward_generate(params, cfg, x, cache, pos, table,
+                           rope_positions=(pos - starts)[:, None],
+                           key_valid_from=starts, logit_support=support)
+    for r in range(b):
+        # the kernels read a contiguous cache: the row's rows copied out,
+        # stepped, and copied back into its slot
+        view = slice_slot_cache(rowwise, r)
+        parts = ("k", "v", "ks", "vs")
+        alone = KVCache(*(getattr(view, n).contiguous() for n in parts),
+                        pos_major=True)
+        one = forward_generate(
+            params, cfg, x[r:r + 1], alone, int(pos[r]), table,
+            rope_positions=(pos - starts)[r:r + 1, None],
+            key_valid_from=starts[r:r + 1].contiguous(),
+            logit_support=support)
+        for n in parts:
+            getattr(view, n).copy_(getattr(alone, n))
+        ref = one.logits.float()
+        err = (out.logits[r:r + 1].float() - ref).abs().max().item()
+        # bf16 activations after one attention whose kernels split the keys
+        # differently at B = 4 and B = 1: the ports' serving tolerance
+        assert err <= 2e-2 + 2e-2 * ref.abs().max().item(), (r, err)
+    torch.cuda.synchronize()
+    for name in ("k", "v", "ks", "vs"):
+        assert torch.equal(getattr(cache, name), getattr(rowwise, name)), name
