@@ -31,10 +31,19 @@ Phases, in order; any failure exits non-zero:
      lengths) once one at a time and once from six threads with staggered
      arrival, on two fresh batchers with the same seed; each request's
      codes must be the same in both runs, and so must the prefix hits and
-     misses and the chunked prefills; one `tts` through the scheduler must
-     give a finite waveform. Each request's agreement with the
-     non-scheduler path at batch 1 (greedy) is logged, not checked, and at
-     the first frame where the two differ, both paths' logits there;
+     misses and the chunked prefills; each request alone in a 1-slot
+     batcher must give the same greedy codes as in the 4-slot run (#1 at
+     batch 1 takes other CTAs but the same 128-key chunks); one `tts`
+     through the scheduler must give a finite waveform. Each request's
+     agreement with the non-scheduler path at batch 1 (greedy) is logged,
+     not checked, and at the first frame where the two differ, both
+     paths' logits there;
+  7. the codec's other paths, on the same weights through a phase-6
+     scheduler engine: warmup_vocoder(); stream_tts of one request, its
+     audio against the plain f32 decode of its codes; encode_reference of a
+     seeded 3 s waveform against dac_encode; decode_codes_batch of three
+     sequences in one fused call at batch 4 against their single decodes,
+     and #3/#4 against their plain twins at batch 4; under 120 s;
   5. the W4A8 serving path: that engine freed, build_engine(serving=True,
      quant="w4a8", kv_fold=True) from the same seed, then three `tts`
      requests, the last with W4A8_KERNEL=pc.
@@ -46,8 +55,9 @@ vocoder entries against their plain versions, and measures the int8
 vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
-the `{"scheduler": ...}` line, then the `{"kernels": [...]}` line, the card's name and power limit, and
-last the `{"ok": true, ...}` line.
+the `{"scheduler": ...}` and `{"codec": ...}` lines, then the
+`{"kernels": [...]}` line, the card's name and power limit, and last the
+`{"ok": true, ...}` line.
 """
 
 from __future__ import annotations
@@ -81,6 +91,23 @@ SCHED_SLOTS = 4       # phase 6: decode slots,
 SCHED_CHUNK = 4       # decode ticks a read-back while no request waits,
 PREFILL_CHUNK = 64    # prompt columns a prefill chunk
 SCHED_STAGGER_S = 0.4  # between the concurrent requests' arrivals
+STREAM_CHUNK = 16     # phase 7: stream_tts's chunk, in frames,
+STREAM_FIRST = 4      # its first cut,
+# and its audio against the plain f32 full decode: both f32 (no TF32), the
+# convs over chunks against over the whole sequence, so the sums run in
+# other orders; a wrong context or tail would be off by ~0.1
+STREAM_TOL = 1e-3
+ENCODE_SECONDS = 3.0  # the encode_reference waveform
+BATCH_FRAMES = (37, 52)  # two more sequences of decode_codes_batch
+# a batched item against its own decode_codes: bf16 vocoder kernels at
+# another batch and frame bucket (other tiles, other sum orders), the bound
+# the kernels have against their twins, 2^-5 of the waveform
+BATCH_TOL = 2 ** -5
+# #3/#4 against their twins at decode_codes_batch's batches: 4 (three
+# sequences) and 8 (its micro-batch, warmup_vocoder's default bucket)
+BATCH_TWIN_FRAMES = 64
+TWIN_BATCHES = (4, 8)
+CODEC_PHASE_S = 120.0
 # phase 6's requests: (text, voice reference (its frames) or None, frames
 # at most). Without a reference the system prompt is the default one, a
 # prefix all of them share (the first misses, the others hit); the two
@@ -194,15 +221,22 @@ class Checks:
 # ---------------------------------------------------------------------------
 
 
-def pos_split(b: int, s: int, hkv: int, dtype, dev) -> dict:
-    """The position-major kernel's split of a row's keys at these shapes
-    (logged with each case)."""
+def attn_plan(b: int, s: int, hkv: int, g: int, dev,
+              kernel: str = "pos") -> dict:
+    """The decode-attention kernel's (`kernel`: "pos" or "head") chunks of
+    a row's keys and their CTAs at these shapes (logged with each case):
+    n_split chunks of `chunk` keys; whole rows (one CTA a row) or one CTA
+    a chunk and a group of g / hs query heads."""
+    from fish_speech_tpu_torch.ops import attention as ta
     from fish_speech_tpu_torch.ops._cuda import sm_count
-    from fish_speech_tpu_torch.ops.attention import POS_TP, head_split
 
-    n_split, chunk = head_split(s, b, hkv, sm_count(dev.index or 0),
-                                POS_TP[dtype])
-    return {"n_split": n_split, "chunk": chunk}
+    n_sm = sm_count(dev.index or 0)
+    n_split, chunk = ta.head_split(s)
+    whole, hs = ta.cta_plan(n_split, b, hkv, g, n_sm, kernel)
+    return {"n_split": n_split, "chunk": chunk, "whole_rows": whole,
+            "head_groups": hs,
+            "ctas": (1 if whole else n_split * hs) * b * hkv,
+            "scratch_bytes": 0 if whole else b * hkv * n_split * g * 130 * 4}
 
 
 def check_attention(chk: Checks, cfg, dev,
@@ -266,8 +300,7 @@ def check_attention(chk: Checks, cfg, dev,
                               f"B={b} S={s} {fill}", max_err(got, ref),
                               1.5e-2, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, filled_positions=filled,
-                              fill=fill, **pos_split(b, s, hkv, k.dtype,
-                                                     dev)))
+                              fill=fill, **attn_plan(b, s, hkv, g, dev)))
         del k, v, ks, vs
         torch.cuda.empty_cache()
         bf16_cases.append(check_attention_pos_bf16(
@@ -329,7 +362,7 @@ def check_attention_pos_bf16(chk: Checks, q, lengths, starts, n_layer: int,
                     max_err(got, ref), tol, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                     filled_positions=filled, b=b, fill=fill,
-                    **pos_split(b, s, hkv, k.dtype, dev))
+                    **attn_plan(b, s, hkv, g, dev))
     del k, v
     torch.cuda.empty_cache()
     return case
@@ -387,9 +420,6 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
     (GQA); none computes the int8 cache's function. Also times the
     per-layer int8 route's eager dequantization of one layer (k and v,
     bf16 products). Returns {C entry: cases}."""
-    from fish_speech_tpu_torch.ops._cuda import sm_count
-    from fish_speech_tpu_torch.ops.attention import head_split
-
     n_layer, hkv, d = cfg.n_layer, cfg.n_local_heads, cfg.head_dim
     g = cfg.n_head // hkv
     cases = {name: [] for name, *_ in HEAD_ENTRIES}
@@ -407,9 +437,8 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
             lengths = torch.full((b,), s if fill == "full" else 256,
                                  dtype=torch.int32, device=dev)
             starts = torch.zeros((b,), dtype=torch.int32, device=dev)
-        n_split, chunk = head_split(s, b, hkv, sm_count(dev.index or 0))
-        log(f"  head-major B={b} S={s} {fill}: n_split={n_split} "
-            f"chunk={chunk} ({n_split * b * hkv} CTAs)")
+        split = attn_plan(b, s, hkv, g, dev, "head")
+        log(f"  head-major B={b} S={s} {fill}: {split}")
         pos = torch.arange(s, device=dev)
         mask = ((pos[None] >= starts[:, None])
                 & (pos[None] < lengths[:, None]))[:, None, None, :]
@@ -499,7 +528,7 @@ def check_attention_head(chk: Checks, cfg, dev, gen) -> dict:
                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                         library_ms=library_ms, filled_positions=filled,
                         cache=kind, int8_scores=i8, b=b, fill=fill,
-                        n_split=n_split, chunk=chunk))
+                        **split))
             del k, v, ks, vs
             torch.cuda.empty_cache()
     cases["decode_attention"][0]["int8_scan_dequant"] = dequant
@@ -716,7 +745,7 @@ def check_fold(chk: Checks, cfg, dev, gen) -> list[dict]:
             (c.vs, two.vs)))
         del two
         torch.cuda.empty_cache()
-        split = pos_split(b, s, hkv, torch.int8, dev)
+        split = attn_plan(b, s, hkv, g, dev)
         label = f"B={b} S={s} {fill} write_pos={wpos}"
         if not same:
             chk.failed.append(f"decode_attention_stream_fold [{label}]: "
@@ -932,16 +961,17 @@ def check_fast_sweep(chk: Checks, cfg, packed: dict, dev, gen,
     return cases
 
 
-def vocoder_inputs(engine, frames: int, dev, gen):
-    """The decoder's activations for `frames` random codes, through the
-    plain path: block 0's residual-stack input, then each fused block's."""
+def vocoder_inputs(engine, frames: int, dev, gen, batch: int = 1):
+    """The decoder's activations for `batch` rows of `frames` random codes,
+    through the plain path: block 0's residual-stack input, then each fused
+    block's."""
     from fish_speech_tpu_torch.codec.fastpath import (
         conv1d_mm, conv_transpose1d_phases, rvq_decode_mm)
     from fish_speech_tpu_torch.codec.nn import snake
 
     ccfg, packed = engine.codec_cfg, engine.packed_decoder
     codes = torch.randint(0, ccfg.rvq.codebook_size,
-                          (1, ccfg.rvq.n_codebooks + 1, frames),
+                          (batch, ccfg.rvq.n_codebooks + 1, frames),
                           generator=gen, device=dev)
     z = rvq_decode_mm(engine.codec_params["quantizer"], ccfg.rvq, codes)
     x = conv1d_mm(z.to(torch.bfloat16), packed["conv_in_w"],
@@ -998,21 +1028,21 @@ def with_biases(pb: dict, gen) -> dict:
     return {**pb, "res": {**pb["res"], "vec": vec}}
 
 
-def check_vocoder(chk: Checks, engine, frames: int, dev,
-                  gen) -> tuple[list[dict], list[dict]]:
+def check_vocoder(chk: Checks, engine, frames: int, dev, gen,
+                  batch: int = 1) -> tuple[list[dict], list[dict]]:
     """#4 (block 0's residual stack, 3 calls) and #3 (blocks 1-3, the last
     with the final conv and tanh) on the engine's packed decoder (`engine`
-    needs codec_cfg, codec_params and packed_decoder); #4 with its conv
-    biases drawn from `gen` (`with_biases`). Each case logs the kernel's
-    plan and the device kernels one call runs (profiler); a call must
-    count one launch."""
+    needs codec_cfg, codec_params and packed_decoder) at `batch` rows of
+    `frames` codec frames; #4 with its conv biases drawn from `gen`
+    (`with_biases`). Each case logs the kernel's plan and the device
+    kernels one call runs (profiler); a call must count one launch."""
     from fish_speech_tpu_torch.ops.voc_fused import (
         BLOCK, DILATIONS, RES_STACK, fused_block, fused_block_plain,
         fused_res_stack, fused_res_stack_plain)
 
     packed, ccfg = engine.packed_decoder, engine.codec_cfg
     blocks = packed["blocks"]
-    x = vocoder_inputs(engine, frames, dev, gen)
+    x = vocoder_inputs(engine, frames, dev, gen, batch)
     # both sides keep the state between units in bf16 with f32 sums; sums
     # in another order move a bf16 rounding by one ulp (2^-8 relative), and
     # such steps compound over the units: 2^-5 of the output's scale
@@ -1026,7 +1056,7 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
                        2, 1)
     t, c = x.shape[1], x.shape[2]
     b_ms, b_by = bound(3 * nbytes(x, got) + nbytes(*(pb["res"][k] for k in (
-        "w7", "w1", "vec"))), {"bf16": unit_flops(t, c, 3)})
+        "w7", "w1", "vec"))), {"bf16": unit_flops(batch * t, c, 3)})
     before = RES_STACK.launches
     names, calls = device_kernels(lambda: res_stack_block0(
         x, pb, fused_res_stack))
@@ -1035,9 +1065,10 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
         chk.failed.append(f"voc_res_stack [block 0]: one call made "
                           f"{per_call} launches")
     res_cases.append(chk.case(
-        "voc_res_stack", f"block 0 F={frames} T={t} C={c}", max_err(got, ref),
-        2 ** -5 * ref.float().abs().max().item(), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, block=0, frames=frames,
+        "voc_res_stack", f"block 0 B={batch} F={frames} T={t} C={c}",
+        max_err(got, ref), 2 ** -5 * ref.float().abs().max().item(), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, block=0,
+        frames=frames, batch=batch,
         device_kernels_per_call=len(names) / 3,
         device_kernels=sorted({n[:40] for n in names}),
         **pass_plan("voc_res_plan", dev, *x.shape, DILATIONS[0])))
@@ -1056,9 +1087,9 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
         t_in, c_in = x.shape[1], x.shape[2]
         c = pb["res"]["w1"].shape[-1]
         t = t_in * stride
-        flops = 2 * t_in * c_in * 2 * stride * c + unit_flops(t, c, 3)
-        if final:
-            flops += 2 * 7 * c * t
+        flops = batch * (2 * t_in * c_in * 2 * stride * c
+                         + unit_flops(t, c, 3) + (2 * 7 * c * t if final
+                                                  else 0))
         wts = [pb["res"][k] for k in ("tconv_pw", "tconv_pb", "w7", "w1",
                                       "vec")]
         b_ms, b_by = bound(nbytes(x, got, *wts), {"bf16": flops})
@@ -1072,9 +1103,10 @@ def check_vocoder(chk: Checks, engine, frames: int, dev,
         # the waveform is tanh'd into [-1, 1]: 2^-5 absolute there
         scale = 1.0 if final else ref.float().abs().max().item()
         block_cases.append(chk.case(
-            "voc_block", f"block {bi} F={frames} T={t} C={c_in}->{c}",
-            max_err(got, ref), 2 ** -5 * scale, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, block=bi, frames=frames,
+            "voc_block", f"block {bi} B={batch} F={frames} T={t} "
+            f"C={c_in}->{c}", max_err(got, ref), 2 ** -5 * scale, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, block=bi,
+            frames=frames, batch=batch,
             device_kernels_per_call=len(names),
             device_kernels=sorted({n[:40] for n in names}),
             **pass_plan("voc_block_plan", dev, *x.shape, c, stride,
@@ -1471,17 +1503,12 @@ def split_witness(engine, seg: dict, ref, f: int) -> dict:
     code row, the batch-1 logits' top-two gap beside the largest
     difference between the two paths' logits there, at frame 0's calls
     (the prefills) and at every earlier call. Both replays must reproduce
-    their codes (`replay_equal`).
-
-    Two more replays run the request alone in a 1-slot batcher (the same
-    cache layout as the scheduler's, no other row): `one_slot` as it
-    comes, `one_slot_b4_split` with #1 splitting the keys as it does at
-    B = SCHED_SLOTS (`head_split`, a choice from shapes only). Each gives
-    its largest logit difference from the SCHED_SLOTS replay up to the
-    split call and whether its codes equal the scheduler's."""
+    their codes (`replay_equal`). A third replay runs the request alone in
+    a 1-slot batcher (the same cache layout as the scheduler's, no other
+    row): `one_slot`, its largest logit difference from the SCHED_SLOTS
+    replay up to the split call and whether its codes equal the
+    scheduler's."""
     import numpy as np
-
-    from fish_speech_tpu_torch.ops import attention
 
     sched = seg["codes"]
     row = int(np.flatnonzero(sched[:, f] != ref[:, f])[0])
@@ -1495,16 +1522,8 @@ def split_witness(engine, seg: dict, ref, f: int) -> dict:
         sc = scheduler_replay(engine, seg, f + 1)
     with LogitRecorder() as r3:
         one = scheduler_replay(engine, seg, f + 1, slots=1)
-    inner = attention.head_split
-    attention.head_split = lambda s, b, *a, **kw: inner(
-        s, max(b, SCHED_SLOTS), *a, **kw)
-    try:
-        with LogitRecorder() as r4:
-            one_b4 = scheduler_replay(engine, seg, f + 1, slots=1)
-    finally:
-        attention.head_split = inner
     # row 0 of every call: batch 1, or slot 0 of the replay's ticks
-    a, b, c, d = ([t[0] for t in r.calls] for r in (r1, r2, r3, r4))
+    a, b, c = ([t[0] for t in r.calls] for r in (r1, r2, r3))
 
     def maxdiff(xs, ys):
         out = 0.0
@@ -1528,8 +1547,7 @@ def split_witness(engine, seg: dict, ref, f: int) -> dict:
             "argmax_batch1_sched": [int(a[i].argmax()), int(b[i].argmax())],
             "replay_equal": bool(np.array_equal(b1, ref[:, :f + 1])
                                  and np.array_equal(sc, sched[:, :f + 1])),
-            "one_slot": against_sched(c, one),
-            "one_slot_b4_split": against_sched(d, one_b4)}
+            "one_slot": against_sched(c, one)}
 
 
 def batcher_counts(b) -> dict:
@@ -1628,16 +1646,27 @@ def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
         problems.append(f"not launched {missing}, launched off route "
                         f"{stray}")
 
-    # the non-scheduler path at batch 1 (greedy), logged, not checked: the
-    # two paths bucket the prompt differently. At the first frame where
-    # they differ, both paths' logits there (split_witness)
-    shared, splits = [], []
+    # each request alone in a 1-slot batcher (checked): #1 at B = 1 takes
+    # other CTAs than at B = SCHED_SLOTS but the same chunks of keys, so
+    # the greedy codes must equal the SCHED_SLOTS run's (Queue C2). The
+    # non-scheduler path at batch 1 (greedy), logged, not checked: the two
+    # paths lay the prompt out at other cache columns. At the first frame
+    # where they differ, both paths' logits there (split_witness)
+    shared, splits, one_slot_equal = [], [], []
     if len(segs) != len(solo_codes):
         problems.append(f"{len(segs)} segments for {len(solo_codes)} "
                         f"requests")
         segs = []
-    for seg in segs:
+    for i, seg in enumerate(segs):
         a = seg["codes"]
+        one = scheduler_replay(engine, seg, seg["max_new"], slots=1)
+        one_slot_equal.append(bool(np.array_equal(one, a)))
+        if not one_slot_equal[-1]:
+            diff = next((j for j in range(min(a.shape[1], one.shape[1]))
+                         if not (a[:, j] == one[:, j]).all()),
+                        min(a.shape[1], one.shape[1]))
+            problems.append(f"request {i}: 1-slot codes {one.shape} != "
+                            f"{SCHED_SLOTS}-slot {a.shape} from frame {diff}")
         ref = batch1_codes(engine, seg, seg["max_new"])
         m = min(a.shape[1], ref.shape[1])
         same = [bool((a[:, j] == ref[:, j]).all()) for j in range(m)]
@@ -1658,6 +1687,7 @@ def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
         "solo": {**rate("solo"), **c_solo},
         "concurrent": {**rate("concurrent"), **c_conc},
         "tts_frames": n, "launches": launches,
+        "one_slot_codes_equal": one_slot_equal,
         "frames_shared_with_batch1": shared,
         "first_split": splits,
         "phase_s": time.perf_counter() - t_phase}}
@@ -1704,6 +1734,178 @@ def profile_scheduler(engine, n_rows: int) -> None:
     log_profile(prof, f"profile scheduler: {len(reqs)} requests x 16 "
                 f"frames, {ticks} ticks, wall {wall * 1e3:.1f} ms", wall,
                 n_rows)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the codec's streaming, batched-decode and encode paths
+# ---------------------------------------------------------------------------
+
+
+def run_codec(engine, kernels: dict, chk: Checks, card: str, dev,
+              gen) -> dict:
+    """Phase 7 on `engine`'s weights, through a scheduler engine built as
+    phase 6 builds it (greedy, SCHED_SLOTS slots); returns the path's
+    launch counts. In order: warmup_vocoder(); stream_tts of one request
+    (chunks of STREAM_CHUNK frames, the first cut at STREAM_FIRST), whose
+    audio must equal the plain f32 dac_from_indices of its codes within
+    STREAM_TOL (its error against the bf16 fused decode_codes and the time
+    to its first chunk are logged); encode_reference of a seeded
+    ENCODE_SECONDS waveform, whose codes must be in range, of shape
+    (K+1, ceil(n / frame_length)) and equal to dac_encode of the waveform
+    zero-padded as encode_reference pads it; decode_codes_batch of three
+    code sequences of different lengths, one fused call at batch 4, each
+    within BATCH_TOL of its own decode_codes. The launches are read after
+    those, and then #3/#4 are held against their plain twins at batches 4
+    and 8 (`check_vocoder`, TWIN_BATCHES). f32 products and convs run
+    without TF32 (main sets it off). The phase must take under
+    CODEC_PHASE_S."""
+    import numpy as np
+
+    from fish_speech_tpu_torch.codec import fastpath
+    from fish_speech_tpu_torch.codec.model import dac_encode, dac_from_indices
+    from fish_speech_tpu_torch.engine.generate import GenerateLongRequest
+
+    t_phase = time.perf_counter()
+    ccfg = engine.codec_cfg
+    fl = ccfg.frame_length
+    for k in kernels.values():
+        k.launches = 0
+    problems, report = [], {"card": card}
+    eng = scheduler_engine(engine)
+    submitted = []
+    submit = eng.scheduler.submit
+
+    def recorded(req):
+        submitted.append(req)
+        return submit(req)
+
+    eng.scheduler.submit = recorded
+    try:
+        t0 = time.perf_counter()
+        eng.warmup_vocoder()
+        torch.cuda.synchronize()
+        report["warmup_vocoder_s"] = time.perf_counter() - t0
+
+        # (a) stream_tts
+        text, _, frames = SCHED_REQUESTS[0]
+        chunks, first_s = [], None
+        t0 = time.perf_counter()
+        for w in eng.stream_tts(GenerateLongRequest(
+                text=text, max_new_tokens=frames, seed=SEED),
+                chunk_frames=STREAM_CHUNK, first_chunk_frames=STREAM_FIRST):
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+            chunks.append(w)
+        stream_s = time.perf_counter() - t0
+        codes = np.stack(submitted[-1].result, axis=1)[1:]
+        n = codes.shape[1]
+        streamed = np.concatenate(chunks) if chunks else np.zeros(0)
+        plain = dac_from_indices(engine.codec_params, ccfg, torch.from_numpy(
+            codes.astype(np.int64))[None].to(dev))[0].cpu().numpy()
+        fused = eng.decode_codes(codes)
+        ok = streamed.shape == plain.shape == (n * fl,) and n > 0
+        err = float(np.abs(streamed - plain).max()) if ok else float("inf")
+        report["stream"] = {
+            "frames": n, "chunks": [len(c) // fl for c in chunks],
+            "first_chunk_s": first_s, "stream_s": stream_s,
+            "max_abs_err_vs_plain_f32": err, "tol": STREAM_TOL,
+            "max_abs_err_vs_fused_bf16": float(np.abs(
+                streamed - fused).max()) if ok else None}
+        if not ok or not err <= STREAM_TOL:
+            problems.append(f"stream_tts: {n} frames, audio "
+                            f"{streamed.shape} against {plain.shape}, max "
+                            f"error {err:.3g} > {STREAM_TOL}")
+
+        # (b) encode_reference
+        n_samples = int(ENCODE_SECONDS * ccfg.sample_rate)
+        wav = (np.random.default_rng(SEED).standard_normal(n_samples)
+               * 0.1).astype(np.float32)
+        t0 = time.perf_counter()
+        ref_codes = eng.encode_reference(wav)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        n_frames = -(-n_samples // fl)
+        bucket = max(32, -(-n_frames // 64) * 64)
+        padded = np.zeros((1, bucket * fl), np.float32)
+        padded[0, :n_samples] = wav
+        direct = dac_encode(engine.codec_params, ccfg,
+                            torch.from_numpy(padded), device=dev)
+        direct = direct.codes[0, :, :n_frames].cpu().numpy()
+        rvq = ccfg.rvq
+        in_range = bool((ref_codes >= 0).all()
+                        and (ref_codes[0] < rvq.semantic_codebook_size).all()
+                        and (ref_codes[1:] < rvq.codebook_size).all())
+        report["encode"] = {"samples": n_samples, "frames": n_frames,
+                            "bucket_frames": bucket, "s": enc_s,
+                            "in_range": in_range,
+                            "equal_to_dac_encode": bool(np.array_equal(
+                                ref_codes, direct))}
+        if ref_codes.shape != (rvq.total_codebooks, n_frames) or \
+                not in_range or not np.array_equal(ref_codes, direct):
+            problems.append(f"encode_reference: {report['encode']}, shape "
+                            f"{ref_codes.shape}")
+
+        # (c) decode_codes_batch: the streamed codes and two seeded ones
+        rng = np.random.default_rng(SEED + 7)
+        seqs = [codes] + [np.concatenate([
+            rng.integers(0, rvq.semantic_codebook_size, (1, t)),
+            rng.integers(0, rvq.codebook_size, (rvq.n_codebooks, t))])
+            for t in BATCH_FRAMES]
+        singles = [eng.decode_codes(c) for c in seqs]
+        calls, inner = [], fastpath.dac_from_indices_fused
+
+        def counting(p, cfg, c, **kw):
+            calls.append(tuple(c.shape))
+            return inner(p, cfg, c, **kw)
+
+        fastpath.dac_from_indices_fused = counting
+        try:
+            t0 = time.perf_counter()
+            wavs = eng.decode_codes_batch(seqs)
+            torch.cuda.synchronize()
+            batch_s = time.perf_counter() - t0
+        finally:
+            fastpath.dac_from_indices_fused = inner
+        errs = [float(np.abs(a - b).max()) if a.shape == b.shape
+                else float("inf") for a, b in zip(wavs, singles)]
+        report["decode_batch"] = {"frames": [c.shape[1] for c in seqs],
+                                  "calls": calls, "s": batch_s,
+                                  "max_abs_err_vs_single": errs,
+                                  "tol": BATCH_TOL}
+        if len(calls) != 1 or calls[0][0] != 4 or max(errs) > BATCH_TOL:
+            problems.append(f"decode_codes_batch: {report['decode_batch']}")
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    route = ("decode_attention_stream", "fast_sweep", "voc_block",
+             "voc_res_stack")
+    missing = [k for k in route if launches[k] < 1]
+    stray = [k for k in launches if k not in route and launches[k] > 0]
+    if missing or stray:
+        problems.append(f"not launched {missing}, launched off route "
+                        f"{stray}")
+    # #3/#4 against their plain twins at decode_codes_batch's batches
+    for batch in TWIN_BATCHES:
+        res, blocks = check_vocoder(chk, engine, BATCH_TWIN_FRAMES, dev,
+                                    gen, batch=batch)
+        report[f"twins_batch{batch}"] = [
+            {k: c[k] for k in ("case", "max_abs_err", "tol", "ms",
+                               "plain_ms")}
+            for c in res + blocks]
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    if report["phase_s"] > CODEC_PHASE_S:
+        problems.append(f"phase 7 took {report['phase_s']:.1f} s > "
+                        f"{CODEC_PHASE_S} s")
+    print(json.dumps({"codec": report}), flush=True)
+    log(f"codec ({card}): first audio {first_s} s, stream error "
+        f"{report['stream']['max_abs_err_vs_plain_f32']:.3g}, encode "
+        f"{enc_s:.2f} s, batch errors {errs}, phase "
+        f"{report['phase_s']:.1f} s")
+    if problems:
+        chk.failed.append("codec: " + "; ".join(problems))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1836,6 +2038,9 @@ def main() -> int:
     if args.profile:
         profile_scheduler(engine, args.profile)
 
+    # phase 7: streaming, batched decode and encode on the same weights
+    by_path["codec"] = run_codec(engine, kernels, chk, card, dev, gen)
+
     # phase 5: the W4A8 path with the KV-write fold, same seed
     del engine
     gc.collect()
@@ -1888,7 +2093,7 @@ def main() -> int:
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
-              ["int8", "scheduler"]),
+              ["int8", "scheduler", "codec"]),
         entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
               attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
@@ -1902,12 +2107,12 @@ def main() -> int:
                            "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
                            decode(w4a8_pc), "w4a8_fold")),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
-              sweep[3:4], ["int8", "scheduler"]),
+              sweep[3:4], ["int8", "scheduler", "codec"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
-              ["int8", "scheduler"]),
+              ["int8", "scheduler", "codec"]),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              res[:1], ["int8", "scheduler"]),
+              res[:1], ["int8", "scheduler", "codec"]),
         # the int8 configurations (VOC_QUANT)
         entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
               blk_i8, "voc_quant"),

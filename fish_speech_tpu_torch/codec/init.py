@@ -1,8 +1,10 @@
 """Random codec parameters, and the weight carry from the JAX package.
 
-Counterpart of `fish_speech_tpu/codec/init.py::init_dac_params`, for the
-parameters decoding reads (quantizer decode side and decoder); the encoder
-arrives with codec encode. Layouts match the JAX package's tree.
+Counterpart of `fish_speech_tpu/codec/init.py::init_dac_params`. Layouts
+match the JAX package's tree. The draws run in another order than JAX's:
+first what decoding reads (the quantizer's decode side, then the decoder),
+then the encoder and the quantizer's encode side, so that a seed gives the
+decode parameters it gave before the encoder was ported.
 """
 
 from __future__ import annotations
@@ -94,6 +96,46 @@ def init_quantizer(r: _Init, cfg: RVQConfig) -> dict:
     return params
 
 
+def init_quantizer_encode(r: _Init, cfg: RVQConfig) -> dict:
+    """The quantizer's encode side: the codebooks' input projections, the
+    downsample stages and the pre-module transformer."""
+    d, cd = cfg.input_dim, cfg.codebook_dim
+    return {
+        "semantic_in_w": r.w((1, d, cd)),
+        "semantic_in_b": r.full((1, cd), 0),
+        "residual_in_w": r.w((cfg.n_codebooks, d, cd)),
+        "residual_in_b": r.full((cfg.n_codebooks, cd), 0),
+        "downsample": [{"conv_w": r.w((factor, d, d)),
+                        "conv_b": r.full((d,), 0),
+                        "convnext": _convnext_p(r, d)}
+                       for factor in cfg.downsample_factor],
+        "pre_module": _transformer_p(r, cfg.pre_post_transformer,
+                                     cfg.input_dim),
+    }
+
+
+def init_encoder(r: _Init, cfg: DACConfig) -> dict:
+    params = {"conv_in_w": r.w((7, 1, cfg.encoder_dim)),
+              "conv_in_b": r.full((cfg.encoder_dim,), 0), "blocks": []}
+    dim = cfg.encoder_dim
+    for stride, n_t in zip(cfg.encoder_rates, cfg.encoder_transformer_layers):
+        dim *= 2
+        block = {
+            "res_units": [_res_unit_p(r, dim // 2) for _ in range(3)],
+            "snake_alpha": r.full((dim // 2,), 1),
+            "conv_w": r.w((2 * stride, dim // 2, dim)),
+            "conv_b": r.full((dim,), 0),
+        }
+        if n_t > 0:
+            block["transformer"] = _transformer_p(
+                r, cfg.encoder_block_transformer(dim, n_t))
+        params["blocks"].append(block)
+    params["snake_alpha"] = r.full((dim,), 1)
+    params["conv_out_w"] = r.w((3, dim, cfg.resolved_latent_dim))
+    params["conv_out_b"] = r.full((cfg.resolved_latent_dim,), 0)
+    return params
+
+
 def init_decoder(r: _Init, cfg: DACConfig) -> dict:
     params = {"conv_in_w": r.w((7, cfg.resolved_latent_dim, cfg.decoder_dim)),
               "conv_in_b": r.full((cfg.decoder_dim,), 0), "blocks": []}
@@ -116,11 +158,15 @@ def init_decoder(r: _Init, cfg: DACConfig) -> dict:
 
 def init_dac_params(gen: torch.Generator, cfg: DACConfig,
                     device=None) -> dict:
-    """Truncated-normal random decode parameters (f32), drawn from `gen`
-    on `device` (CUDA by default)."""
+    """Truncated-normal random codec parameters (f32), drawn from `gen` on
+    `device` (CUDA by default): the decode side first, then the encoder and
+    the quantizer's encode side."""
     r = _Init(gen, resolve_device(device))
-    return {"quantizer": init_quantizer(r, cfg.rvq),
-            "decoder": init_decoder(r, cfg)}
+    quantizer = init_quantizer(r, cfg.rvq)
+    decoder = init_decoder(r, cfg)
+    encoder = init_encoder(r, cfg)
+    quantizer.update(init_quantizer_encode(r, cfg.rvq))
+    return {"encoder": encoder, "quantizer": quantizer, "decoder": decoder}
 
 
 def codec_params_from_jax(tree, device=None):

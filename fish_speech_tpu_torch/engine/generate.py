@@ -4,13 +4,16 @@ Counterpart of `fish_speech_tpu/engine/generate.py`: speaker-tag
 splitting, byte/speaker-bounded batching, a system prompt carrying the
 voice-cloning reference, per-batch conversation growth, the decode loop of
 models/decode.py or the continuous-batching scheduler of
-engine/scheduler.py, and the fused vocoder of codec/fastpath.py.
+engine/scheduler.py, the fused vocoder of codec/fastpath.py (whole and
+batched decodes), the streaming vocoder of codec/streaming.py
+(`stream_tts`) and the codec's encoder (`encode_reference`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import queue
 import re
 import threading
 import time
@@ -146,6 +149,9 @@ class TTSEngine:
             cfg.vocab_size, cfg.semantic_begin_id, cfg.semantic_end_id,
             self.im_end_id, device=self.device)
         self.packed_decoder = None
+        # stream-step widths already run once in this engine (stream_tts
+        # warms each width once, not per request)
+        self._stream_warm_widths: set[int] = set()
         if codec_params is not None:
             from ..codec.fastpath import pack_decoder
 
@@ -239,6 +245,84 @@ class TTSEngine:
         fl = self.codec_cfg.frame_length
         return wav[0, :n * fl].float().cpu().numpy()
 
+    def decode_codes_batch(self, codes_list: list[np.ndarray],
+                           micro_batch: int = 8) -> list[np.ndarray]:
+        """Many (K, T_i) code sequences -> their waveforms, in groups of
+        `micro_batch` in submission order: a group is padded with zero
+        codes to its longest item's frame bucket (`decode_codes`'s rule)
+        and to a power-of-two batch, and decoded by one call of the fused
+        decoder."""
+        from ..codec.fastpath import dac_from_indices_fused
+
+        if self.codec_params is None:
+            raise RuntimeError("no codec attached")
+        fl = self.codec_cfg.frame_length
+        out: list[np.ndarray] = []
+        for lo in range(0, len(codes_list), micro_batch):
+            group = codes_list[lo:lo + micro_batch]
+            lens = [c.shape[1] for c in group]
+            bucket = max(32, -(-max(lens) // 64) * 64)
+            bb = 1
+            while bb < len(group):
+                bb *= 2
+            padded = np.zeros((bb, group[0].shape[0], bucket), np.int64)
+            for i, c in enumerate(group):
+                padded[i, :, :c.shape[1]] = c
+            wav = dac_from_indices_fused(
+                self.codec_params, self.codec_cfg, torch.from_numpy(padded),
+                packed=self.packed_decoder, device=self.device)
+            wav = wav.float().cpu().numpy()
+            out.extend(wav[i, :n * fl] for i, n in enumerate(lens))
+        return out
+
+    def encode_reference(self, wav: np.ndarray) -> np.ndarray:
+        """A reference waveform (n,) -> its (K, ceil(n / frame_length))
+        codes. The samples are zero-padded to a bucket of max(32,
+        ceil(frames / 64) * 64) frames, JAX's rule (the encoder is causal:
+        the padding changes no earlier code)."""
+        from ..codec.model import dac_encode
+
+        if self.codec_params is None:
+            raise RuntimeError("no codec attached")
+        fl = self.codec_cfg.frame_length
+        n_frames = -(-len(wav) // fl)
+        bucket = max(32, -(-n_frames // 64) * 64)
+        padded = np.zeros(bucket * fl, dtype=np.float32)
+        padded[:len(wav)] = wav
+        res = dac_encode(self.codec_params, self.codec_cfg,
+                         torch.from_numpy(padded)[None], device=self.device)
+        return res.codes[0, :, :n_frames].cpu().numpy()
+
+    def warmup_vocoder(self, buckets=((1, 32), (8, 64)),
+                       stream_widths=(4, 16)) -> None:
+        """Run the serving vocoder twice on each (batch, frames) bucket and,
+        with the scheduler, the stream step once at each width, so that no
+        request pays the first use (the kernels' nvcc build, cuDNN's
+        planning of the stream step's convs)."""
+        from ..codec.fastpath import dac_from_indices_fused
+        from ..codec.streaming import StatefulVocoder, init_vocoder_state
+
+        if self.codec_params is None:
+            raise RuntimeError("no codec attached")
+        n_q = self.codec_cfg.rvq.total_codebooks
+        for bb, frames in buckets:
+            codes = torch.zeros((bb, n_q, frames), dtype=torch.int64)
+            for _ in range(2):
+                dac_from_indices_fused(self.codec_params, self.codec_cfg,
+                                       codes, packed=self.packed_decoder,
+                                       device=self.device)
+        if self.scheduler is not None and stream_widths:
+            voc = StatefulVocoder(self.codec_params, self.codec_cfg,
+                                  chunk_frames=max(stream_widths),
+                                  device=self.device)
+            for w in sorted(set(stream_widths)):
+                st = init_vocoder_state(self.codec_params, self.codec_cfg,
+                                        device=self.device)
+                voc.step(st, torch.zeros((1, n_q, w), dtype=torch.int64))
+                self._stream_warm_widths.add(w)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def generate_long(self, req: GenerateLongRequest
                       ) -> Iterator[GenerateResponse]:
         cfg = self.cfg
@@ -309,6 +393,157 @@ class TTSEngine:
         segs = [r for r in self.generate_long(req) if r.action == "sample"]
         codes = np.concatenate([r.codes for r in segs], axis=1)
         return self.decode_codes(codes), codes, sum(r.wall_s for r in segs)
+
+    def stream_tts(self, req: GenerateLongRequest, chunk_frames: int = 16,
+                   first_chunk_frames: int | None = 4
+                   ) -> Iterator[np.ndarray]:
+        """Yield waveform chunks while the codes are still being decoded.
+
+        Needs the scheduler and a codec. Each segment goes to the scheduler
+        as a request whose `on_token` hook hands its code columns over as
+        they are sampled (the system prompt marked as a shared prefix, as
+        in `generate_long`); every `chunk_frames` frames go to a vocoder
+        thread that runs the stateful streaming vocoder, so the first audio
+        comes after the prefill and one chunk of decoding. The first chunk
+        is cut at `first_chunk_frames` (None, or not below chunk_frames:
+        no smaller first cut). The chunks concatenate to the decode of the
+        whole stream's codes. The vocoder thread first runs the stream step
+        once at each width not yet run in this engine, while the prompt
+        prefills; its errors, that warm start's too, reach the caller
+        through this generator. Closing the generator early cancels the
+        request's slot."""
+        from ..codec.streaming import StatefulVocoder, init_vocoder_state
+        from .scheduler import SlotRequest
+
+        if self.scheduler is None:
+            raise RuntimeError("stream_tts needs the scheduler "
+                               "(scheduler_slots > 0)")
+        if self.codec_params is None:
+            raise RuntimeError("no codec attached")
+        conversation = build_base_conversation(req.prompt_text,
+                                               req.prompt_tokens)
+        turns = split_text_by_speaker(req.text)
+        batches = (group_turns_into_batches(turns, max_speakers=5,
+                                            max_bytes=req.chunk_length)
+                   if turns else [req.text])
+        prefix_id, prefix_len = self._system_prefix(conversation)
+        vocoder = StatefulVocoder(self.codec_params, self.codec_cfg,
+                                  chunk_frames=chunk_frames,
+                                  device=self.device)
+        first = (first_chunk_frames if first_chunk_frames
+                 and first_chunk_frames < chunk_frames else None)
+        if first:
+            vocoder.chunk = first          # back to chunk_frames after it
+        done_mark = object()
+        voc_in: queue.Queue = queue.Queue()
+        voc_out: queue.Queue = queue.Queue()
+        n_q = self.codec_cfg.rvq.total_codebooks
+
+        def voc_worker():
+            try:
+                todo = [w for w in sorted({first or chunk_frames,
+                                           chunk_frames})
+                        if w not in self._stream_warm_widths]
+                if todo:
+                    st0 = init_vocoder_state(self.codec_params,
+                                             self.codec_cfg,
+                                             device=self.device)
+                    for w in todo:
+                        vocoder.step(st0, torch.zeros((1, n_q, w),
+                                                      dtype=torch.int64))
+                        self._stream_warm_widths.add(w)
+                while True:
+                    item = voc_in.get()
+                    if item is None:
+                        for w in vocoder.feed(final=True):
+                            voc_out.put(w)
+                        break
+                    for w in vocoder.feed(item):
+                        voc_out.put(w)
+                        vocoder.chunk = chunk_frames   # the first cut is done
+            except Exception as e:  # noqa: BLE001 - raised by the generator
+                voc_out.put(e)
+            voc_out.put(done_mark)
+
+        def ready():
+            """The audio the vocoder thread has ready, without waiting."""
+            while True:
+                try:
+                    w = voc_out.get_nowait()
+                except queue.Empty:
+                    return
+                if isinstance(w, Exception):
+                    raise w
+                yield w
+
+        worker = threading.Thread(target=voc_worker, daemon=True)
+        worker.start()
+        slot_req = None
+        try:
+            for batch_text in batches:
+                conversation.append(Message(
+                    role="user", parts=[TextPart(text=batch_text)],
+                    add_im_start=True, add_im_end=True))
+                conv_gen = conversation.copy()
+                conv_gen.append(Message(role="assistant", parts=[],
+                                        modality="voice", add_im_start=True,
+                                        add_im_end=False))
+                encoded = conv_gen.encode_for_inference(
+                    self.tokenizer, num_codebooks=self.cfg.num_codebooks)
+                cols: queue.Queue = queue.Queue()
+                with self._id_lock:
+                    self._next_request_id += 1
+                    rid = self._next_request_id
+                max_new = req.max_new_tokens or (self.cache_len
+                                                 - encoded.shape[1] - 1)
+                slot_req = SlotRequest(
+                    request_id=rid, prompt=encoded.astype(np.int32),
+                    max_new_tokens=max_new, temperature=req.temperature,
+                    top_p=req.top_p, top_k=req.top_k, prefix_id=prefix_id,
+                    prefix_len=prefix_len,
+                    on_token=lambda _rid, col: cols.put(col))
+                self.scheduler.submit(slot_req)
+                pending: list[np.ndarray] = []
+                send_at = first or chunk_frames
+                done = False
+                while not done or not cols.empty():
+                    try:
+                        pending.append(cols.get(timeout=0.05)[1:])
+                    except queue.Empty:
+                        done = slot_req.done.is_set()
+                    if len(pending) >= send_at:
+                        voc_in.put(np.stack(pending, axis=1))
+                        pending = []
+                        send_at = chunk_frames
+                    yield from ready()
+                    done = done or slot_req.done.is_set()
+                if slot_req.error is not None:
+                    raise slot_req.error
+                if pending:
+                    voc_in.put(np.stack(pending, axis=1))
+                # the segment's codes grow the conversation, as in
+                # generate_long
+                if slot_req.result:
+                    seg = np.stack(slot_req.result, axis=1)[1:]
+                    conversation.append(Message(
+                        role="assistant", parts=[VQPart(codes=seg)],
+                        modality="voice", add_im_start=True,
+                        add_im_end=True))
+            voc_in.put(None)                   # flush the vocoder's tail
+            while True:
+                w = voc_out.get()
+                if w is done_mark:
+                    break
+                if isinstance(w, Exception):
+                    raise w
+                yield w
+            worker.join(timeout=60)
+        finally:
+            if slot_req is not None and not slot_req.done.is_set():
+                # an abandoned stream frees its decode slot at once
+                slot_req.cancel()
+            if worker.is_alive():
+                voc_in.put(None)
 
 
 def serving_config(cfg: DualARConfig, kv_fold: bool = False, *,

@@ -53,9 +53,13 @@ def param_dtype(params: dict) -> torch.dtype:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """f32 statistics; the result is cast back to x.dtype BEFORE the weight
-    multiply, as in the JAX function."""
+    multiply, as in the JAX function. The mean of squares is summed in
+    float64 and rounded to f32 once: torch orders an f32 sum by the
+    tensor's shape, which made a row's last bit, and then a bf16 rounding,
+    depend on the batch (a request alone and inside a batch parted)."""
     xf = x.float()
-    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    ms = xf.double().square().mean(dim=-1, keepdim=True).float()
+    normed = xf * torch.rsqrt(ms + eps)
     return normed.to(x.dtype) * weight.to(x.dtype)
 
 

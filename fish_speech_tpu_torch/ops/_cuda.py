@@ -40,21 +40,21 @@ _F = ctypes.c_float
 # cudaError_t of its launches as an int
 SIGNATURES = {
     # q k v ks vs lengths starts out part | L S B Hkv G D layer n_split
-    # chunk | scale | int8_scores | stream
-    "decode_attention_stream": ("decode_attention", [_P] * 9 + [_I] * 9
+    # whole hs (ops/attention.py::cta_plan) | scale | int8_scores | stream
+    "decode_attention_stream": ("decode_attention", [_P] * 9 + [_I] * 10
                                 + [_F, _I, _P]),
-    # q k v lengths starts out part | L S B Hkv G D layer n_split chunk |
+    # q k v lengths starts out part | L S B Hkv G D layer n_split whole hs |
     # scale | stream
-    "decode_attention_stream_bf16": ("decode_attention", [_P] * 7 + [_I] * 9
+    "decode_attention_stream_bf16": ("decode_attention", [_P] * 7 + [_I] * 10
                                      + [_F, _P]),
     # q k v ks vs lengths starts out part new_k new_v | L S B Hkv G D layer
-    # write_pos n_split chunk | scale | int8_scores | stream
+    # write_pos n_split whole hs | scale | int8_scores | stream
     "decode_attention_stream_fold": ("decode_attention", [_P] * 11
-                                     + [_I] * 10 + [_F, _I, _P]),
+                                     + [_I] * 11 + [_F, _I, _P]),
     # the head-major entries, one per JAX entry: q k v ks vs lengths starts
-    # out part | L S B Hkv G D layer n_split chunk | scale | int8_scores
+    # out part | L S B Hkv G D layer n_split whole hs | scale | int8_scores
     # cache_kind q_f32 | stream
-    **{name: ("decode_attention_head", [_P] * 9 + [_I] * 9 + [_F]
+    **{name: ("decode_attention_head", [_P] * 9 + [_I] * 10 + [_F]
               + [_I] * 3 + [_P])
        for name in ("decode_attention_stream_head", "decode_attention_blocks",
                     "decode_attention_stacked_rows", "decode_attention",

@@ -30,10 +30,15 @@ with none, csrc/decode_attention_head.cu (one C entry each):
   (B, Hkv, S, D) cache of any float type, f32 throughout.
 `rows` and `chunk` group the TPU kernels' work; the CUDA kernels take their
 own tiles, and the plain versions one exact softmax. Both CUDA kernels
-split each row's key range over `head_split`'s n_split CTAs when the batch
-alone would not fill the card, and combine the splits' partial softmax
-results in a second pass over f32 scratch the wrapper allocates; one call
-is then two device launches (and one count of `launches`).
+reduce each row's keys in chunks of CHUNK = 128 positions, JAX's
+`pallas_attn_chunk` (`head_split`), each chunk one softmax at its own
+maximum, and fold the chunks in order, so a row's result does not depend
+on the batch or the card. `cta_plan` maps the chunks onto CTAs: where the
+rows alone fill the card, one CTA a row walks them all; at small batches
+one CTA a chunk (and a group of query heads) writes its partial softmax
+results to f32 scratch the wrapper allocates, and a second pass folds
+them; one call is then two device launches (and one count of
+`launches`).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.
@@ -144,18 +149,17 @@ def decode_attention_stream(q, k_full, v_full, ks_full, vs_full, layer: int,
     b, hkv, g, d = q.shape
     n_layer, s = k_full.shape[:2]
     out = torch.empty_like(q)
-    n_split, chunk, part = _split(q, s, POS_TP[k_full.dtype])
+    plan, part = _split(q, s)
     if ks_full is None:
         BF16_KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
                     lengths.data_ptr(), starts.data_ptr(), out.data_ptr(),
-                    _cuda.ptr(part), n_layer, s, b, hkv, g, d, layer,
-                    n_split, chunk, 1.0 / math.sqrt(d))
+                    _cuda.ptr(part), n_layer, s, b, hkv, g, d, layer, *plan,
+                    1.0 / math.sqrt(d))
         return out
     KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            ks_full.data_ptr(), vs_full.data_ptr(), lengths.data_ptr(),
            starts.data_ptr(), out.data_ptr(), _cuda.ptr(part), n_layer, s, b,
-           hkv, g, d, layer, n_split, chunk, 1.0 / math.sqrt(d),
-           int(int8_scores))
+           hkv, g, d, layer, *plan, 1.0 / math.sqrt(d), int(int8_scores))
     return out
 
 
@@ -205,12 +209,12 @@ def decode_attention_stream_fold(q, k_full, v_full, ks_full, vs_full,
     _cuda.check(new_k, "new_k", torch.bfloat16, (b, hkv, d), q.device)
     _cuda.check(new_v, "new_v", torch.bfloat16, (b, hkv, d), q.device)
     out = torch.empty_like(q)
-    n_split, chunk, part = _split(q, s, POS_TP[torch.int8])
+    plan, part = _split(q, s)
     FOLD_KERNEL(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
                 ks_full.data_ptr(), vs_full.data_ptr(), lengths.data_ptr(),
                 starts.data_ptr(), out.data_ptr(), _cuda.ptr(part),
                 new_k.data_ptr(), new_v.data_ptr(), n_layer, s, b, hkv, g, d,
-                layer, write_pos, n_split, chunk, 1.0 / math.sqrt(d),
+                layer, write_pos, *plan, 1.0 / math.sqrt(d),
                 int(int8_scores))
     return out
 
@@ -290,41 +294,58 @@ def _head_plain(q, k, v, ks, vs, lengths, starts, variant: str,
     return ((pv @ vf) / den.clamp_min(1e-20)).to(q.dtype)
 
 
-# key positions a tile of csrc/decode_attention_head.cu takes (16 for an
-# f32 cache, which divides it): a split's keys are a multiple of this
-HEAD_TP = 32
-# key positions a tile of csrc/decode_attention.cu takes, by cache type
-POS_TP = {torch.int8: 64, torch.bfloat16: 32}
+# keys a chunk: JAX's `pallas_attn_chunk`. Both CUDA kernels take a chunk
+# as one tile and one softmax
+CHUNK = 128
+# cta_plan: whole rows where the rows alone give this many CTAs an SM, else
+# head groups until the chunks' CTAs give this many an SM (per kernel: one
+# CTA of the head-major kernel's value product takes fewer rows of work)
+WHOLE_ROWS_PER_SM = 2
+SPLIT_CTAS_PER_SM = {"pos": 0.5, "head": 1.0}
 
 
-def head_split(s: int, b: int, hkv: int, n_sm: int,
-               tile: int = HEAD_TP) -> tuple[int, int]:
-    """(n_split, chunk) of a decode-attention kernel that walks its keys in
-    tiles of `tile` positions (HEAD_TP for the head-major kernel, POS_TP
-    for the position-major one), for a cache of S positions at batch B with
-    Hkv kv heads on a card of n_sm SMs: split c of a row takes keys
-    [c * chunk, (c + 1) * chunk), chunk a multiple of `tile`, and
-    n_split * chunk >= S. It aims at about two CTAs an SM: B * Hkv CTAs
-    that already fill the card take one split (the kernel then writes the
-    output directly). Shapes only, never the lengths: no host sync, and a
-    fixed launch for a captured step."""
-    s = max(s, 1)
-    tiles = -(-s // tile)
-    n = max(1, min(-(-2 * n_sm // (b * hkv)), tiles))
-    chunk = -(-tiles // n) * tile
-    return -(-s // chunk), chunk
+def head_split(s: int) -> tuple[int, int]:
+    """(n_split, chunk) of a row's keys in a cache of S positions: chunk c
+    takes keys [c * CHUNK, (c + 1) * CHUNK). The kernels take each chunk
+    as one softmax at its own maximum and fold the chunks in order
+    (csrc/decode_split.cuh), so the rule reads S alone: a row's f32 sums
+    are the same at every batch size and on every card, as the TPU
+    kernel's fixed `pallas_attn_chunk` walk is."""
+    return max(1, -(-s // CHUNK)), CHUNK
 
 
-def _split(q, s: int, tile: int):
-    """`head_split`'s (n_split, chunk) for q (B, Hkv, G, D) over a cache of
-    S positions on q's card, and the f32 scratch of the splits' partials
-    (None for one split): per split the unnormalised accumulators (G, D),
-    then the running max and sum."""
+def cta_plan(n_split: int, b: int, hkv: int, g: int, n_sm: int,
+             kernel: str = "pos") -> tuple[bool, int]:
+    """(whole, hs): how the chunks of B * Hkv rows with G query heads a kv
+    head map onto CTAs of `kernel` ("pos" or "head") on a card of n_sm
+    SMs; it changes no sum. whole: one CTA a (kv head, row) walks its
+    chunks (one chunk, or rows that give WHOLE_ROWS_PER_SM CTAs an SM);
+    else one CTA a chunk and a group of G / hs query heads, hs doubled
+    until the CTAs reach SPLIT_CTAS_PER_SM[kernel] an SM or hs = G. Shapes
+    only, never the lengths: no host sync, and a fixed launch for a
+    captured step."""
+    rows = b * hkv
+    if n_split == 1 or rows >= WHOLE_ROWS_PER_SM * n_sm:
+        return True, 1
+    hs = 1
+    while hs < g and n_split * rows * hs < SPLIT_CTAS_PER_SM[kernel] * n_sm:
+        hs *= 2
+    return False, hs
+
+
+def _split(q, s: int, kernel: str = "pos"):
+    """((n_split, whole, hs), part) for q (B, Hkv, G, D) over a cache of S
+    positions on q's card (`head_split`, `cta_plan` for `kernel`), and the
+    f32 scratch of the chunks' partials (None for whole rows): per chunk
+    the unnormalised accumulators (G, D), then the max and the sum, at
+    most B * Hkv * ceil(S / 128) * G * (D + 2) floats."""
     b, hkv, g, d = q.shape
-    n_split, chunk = head_split(s, b, hkv, _cuda.sm_count(q.device.index), tile)
-    part = None if n_split == 1 else torch.empty(
+    n_split, _ = head_split(s)
+    whole, hs = cta_plan(n_split, b, hkv, g,
+                         _cuda.sm_count(q.device.index), kernel)
+    part = None if whole else torch.empty(
         b * hkv * n_split * g * (d + 2), dtype=torch.float32, device=q.device)
-    return n_split, chunk, part
+    return (n_split, int(whole), hs), part
 
 
 _CACHE_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
@@ -362,13 +383,13 @@ def _launch_head(kernel: _cuda.Kernel, q, k_full, v_full, ks_full, vs_full,
         raise ValueError("a bf16 or f32 cache takes no scales")
     _cuda.check(lengths, "lengths", torch.int32, (b,), dev)
     _cuda.check(starts, "starts", torch.int32, (b,), dev)
-    n_split, chunk, part = _split(q, s, HEAD_TP)
+    plan, part = _split(q, s, "head")
     out = torch.empty_like(q)
     kernel(q.data_ptr(), k_full.data_ptr(), v_full.data_ptr(),
            _cuda.ptr(ks_full), _cuda.ptr(vs_full), lengths.data_ptr(),
            starts.data_ptr(), out.data_ptr(), _cuda.ptr(part), n_layer, s, b,
-           hkv, g, d, layer, n_split, chunk, 1.0 / math.sqrt(d),
-           int(int8_scores), kind, int(q.dtype == torch.float32))
+           hkv, g, d, layer, *plan, 1.0 / math.sqrt(d), int(int8_scores),
+           kind, int(q.dtype == torch.float32))
     return out
 
 

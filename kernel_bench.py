@@ -8,6 +8,9 @@ checks, at S2-Pro width and the rows or batches given.
     python3 kernel_bench.py voc [--frames 16,128] [--tree DIR]
     python3 kernel_bench.py voc --quant [--frames 16,128] [--tree DIR]
     python3 kernel_bench.py voc [--quant] --phases [--frames 16,128]
+    python3 kernel_bench.py attn [--tree DIR]
+    python3 kernel_bench.py attn --phases
+    python3 kernel_bench.py step [--frames 48] [--tree DIR]
 
 w4a8: #11 `w4a8_matmul` and #12 `w4a8_matmul_pc` at the slow stack's five
 products (`chip_smoke.check_w4a8`). sweep: #2 `fused_fast_sweep` on seeded
@@ -26,6 +29,26 @@ unchanged copy, and block 0 at each tile; voc --quant --phases each
 device kernel of #4 and #3 int8 (`voc_i8_phases`): variants of
 csrc/voc_fused_i8.cu without the passes' epilogue, without their wgmma,
 and with the k7 passes over one tap.
+
+attn: the decode-attention kernels, #1 position-major (int8 and bf16
+caches, `chip_smoke.check_attention`), #1 head-major and #6-#10
+(`check_attention_head`) and #5 (`check_fold`), at B = 256, S = 384 and
+B = 1, S = 2048 over 36 S2-Pro layers, each case with its chunks and CTAs.
+attn --phases runs the same checks on variants of csrc/decode_attention.cu
+and csrc/decode_attention_head.cu (`ATTN_VARIANTS`, beside an unchanged
+copy, in the order base, variant, variant, base): `two_tiles`, where a
+whole-row CTA (B = 256) holds two tiles and issues the next chunk's copy
+at the chunk's start (WHOLE_BUFS = 2; the shipped sources hold one).
+
+step: decode steps per second at batch 1 on the int8 serving path (the
+engine chip_smoke's phase 4 builds, `build_engine(serving=True)` at full
+S2-Pro width, random weights): a warm request, then three seeded
+requests of --frames frames each through `tts_with_codes`, one JSON line
+a request (frames / LM seconds); then one more request with every
+`models/dual_ar.py::rms_norm` call recorded, and those calls replayed
+alone: the host time a decode step spends in RMSNorm (`rms_norm_ms_a_step`,
+its calls a step). With --tree it measures another checkout's package,
+such as the parent's.
 
 w4a8 --phases asks what paces the products instead. Rows up to 8 (the
 weight stream): copies of csrc/w4a8.cu that return at once (`empty`: the
@@ -67,6 +90,7 @@ import json
 import math
 import os
 import sys
+import time
 
 import torch
 
@@ -612,15 +636,117 @@ def stream_phases(cs, cfg, dev, gen, rows) -> None:
         torch.cuda.empty_cache()
 
 
+def attn(cs, chk, cfg, dev, gen) -> None:
+    """The decode-attention checks of chip_smoke's phase 3, one JSON line a
+    case."""
+    pos, pos_bf16 = cs.check_attention(chk, cfg, dev, gen)
+    for name, cases in (("decode_attention_stream", pos),
+                        ("decode_attention_stream_bf16", pos_bf16)):
+        for c in cases:
+            print(json.dumps({"kernel": name, **c}), flush=True)
+    for name, cases in cs.check_attention_head(chk, cfg, dev, gen).items():
+        for c in cases:
+            print(json.dumps({"kernel": name, **c}), flush=True)
+    for c in cs.check_fold(chk, cfg, dev, gen):
+        print(json.dumps({"kernel": "decode_attention_stream_fold", **c}),
+              flush=True)
+
+
+# one constant of the decode-attention sources: the tiles a whole-row CTA
+# holds (csrc/decode_attention*.cu WHOLE_BUFS)
+_BUFS = "constexpr int WHOLE_BUFS = {};"
+ATTN_VARIANTS = {"base": [], "two_tiles": [(_BUFS.format(1), _BUFS.format(2))]}
+
+
+def attn_phases(cs, chk, cfg, dev, gen) -> None:
+    """`attn` on each variant of the decode-attention sources
+    (ATTN_VARIANTS): the variant's libraries replace the package's
+    (`_cuda._libs`) for the wrappers to launch. One JSON line a (case,
+    variant, run)."""
+    from fish_speech_tpu_torch.ops import _cuda
+
+    libs = {}
+    for source in ("decode_attention", "decode_attention_head"):
+        fns = [f for f, (src, _) in _cuda.SIGNATURES.items() if src == source]
+        libs[source] = phase_libs(source, ATTN_VARIANTS, fns)
+    names = list(ATTN_VARIANTS)
+    for run, name in enumerate(names + names[::-1]):
+        with _cuda._lock:
+            for source, by_name in libs.items():
+                _cuda._libs[source] = by_name[name]
+        cs.log(f"attn --phases: {name} (run {run})")
+        pos, pos_bf16 = cs.check_attention(chk, cfg, dev, gen)
+        cases = {"decode_attention_stream": pos,
+                 "decode_attention_stream_bf16": pos_bf16,
+                 **cs.check_attention_head(chk, cfg, dev, gen),
+                 "decode_attention_stream_fold": cs.check_fold(chk, cfg, dev,
+                                                               gen)}
+        for kernel, rows in cases.items():
+            for c in rows:
+                print(json.dumps({"kernel": kernel, "variant": name,
+                                  "run": run, **c}), flush=True)
+
+
+def step(cs, dev, frames: int) -> None:
+    """Decode steps per second at batch 1 on the int8 serving path: one
+    JSON line a request after a warm one."""
+    from fish_speech_tpu_torch.engine.generate import (GenerateLongRequest,
+                                                       build_engine)
+
+    engine = build_engine(device=dev, serving=True, seed=cs.SEED)
+    text = cs.SCHED_REQUESTS[0][0]
+    for i in range(4):
+        req = GenerateLongRequest(text=text, max_new_tokens=frames,
+                                  seed=cs.SEED + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, codes, lm_s = engine.tts_with_codes(req)
+        torch.cuda.synchronize()
+        if i == 0:
+            continue          # the warm request
+        print(json.dumps({"step": "int8 path, batch 1", "request": i,
+                          "frames": codes.shape[1], "lm_s": lm_s,
+                          "wall_s": time.perf_counter() - t0,
+                          "decode_steps_per_s": codes.shape[1] / lm_s}),
+              flush=True)
+    from fish_speech_tpu_torch.models import dual_ar
+
+    inner, calls = dual_ar.rms_norm, []
+
+    def recording(x, weight, eps):
+        calls.append((x, weight, eps))
+        return inner(x, weight, eps)
+
+    dual_ar.rms_norm = recording
+    try:
+        _, codes, _ = engine.tts_with_codes(GenerateLongRequest(
+            text=text, max_new_tokens=frames, seed=cs.SEED))
+    finally:
+        dual_ar.rms_norm = inner
+    for _ in range(2):                    # the second replay is reported
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, weight, eps in calls:
+            inner(x, weight, eps)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+    n = codes.shape[1]
+    print(json.dumps({"step": "int8 path, batch 1", "frames": n,
+                      "rms_norm_calls_a_step": len(calls) / n,
+                      "rms_norm_ms_a_step": 1e3 * replay_s / n}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("w4a8", "sweep", "voc"))
+    ap.add_argument("kernel", choices=("w4a8", "sweep", "voc", "attn",
+                                       "step"))
     ap.add_argument("--rows", type=ints, default=[1, 9, 40, 256],
                     help="w4a8: the products' rows M")
     ap.add_argument("--batches", type=ints, default=[256, 1],
                     help="sweep: the batches")
-    ap.add_argument("--frames", type=ints, default=[16, 128],
-                    help="voc: the codec frames")
+    ap.add_argument("--frames", type=ints, default=None,
+                    help="voc: the codec frames (16,128); step: a "
+                         "request's frames (48)")
     ap.add_argument("--quant", action="store_true",
                     help="voc: the int8 kernels (#4 int8, #3 int8)")
     ap.add_argument("--phases", action="store_true",
@@ -647,9 +773,13 @@ def main() -> int:
     cfg = s2_pro_lm_config()
     chk = cs.Checks()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
-    if args.phases and args.kernel == "voc":
-        (voc_i8_phases if args.quant else voc_phases)(cs, dev, gen,
-                                                      args.frames)
+    if args.kernel == "step":
+        step(cs, dev, (args.frames or [48])[0])
+    elif args.phases and args.kernel == "attn":
+        attn_phases(cs, chk, cfg, dev, gen)
+    elif args.phases and args.kernel == "voc":
+        (voc_i8_phases if args.quant else voc_phases)(
+            cs, dev, gen, args.frames or [16, 128])
     elif args.phases:
         if any(m <= 8 for m in args.rows):
             stream_phases(cs, cfg, dev, gen, args.rows)
@@ -669,11 +799,13 @@ def main() -> int:
                     **{k: sum(c[k] for c in layer) for k in (
                         "ms", "plain_ms", "bound_ms", "library_ms")}}),
                     flush=True)
+    elif args.kernel == "attn":
+        attn(cs, chk, cfg, dev, gen)
     elif args.kernel == "voc":
         eng = decoder(dev, gen)
         check = cs.check_vocoder_i8 if args.quant else cs.check_vocoder
         i8 = "_i8" if args.quant else ""
-        for frames in args.frames:
+        for frames in args.frames or [16, 128]:
             res, blocks = check(chk, eng, frames, dev, gen)
             for name, cases in ((f"voc_res_stack{i8}", res),
                                 (f"voc_block{i8}", blocks)):

@@ -306,32 +306,59 @@ def test_fold_split_combine_matches_pallas_fold(n_split, write_pos):
                                rtol=0)
 
 
-# (S, B, Hkv, cache) -> (n_split, chunk) of the position-major kernel on a
-# card of 132 SMs: the engine's batch 1 at S = 2048 on both caches, the
-# bench's batch 256 at S = 384, the card test's batch 40 with 2 kv heads,
-# and an S that is not a multiple of the chunk
-POS_SPLITS = {"b1-s2048-int8": ((2048, 1, 8, torch.int8), (32, 64)),
-              "b1-s2048-bf16": ((2048, 1, 8, torch.bfloat16), (32, 64)),
-              "b256-s384-int8": ((384, 256, 8, torch.int8), (1, 384)),
-              "b256-s384-bf16": ((384, 256, 8, torch.bfloat16), (1, 384)),
+# (S, B, Hkv, cache) -> (n_split, chunk) of the position-major kernel: the
+# engine's batch 1 at S = 2048 on both caches, the bench's batch 256 at
+# S = 384, the card test's batch 40 with 2 kv heads, and an S that is not a
+# multiple of the chunk. The chunks are JAX's 128 keys whatever the batch.
+POS_SPLITS = {"b1-s2048-int8": ((2048, 1, 8, torch.int8), (16, 128)),
+              "b1-s2048-bf16": ((2048, 1, 8, torch.bfloat16), (16, 128)),
+              "b256-s384-int8": ((384, 256, 8, torch.int8), (3, 128)),
+              "b256-s384-bf16": ((384, 256, 8, torch.bfloat16), (3, 128)),
               "b40-s384-hkv2": ((384, 40, 2, torch.int8), (3, 128)),
-              "b1-s1000": ((1000, 1, 8, torch.int8), (16, 64))}
+              "b1-s1000": ((1000, 1, 8, torch.int8), (8, 128))}
 
 
 @pytest.mark.parametrize("shape", list(POS_SPLITS))
 def test_pos_split(shape):
     (s, b, hkv, dtype), want = POS_SPLITS[shape]
-    tile = ta.POS_TP[dtype]
-    n_split, chunk = ta.head_split(s, b, hkv, 132, tile)
+    n_split, chunk = ta.head_split(s)
     assert (n_split, chunk) == want
-    # the chunks cover S, none lies wholly beyond it, and each is whole tiles
+    # the chunks cover S and none lies wholly beyond it
     assert n_split * chunk >= s > (n_split - 1) * chunk
-    assert chunk % tile == 0
-    # about two CTAs an SM, or one split where the rows already fill them,
-    # or one tile a split where S is too short for more
-    ctas = n_split * b * hkv
-    assert ctas <= 2 * 132 + b * hkv
-    assert n_split == 1 or ctas >= 132 or chunk == tile
+    # the CTAs: whole rows where the rows alone fill the card, else a chunk
+    # and a group of the 4 query heads a CTA, SPLIT_CTAS_PER_SM CTAs an SM
+    # at least unless every head has its own
+    whole, hs = ta.cta_plan(n_split, b, hkv, 4, 132)
+    if whole:
+        assert hs == 1 and (n_split == 1 or b * hkv >= 2 * 132)
+    else:
+        assert n_split * b * hkv * hs >= ta.SPLIT_CTAS_PER_SM["pos"] * 132 \
+            or hs == 4
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 384, 2048, 4096])
+def test_split_rule_ignores_batch_and_card(s):
+    """C2: a row's chunks, which fix its f32 sums, are the same at batch 1,
+    4 and 256 and on cards of 114 and 132 SMs (the wrapper's `_split`
+    reads the SM count through _cuda.sm_count); only the CTAs that take
+    them change."""
+    q_of = {b: torch.zeros((b, 8, 4, 128), dtype=torch.bfloat16)
+            for b in (1, 4, 256)}
+    seen = set()
+    for n_sm in (114, 132):
+        for b, q in q_of.items():
+            old = ta._cuda.sm_count
+            ta._cuda.sm_count = lambda index, n=n_sm: n
+            try:
+                (n_split, whole, hs), part = ta._split(q, s)
+            finally:
+                ta._cuda.sm_count = old
+            seen.add((n_split, ta.head_split(s)[1]))
+            assert (part is None) == bool(whole)
+            if part is not None:
+                # at most B * Hkv * ceil(S / 128) * G * (D + 2) floats
+                assert part.numel() == b * 8 * n_split * 4 * 130
+    assert seen == {(-(-s // 128), 128)}
 
 
 @pytest.mark.parametrize("g", [3, 16])

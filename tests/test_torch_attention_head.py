@@ -149,9 +149,10 @@ def split_combine(q, k, v, ks, vs, lengths, starts, variant: str,
     layer's head-major (B, Hkv, S, D) k/v and (B, Hkv, S) scales (None for
     a float cache): the key range cut into n_split chunks, each chunk's
     softmax taken at its own maximum (an empty chunk: m = -inf, l = 0,
-    acc = 0) with the value weights rounded there, then the combine in
-    split order: M = max m_i, out = sum acc_i e^(m_i - M) /
-    max(sum l_i e^(m_i - M), 1e-20)."""
+    acc = 0) with the value weights rounded there, then the chunks folded
+    in order (csrc/decode_split.cuh fold_chunk): M' = max(M, m_i),
+    num = num e^(M - M') + acc_i e^(m_i - M'), den likewise with l_i, an
+    empty chunk skipped; out = num / max(den, 1e-20)."""
     sc, vf = ta._head_scores(q, k, v, ks, vs, variant, int8_scores)
     valid = ta._head_valid(lengths, starts, k.shape[2], q.device)
     parts = []
@@ -162,12 +163,17 @@ def split_combine(q, k, v, ks, vs, lengths, starts, variant: str,
         p = torch.where(ok, torch.exp(sc[..., sl] - m), 0.0)
         w = ta._head_weights(p, None if vs is None else vs[..., sl], variant)
         parts.append((m, p.sum(-1, keepdim=True), w @ vf[:, :, sl]))
-    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    big = parts[0][0]
+    run = torch.full_like(big, -torch.inf)
     num = den = 0.0
     for m, l, acc in parts:
-        e = torch.where(m == -torch.inf, 0.0, torch.exp(m - top))
-        num = num + acc * e
-        den = den + l * e
+        new = torch.maximum(run, m)
+        skip = m == -torch.inf
+        a = torch.where(skip, 1.0, torch.exp(run - new))
+        w = torch.where(skip, 0.0, torch.exp(m - new))
+        num = num * a + acc * w
+        den = den * a + l * w
+        run = torch.where(skip, run, new)
     return (num / den.clamp_min(1e-20)).to(q.dtype)
 
 
@@ -178,8 +184,10 @@ def _split_combine(entry: str, a: dict, int8_scores: bool,
     k, v = a["k"][LAYER], a["v"][LAYER]
     ks = None if a["ks"] is None else a["ks"][LAYER]
     vs = None if a["vs"] is None else a["vs"][LAYER]
+    # the fold holds for any even cut of the keys; the kernels' own chunks
+    # are ta.CHUNK = 128 keys (n_split 2 here)
     chunk = S // n_split
-    assert chunk % ta.HEAD_TP == 0
+    assert chunk * n_split == S
     # every row of the file has keys; with more than one split, some of
     # its chunks lie wholly outside [start, length)
     valid = ta._head_valid(a["lengths"], a["starts"], S, q.device)
@@ -189,7 +197,7 @@ def _split_combine(entry: str, a: dict, int8_scores: bool,
                          VARIANT[entry], int8_scores, n_split, chunk)
 
 
-@pytest.mark.parametrize("n_split", [1, 4, 8])
+@pytest.mark.parametrize("n_split", [1, 4, 8, 2])
 @pytest.mark.parametrize("entry,cache,int8_scores", CASES,
                          ids=[f"{e}-{c}{'-i8' if i else ''}"
                               for e, c, i in CASES])
@@ -207,24 +215,27 @@ def test_split_combine_matches_pallas(entry, cache, int8_scores, n_split):
 # (S, B, Hkv) -> (n_split, chunk) on a card of 132 SMs: the engine's batch
 # 1 at S = 2048 (the stacked cache, and one layer of it for the per-layer
 # entries), the bench's batch 256 at S = 384, the card test's batch 3 at
-# S = 384, and an S that is not a multiple of the chunk
-SPLITS = {"b1-s2048": ((2048, 1, 8), (32, 64)),
-          "b256-s384": ((384, 256, 8), (1, 384)),
-          "b3-s384": ((384, 3, 8), (6, 64)),
-          "b1-s1000": ((1000, 1, 8), (32, 32))}
+# S = 384, and an S that is not a multiple of the chunk; the chunks are
+# JAX's 128 keys whatever the batch
+SPLITS = {"b1-s2048": ((2048, 1, 8), (16, 128)),
+          "b256-s384": ((384, 256, 8), (3, 128)),
+          "b3-s384": ((384, 3, 8), (3, 128)),
+          "b1-s1000": ((1000, 1, 8), (8, 128))}
 
 
 @pytest.mark.parametrize("shape", list(SPLITS))
 def test_head_split(shape):
     (s, b, hkv), want = SPLITS[shape]
-    n_split, chunk = ta.head_split(s, b, hkv, 132)
+    n_split, chunk = ta.head_split(s)
     assert (n_split, chunk) == want
-    # the chunks cover S, none lies wholly beyond it, and each is whole tiles
+    # the chunks cover S and none lies wholly beyond it
     assert n_split * chunk >= s > (n_split - 1) * chunk
-    assert chunk % ta.HEAD_TP == 0
-    # about two CTAs an SM, or one split where the rows already fill them
-    ctas = n_split * b * hkv
-    assert ctas <= 2 * 132 + b * hkv and (n_split == 1 or ctas >= 132)
+    # the CTAs: whole rows (no scratch) where the rows alone fill the card,
+    # else one a chunk and a group of the query heads
+    whole, hs = ta.cta_plan(n_split, b, hkv, 4, 132, "head")
+    assert whole == (b * hkv >= 2 * 132)
+    ctas = (1 if whole else n_split * hs) * b * hkv
+    assert ctas >= ta.SPLIT_CTAS_PER_SM["head"] * 132 or hs == 4
 
 
 ENTRIES = ["stream", "blocks", "stacked_rows", "stacked", "dense",

@@ -184,10 +184,9 @@ def test_decode_attention_pos_major(dev, cache, int8_scores, rows):
         assert err <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-# (b, S, Hkv, write_pos) with the key range split over CTAs: batch 1 at
-# S = 2048 (32 splits of 64 on an H100) and batch 40 with 2 kv heads at
-# S = 384 (3 splits of 128); write_pos in the first, a middle and the last
-# split
+# (b, S, Hkv, write_pos) with a row's chunks on CTAs of their own: batch 1
+# at S = 2048 (16 chunks of 128) and batch 40 with 2 kv heads at S = 384
+# (3 chunks); write_pos in the first, a middle and the last chunk
 FOLD_SPLITS = {"1-first": (1, 2048, 8, 10), "1-middle": (1, 2048, 8, 1000),
                "1-last": (1, 2048, 8, 2047), "40-first": (40, 384, 2, 100),
                "40-middle": (40, 384, 2, 200), "40-last": (40, 384, 2, 300)}
@@ -195,12 +194,12 @@ FOLD_SPLITS = {"1-first": (1, 2048, 8, 10), "1-middle": (1, 2048, 8, 1000),
 
 @pytest.mark.parametrize("case", list(FOLD_SPLITS))
 def test_decode_attention_stream_fold_splits(dev, case):
-    """The fold with n_split > 1 equals _write_cache + decode_attention_
+    """The fold with a chunk a CTA equals _write_cache + decode_attention_
     stream bit for bit: output, int8 rows and scales."""
     b, s, hkv, wpos = FOLD_SPLITS[case]
-    n_split, chunk = ta.head_split(s, b, hkv, _cuda.sm_count(dev.index or 0),
-                                   ta.POS_TP[torch.int8])
-    assert n_split > 1
+    n_split, _ = ta.head_split(s)
+    whole, _ = ta.cta_plan(n_split, b, hkv, 4, _cuda.sm_count(dev.index or 0))
+    assert n_split > 1 and not whole
     g = _gen(dev, 43 + wpos)
     L, grp, d, layer = 2, 4, 128, 0
     k8 = torch.randint(-127, 128, (L, s, b, hkv, d), generator=g, device=dev,
@@ -230,6 +229,113 @@ def test_decode_attention_stream_fold_splits(dev, case):
     for a, r in ((got, ref), (k8, two.k), (v8, two.v), (ks, two.ks),
                  (vs, two.vs)):
         assert torch.equal(a, r)
+
+
+# C2: the layouts and kernels whose row must not depend on the batch: #1
+# position-major on the int8 cache (int8 scores) and on the bf16 cache, #5
+# (the fold, with its write), #1 head-major on the int8 cache (int8 scores)
+# and on the bf16 cache, and #6 (blocks) on the int8 cache
+BATCH_INVARIANT = ["pos-int8", "pos-bf16", "fold", "head-int8", "head-bf16",
+                   "blocks-int8"]
+
+
+def _invariant_call(layout, cache, rows, q, lengths, starts, new):
+    """One call of `layout` on the first `rows` rows of the B = 256 cache
+    (copied, so that the fold's write lands in the copy)."""
+    kv_axis = 2 if layout in ("pos-int8", "pos-bf16", "fold") else 1
+    k, v, ks, vs = (None if t is None else
+                    t.narrow(axis, 0, rows).contiguous()
+                    for t, axis in zip(cache, (kv_axis, kv_axis, 1, 1)))
+    args = (q[:rows], k, v, ks, vs, 0, lengths[:rows], starts[:rows])
+    if layout == "fold":
+        out = decode_attention_stream_fold(*args, new[0][:rows],
+                                           new[1][:rows], 1500)
+        return out, (k, v, ks, vs)
+    if layout.startswith("pos"):
+        return decode_attention_stream(*args, pos_major=True), None
+    if layout == "blocks-int8":
+        return ta.decode_attention_blocks(*args, int8_scores=True), None
+    return decode_attention_stream(*args, layout == "head-int8",
+                                   pos_major=False), None
+
+
+@pytest.mark.parametrize("fill", ["full", "ragged"])
+@pytest.mark.parametrize("layout", BATCH_INVARIANT)
+def test_decode_attention_batch_invariant(dev, layout, fill):
+    """C2: row 0 at B = 1, and the same row at the same cache columns
+    inside B = 4 and B = 256, give the same bits. The three batches take
+    three CTA plans at S = 2048 (head groups, a chunk a CTA, whole rows),
+    and the chunks of 128 keys fix the sums. Row 0 is the whole cache or
+    keys 37-1500 (chunks cut at both ends); the fold writes position 1500
+    and its written rows and scales agree too."""
+    g = _gen(dev, 77)
+    n_sm = _cuda.sm_count(dev.index or 0)
+    L, B, hkv, grp, d, s = 1, 256, 8, 4, 128, 2048
+    pos = layout in ("pos-int8", "pos-bf16", "fold")
+    shape = (L, s, B, hkv, d) if pos else (L, B, hkv, s, d)
+    if layout.endswith("bf16"):
+        k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        ks = vs = None
+    else:
+        k = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        sshape = (L, B, s * hkv) if pos else (L, B, hkv, s)
+        ks = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+    q = torch.randn((B, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    new = [torch.randn((B, hkv, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    lengths = torch.randint(1024, s + 1, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+    starts = torch.randint(0, 512, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+    if fill == "full":
+        lengths[0], starts[0] = s, 0
+    else:
+        lengths[0], starts[0] = 1501, 37
+    plans = [ta.cta_plan(ta.head_split(s)[0], rows, hkv, grp, n_sm)
+             for rows in (1, 4, B)]
+    assert [whole for whole, _ in plans] == [False, False, True]
+    outs, written = [], []
+    for rows in (1, 4, B):
+        out, cache = _invariant_call(layout, (k, v, ks, vs), rows, q,
+                                     lengths, starts, new)
+        outs.append(out[0])
+        if cache is not None:
+            written.append([t[:, 1500, 0] if t.dim() == 5 else
+                            t[:, 0, 1500 * hkv:1501 * hkv] for t in cache])
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0].float()).all()
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
+    for other in written[1:]:
+        for a, r in zip(written[0], other):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dim", [2560, 1024, 128])
+def test_rms_norm_batch_invariant(dev, dim):
+    """The slow stack's and the fast head's RMSNorm (models/dual_ar.py): a
+    row's output is the same bits alone and inside batches of 4, 40 and
+    256. Its mean of squares is summed in float64: torch's f32 mean orders
+    its sum by the tensor's shape, which moved a row's last bit with the
+    batch on the card and parted a request alone from the same request in
+    a batch."""
+    from fish_speech_tpu_torch.models.dual_ar import rms_norm
+
+    g = _gen(dev, 91)
+    w = (1 + 0.1 * torch.randn(dim, generator=g, device=dev)).to(
+        torch.bfloat16)
+    for _ in range(50):
+        x = (torch.randn((256, dim), generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        one = rms_norm(x[:1], w, 1e-6)
+        for b in (4, 40, 256):
+            assert torch.equal(rms_norm(x[:b], w, 1e-6)[:1], one)
 
 
 # (entry, cache, int8_scores) of the head-major kernels
@@ -800,6 +906,85 @@ def test_block_s2pro(dev, block, short):
             2 ** -5 * scale
 
 
+def _block_case(i, b, dev):
+    """Block i of the S2-Pro decoder (seeded random weights; block 3 with
+    the final conv at the fan-in scale), its keyword arguments and a seeded
+    (b, T_in, C_in) input of 512, 4096 or 16384 rows: a row's input is the
+    same at every b."""
+    c_in, c, stride, final, _ = S2_PRO_BLOCKS[i]
+    t_in = 64 * 8 * {1: 1, 2: 8, 3: 32}[i]
+    g = np.random.default_rng(60 + i)
+    packed = _units(c, 3, 61 + i, dev)
+    packed["tconv_pw"] = torch.from_numpy(g.normal(
+        0, 0.05, (2, c_in, stride * c))).to(dev, torch.bfloat16)
+    packed["tconv_pb"] = torch.from_numpy(
+        np.tile(g.normal(0, 0.1, c), stride)).to(dev, torch.float32)
+    fw = None
+    if final:
+        fwn = g.normal(0, 1 / np.sqrt(7 * c), (8, c))
+        fwn[7] = 0.0
+        fwn[7, 0] = 0.03
+        fw = torch.from_numpy(fwn).to(dev, torch.float32)
+    kw = dict(stride=stride, tail_vec=_tail(c, 62 + i, dev), final_w=fw)
+    x = torch.from_numpy(g.standard_normal((b, t_in, c_in))).to(
+        dev, torch.bfloat16)
+    return x, packed, kw
+
+
+# the bf16 decoder's kernels at batches 4 and 8, as decode_codes_batch
+# launches them (8 is its micro-batch and warmup_vocoder's default bucket;
+# #4: block 0's residual units over 512 rows; #3: blocks 1-3 over inputs
+# of 512, 4096 and 16384 rows): each against its plain twin with the
+# tolerance it has at batch 1 and 2
+@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("part", ["res-1", "res-3", "res-9", "block-1",
+                                  "block-2", "block-3"])
+def test_vocoder_s2pro_batch4(dev, part, b):
+    kind, i = part.split("-")
+    i = int(i)
+    if kind == "res":
+        c = 768
+        packed = _units(c, 1, 40 + i, dev)
+        tail = _tail(c, 44, dev) if i == 9 else None
+        x = torch.from_numpy(np.random.default_rng(46 + i).standard_normal(
+            (b, 64 * 8, c))).to(dev, torch.bfloat16)
+        before = tv.RES_STACK.launches
+        got = tv.fused_res_stack(x, packed, dilations=(i,), tail_vec=tail)
+        ref = tv.fused_res_stack_plain(x, packed, dilations=(i,),
+                                       tail_vec=tail)
+        torch.cuda.synchronize()
+        assert tv.RES_STACK.launches == before + 1
+        final = False
+    else:
+        final = S2_PRO_BLOCKS[i][3]
+        x, packed, kw = _block_case(i, b, dev)
+        before = tv.BLOCK.launches
+        got = tv.fused_block(x, packed, **kw)
+        ref = tv.fused_block_plain(x, packed, **kw)
+        torch.cuda.synchronize()
+        assert tv.BLOCK.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.isfinite(got.float()).all()
+    # test_res_stack_s2pro's and test_block_s2pro's bound
+    scale = 1.0 if final else ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= 2 ** -5 * scale
+
+
+def test_final_block_rows_batch_invariant(dev):
+    """#3 on the final block at batch 8: each row of the kernel's waveform,
+    and of the twin's, equals that row decoded alone, bit for bit (the
+    block's tiles do not depend on the batch), so a row's distance from
+    the twin is the same at every batch it runs in."""
+    x, packed, kw = _block_case(3, 8, dev)
+    got = tv.fused_block(x, packed, **kw)
+    ref = tv.fused_block_plain(x, packed, **kw)
+    for r in range(x.shape[0]):
+        assert torch.equal(got[r:r + 1], tv.fused_block(x[r:r + 1], packed,
+                                                        **kw))
+        assert torch.equal(ref[r:r + 1], tv.fused_block_plain(
+            x[r:r + 1], packed, **kw))
+
+
 # the int8 packs (VOC_QUANT): the same codes and exact int32 sums on both
 # sides, and the f32 steps round alike (-fmad=false), so they agree bit for
 # bit unless a sum order moves the final conv's f32 sum; the bound is one
@@ -864,12 +1049,13 @@ def test_block_i8(dev, stride, final, tt, b):
 
 
 # the int8 passes at S2-Pro's widths: C = 96 (32-byte K steps), 384 and
-# 768 (128-byte), a tile shorter than its halo, two batch rows; bit for bit
+# 768 (128-byte), a tile shorter than its halo, batches of 1-8 rows (8:
+# decode_codes_batch's micro-batch); bit for bit
 # where no final conv is fused (its f32 sum over 7 x C may take another
 # order: one int8 step, 2^-7, there)
 
 
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
 @pytest.mark.parametrize("c,d,tt", [(96, 1, 64), (384, 3, 64),
                                     (768, 9, 32),    # halo 64 > tt
                                     (768, 1, 256)])
@@ -886,7 +1072,7 @@ def test_res_stack_i8_widths(dev, c, d, tt, b):
     assert got.shape == ref.shape and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
 @pytest.mark.parametrize("c_in,c,stride,tt,final", [
     (768, 384, 8, 64, False), (384, 192, 4, 32, False),
     (192, 96, 2, 64, False), (192, 96, 2, 128, True)])

@@ -252,13 +252,17 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "fish_speech_tpu"))
 assert not bad, bad
 from fish_speech_tpu_torch.codec.fastpath import dac_from_indices_fused
+from fish_speech_tpu_torch.codec.model import dac_encode
+from fish_speech_tpu_torch.codec.streaming import StatefulVocoder
 from fish_speech_tpu_torch.engine.generate import TTSEngine, build_engine
 from fish_speech_tpu_torch.models.decode import generate
 for entry in (build_engine,
               lambda: TTSEngine(None, None, None),
               lambda: generate(None, None, torch.zeros(1), None, None, None,
                                None, max_new_tokens=1, im_end_id=0),
-              lambda: dac_from_indices_fused(None, None, torch.zeros(1))):
+              lambda: dac_from_indices_fused(None, None, torch.zeros(1)),
+              lambda: StatefulVocoder(None, None),
+              lambda: dac_encode(None, None, torch.zeros(1))):
     try:
         entry()
     except RuntimeError as e:

@@ -595,3 +595,174 @@ def test_engine_scheduler_threads_match_engine(monkeypatch):
     finally:
         sched.close()
     assert not sched.scheduler.thread.is_alive()
+
+
+# --- the engine's streaming, batched-decode and encode entries --------------
+
+
+@pytest.fixture(scope="module")
+def stream_engine():
+    """The tiny serving engine behind a greedy 1-slot scheduler."""
+    from fish_speech_tpu_torch.codec.config import tiny_codec_config
+
+    eng = build_engine(device="cpu", lm_cfg=tiny_lm_config(),
+                       codec_cfg=tiny_codec_config(), cache_len=256, seed=3,
+                       scheduler_slots=1)
+    eng.scheduler.batcher.greedy = True
+    yield eng
+    eng.close()
+
+
+def _codes_of(eng, req):
+    return np.concatenate([r.codes for r in eng.generate_long(req)
+                           if r.action == "sample"], axis=1)
+
+
+@pytest.mark.parametrize("first", [4, None])
+def test_stream_tts_matches_decode_codes(stream_engine, first):
+    """The streamed chunks concatenate to decode_codes of the codes
+    generate_long gives for the same request (greedy: the same stream),
+    within 1e-5 (JAX's test): the stateful f32 streaming vocoder against
+    the fused decoder's plain path. With a first cut of 4 frames the first
+    chunk is 4 frames, then chunks of 8."""
+    fl = stream_engine.codec_cfg.frame_length
+    req = GenerateLongRequest(text="hello stream", max_new_tokens=21, seed=3)
+    chunks = list(stream_engine.stream_tts(req, chunk_frames=8,
+                                           first_chunk_frames=first))
+    codes = _codes_of(stream_engine, req)
+    full = stream_engine.decode_codes(codes)
+    streamed = np.concatenate(chunks)
+    assert codes.shape[1] > 8 and streamed.shape == full.shape
+    assert len(chunks[0]) == (first or 8) * fl
+    np.testing.assert_allclose(streamed, full, atol=1e-5)
+
+
+def test_stream_tts_close_cancels_slot(stream_engine):
+    """Closing the generator after its first chunk cancels the request:
+    the scheduler frees the slot within a few ticks, long before the
+    request's budget."""
+    import time
+
+    batcher = stream_engine.scheduler.batcher
+    before = batcher.cancelled_requests
+    gen = stream_engine.stream_tts(GenerateLongRequest(
+        text="a long stream", max_new_tokens=200, seed=1), chunk_frames=4,
+        first_chunk_frames=None)
+    assert len(next(gen)) == 4 * stream_engine.codec_cfg.frame_length
+    ticks = batcher.ticks
+    gen.close()
+    deadline = time.time() + 30
+    while (batcher.has_active() or batcher.cancelled_requests == before) \
+            and time.time() < deadline:
+        time.sleep(0.01)
+    assert batcher.cancelled_requests == before + 1
+    assert not batcher.has_active()
+    assert batcher.ticks - ticks < 100
+
+
+def test_stream_tts_worker_errors_reach_caller(stream_engine, monkeypatch):
+    """An error in the vocoder thread's warm start is raised by the
+    generator (JAX's warm start swallows it), and the slot is freed."""
+    from fish_speech_tpu_torch.codec import streaming
+
+    def broken(*a, **kw):
+        raise RuntimeError("stream step failed")
+
+    monkeypatch.setattr(streaming.StatefulVocoder, "step", broken)
+    stream_engine._stream_warm_widths.clear()
+    with pytest.raises(RuntimeError, match="stream step failed"):
+        list(stream_engine.stream_tts(GenerateLongRequest(
+            text="hi", max_new_tokens=12, seed=2), chunk_frames=4))
+    batcher = stream_engine.scheduler.batcher
+    import time
+    deadline = time.time() + 30
+    while batcher.has_active() and time.time() < deadline:
+        time.sleep(0.01)
+    assert not batcher.has_active()
+
+
+def test_decode_codes_batch_matches_single(stream_engine, monkeypatch):
+    """Three sequences of 3, 5 and 2 frames: one call of the fused
+    decoder at batch 4 (the power of two above 3) over 64 frames (the
+    bucket max(32, ceil(5 / 64) * 64)), each waveform within
+    1e-4 of its own decode_codes (JAX's test)."""
+    from fish_speech_tpu_torch.codec import fastpath
+
+    rng = np.random.default_rng(0)
+    n_q = stream_engine.codec_cfg.rvq.total_codebooks
+    codes = [rng.integers(0, 16, size=(n_q, t)).astype(np.int32)
+             for t in (3, 5, 2)]
+    singles = [stream_engine.decode_codes(c) for c in codes]
+    calls = []
+    inner = fastpath.dac_from_indices_fused
+
+    def counting(p, cfg, c, **kw):
+        calls.append(tuple(c.shape))
+        return inner(p, cfg, c, **kw)
+
+    monkeypatch.setattr(fastpath, "dac_from_indices_fused", counting)
+    wavs = stream_engine.decode_codes_batch(codes)
+    assert calls == [(4, n_q, 64)]
+    for got, want in zip(wavs, singles):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    # a group of micro_batch, then the rest
+    wavs = stream_engine.decode_codes_batch(codes, micro_batch=2)
+    assert calls[1:] == [(2, n_q, 64), (1, n_q, 64)]
+    for got, want in zip(wavs, singles):
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("frames,bucket", [(1, 64), (64, 64), (65, 128)])
+def test_encode_reference_bucket_rule(frames, bucket, monkeypatch):
+    """encode_reference zero-pads the samples to max(32, ceil(frames / 64)
+    * 64) frames, JAX's rule, and keeps ceil(n / frame_length) frames of
+    codes: on JAX's random codec carried over, the codes of JAX's
+    dac_encode on the same padded waveform (match above 0.99, the encode
+    tests' bound)."""
+    from fish_speech_tpu.codec import dac_encode as jax_dac_encode
+    from fish_speech_tpu.codec import init_dac_params as jax_init
+    from fish_speech_tpu.codec import tiny_codec_config as jax_tiny
+    from fish_speech_tpu_torch.codec import model as tmodel
+    from fish_speech_tpu_torch.codec.config import tiny_codec_config
+    from fish_speech_tpu_torch.codec.init import codec_params_from_jax
+    from fish_speech_tpu_torch.engine.generate import TTSEngine
+
+    ccfg = tiny_codec_config()
+    jp = jax_init(jax.random.key(5), jax_tiny())
+    base = build_engine(device="cpu", lm_cfg=tiny_lm_config(),
+                        codec_cfg=ccfg, cache_len=256, seed=3)
+    eng = TTSEngine(base.params, base.cfg, base.tokenizer,
+                    codec_params_from_jax(jax.tree.map(np.asarray, jp),
+                                          device="cpu"),
+                    ccfg, cache_len=256, device="cpu")
+    fl = ccfg.frame_length
+    n = (frames - 1) * fl + 100
+    wav = (np.random.default_rng(frames).standard_normal(n)
+           * 0.1).astype(np.float32)
+    seen = []
+    inner = tmodel.dac_encode
+
+    def recorded(p, cfg, audio, *a, **kw):
+        seen.append(tuple(audio.shape))
+        return inner(p, cfg, audio, *a, **kw)
+
+    monkeypatch.setattr(tmodel, "dac_encode", recorded)
+    got = eng.encode_reference(wav)
+    assert seen == [(1, bucket * fl)]
+    assert got.shape == (ccfg.rvq.total_codebooks, frames)
+    padded = np.zeros((1, bucket * fl), np.float32)
+    padded[0, :n] = wav
+    want = np.asarray(jax_dac_encode(jp, jax_tiny(),
+                                     jnp.asarray(padded)).codes[0, :,
+                                                                :frames])
+    assert (got == want).mean() > 0.99
+
+
+def test_warmup_vocoder_runs_each_width(stream_engine):
+    """warmup_vocoder decodes its buckets and, with the scheduler, runs the
+    stream step at each width; stream_tts then warms nothing again."""
+    stream_engine._stream_warm_widths.clear()
+    stream_engine.warmup_vocoder(buckets=((1, 32), (2, 64)),
+                                 stream_widths=(4, 8))
+    assert stream_engine._stream_warm_widths == {4, 8}
