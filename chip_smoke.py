@@ -46,7 +46,25 @@ Phases, in order; any failure exits non-zero:
      and #3/#4 against their plain twins at batch 4; under 120 s;
   5. the W4A8 serving path: that engine freed, build_engine(serving=True,
      quant="w4a8", kv_fold=True) from the same seed, then three `tts`
-     requests, the last with W4A8_KERNEL=pc.
+     requests, the last with W4A8_KERNEL=pc;
+  8. the HTTP server from disk (that engine freed): a full-width S2-Pro LM
+     drawn from the seed, written as a sharded bf16 fish_qwen3_omni
+     safetensors checkpoint with its index and config.json, and the codec
+     as codec.pth with every conv a weight-norm pair; the CLI's own
+     parse_args / build_engine load them (--kv-cache int8 --pallas-attn
+     stream --kv-layout pos --vocoder-impl pallas, 4 scheduler slots, an
+     API key), the loaded LM bit-equal to the drawn one and the codec
+     within 1e-6 relative; the CLI's warm-up; create_server on an
+     ephemeral port in a thread, driven with urllib: health, 401 without
+     the key, a buffered JSON wav, a msgpack pcm, a streamed wav (time to
+     its first audio byte), a reference added then used, four requests
+     from threads at once, /v1/vqgan/encode (equal to encode_reference)
+     and /v1/vqgan/decode of three sequences (equal to decode_codes_batch
+     as f16 bytes); every audio body parses and holds frames x 2048
+     samples; #1 (pos int8) and #3/#4 launch and nothing else; the
+     serving vocoder's three routes (pallas, lax, mm) timed at the
+     server's shapes; then both CLIs as subprocesses in demo mode, each
+     with --vocoder-impl pallas and held to report it.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
@@ -55,7 +73,8 @@ vocoder entries against their plain versions, and measures the int8
 vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
-the `{"scheduler": ...}` and `{"codec": ...}` lines, then the
+the `{"scheduler": ...}`, `{"codec": ...}` and `{"server": ...}` lines,
+then the
 `{"kernels": [...]}` line, the card's name and power limit, and last the
 `{"ok": true, ...}` line.
 """
@@ -108,6 +127,10 @@ BATCH_TOL = 2 ** -5
 BATCH_TWIN_FRAMES = 64
 TWIN_BATCHES = (4, 8)
 CODEC_PHASE_S = 120.0
+SERVER_CACHE_LEN = 2048  # phase 8: the served engine's cache,
+SERVER_KEY = "smoke-key"  # its API key,
+SERVER_NEW_TOKENS = 32   # the buffered JSON request's frames at most,
+SERVER_SHORT_TOKENS = 24  # every other request's
 # phase 6's requests: (text, voice reference (its frames) or None, frames
 # at most). Without a reference the system prompt is the default one, a
 # prefix all of them share (the first misses, the others hit); the two
@@ -1911,6 +1934,712 @@ def run_codec(engine, kernels: dict, chk: Checks, card: str, dev,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the HTTP server from a checkpoint on disk
+# ---------------------------------------------------------------------------
+
+# fish_qwen3_omni names of the Dual-AR tree's per-layer leaves
+_LAYER_LEAVES = (
+    (("attention", "wqkv"), "attention.wqkv.weight"),
+    (("attention", "wqkv_b"), "attention.wqkv.bias"),
+    (("attention", "wo"), "attention.wo.weight"),
+    (("attention", "wo_b"), "attention.wo.bias"),
+    (("attention", "q_norm"), "attention.q_norm.weight"),
+    (("attention", "k_norm"), "attention.k_norm.weight"),
+    (("feed_forward", "w1"), "feed_forward.w1.weight"),
+    (("feed_forward", "w2"), "feed_forward.w2.weight"),
+    (("feed_forward", "w3"), "feed_forward.w3.weight"),
+    (("attention_norm",), "attention_norm.weight"),
+    (("ffn_norm",), "ffn_norm.weight"),
+)
+
+
+def lm_reference_names(params: dict) -> dict:
+    """The port's Dual-AR tree as {fish_qwen3_omni name: tensor} (layers
+    unstacked, views of the tree's leaves): the inverse of
+    load_torch_lm_checkpoint's remap and convert_dual_ar_state_dict."""
+    out = {"text_model.model.embeddings.weight": params["embeddings"],
+           "text_model.model.norm.weight": params["norm"],
+           "audio_decoder.codebook_embeddings.weight":
+               params["codebook_embeddings"],
+           "audio_decoder.embeddings.weight": params["fast_embeddings"],
+           "audio_decoder.norm.weight": params["fast_norm"],
+           "audio_decoder.output.weight": params["fast_output"]}
+    if "output" in params:
+        out["text_model.model.output.weight"] = params["output"]
+    if "fast_project_in" in params:
+        out["audio_decoder.project_in.weight"] = params["fast_project_in"]["w"]
+        out["audio_decoder.project_in.bias"] = params["fast_project_in"]["b"]
+    for stack, prefix in (("layers", "text_model.model.layers"),
+                          ("fast_layers", "audio_decoder.layers")):
+        for keys, name in _LAYER_LEAVES:
+            leaf = params[stack]
+            for k in keys:
+                leaf = leaf.get(k) if isinstance(leaf, dict) else None
+            if leaf is None:
+                continue
+            for i in range(leaf.shape[0]):
+                out[f"{prefix}.{i}.{name}"] = leaf[i]
+    return out
+
+
+def fish_qwen3_omni_config(cfg, tokenizer) -> dict:
+    """The nested config.json that DualARConfig.from_json reads back as
+    `cfg` (with the tokenizer's semantic range)."""
+    return {
+        "model_type": "fish_qwen3_omni",
+        "semantic_start_token_id": tokenizer.semantic_begin_id,
+        "semantic_end_token_id": tokenizer.semantic_end_id,
+        "text_config": {
+            "vocab_size": cfg.vocab_size, "n_layer": cfg.n_layer,
+            "n_head": cfg.n_head, "n_local_heads": cfg.n_local_heads,
+            "head_dim": cfg.head_dim, "dim": cfg.dim,
+            "intermediate_size": cfg.intermediate_size,
+            "rope_base": cfg.rope_base, "norm_eps": cfg.norm_eps,
+            "max_seq_len": cfg.max_seq_len,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "attention_qkv_bias": cfg.attention_qkv_bias,
+            "attention_o_bias": cfg.attention_o_bias,
+            "attention_qk_norm": cfg.attention_qk_norm},
+        "audio_decoder_config": {
+            "vocab_size": cfg.codebook_size,
+            "num_codebooks": cfg.num_codebooks, "n_layer": cfg.n_fast_layer,
+            "dim": cfg.fast_dim, "n_head": cfg.fast_n_head,
+            "n_local_heads": cfg.fast_n_local_heads,
+            "head_dim": cfg.fast_head_dim,
+            "intermediate_size": cfg.fast_intermediate_size,
+            "attention_qkv_bias": cfg.fast_attention_qkv_bias,
+            "attention_o_bias": cfg.fast_attention_o_bias,
+            "attention_qk_norm": cfg.fast_attention_qk_norm},
+    }
+
+
+def write_lm_checkpoint(d, params: dict, cfg, tokenizer,
+                        shard_bytes: float = 4e9) -> dict:
+    """`params` as a sharded bf16 safetensors checkpoint in the
+    fish_qwen3_omni layout (shards of at most `shard_bytes`, the index,
+    the nested config.json). Returns {"shards", "bytes"}."""
+    from fish_speech_tpu_torch.utils.safetensors import save_file
+
+    named = lm_reference_names(params)
+    shards, cur, size = [], {}, 0
+    for name in sorted(named):
+        n = nbytes(named[name])
+        if cur and size + n > shard_bytes:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[name] = named[name]
+        size += n
+    shards.append(cur)
+    weight_map = {}
+    for i, part in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(part, os.path.join(d, fname))
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes(*named.values())},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(fish_qwen3_omni_config(cfg, tokenizer), f, indent=2)
+    return {"shards": len(shards), "bytes": nbytes(*named.values())}
+
+
+def _wn_pair(sd: dict, prefix: str, w_torch: torch.Tensor, b) -> None:
+    """A conv in the torch layout as a weight-norm pair (g = the norm over
+    all dims but 0, v = w) and its bias."""
+    v = w_torch.float().contiguous()
+    g = v.double().square().sum(dim=tuple(range(1, v.ndim)),
+                                keepdim=True).sqrt().float()
+    sd[f"{prefix}.parametrizations.weight.original0"] = g
+    sd[f"{prefix}.parametrizations.weight.original1"] = v
+    if b is not None:
+        sd[f"{prefix}.bias"] = b
+
+
+def _put_conv(sd, prefix, w, b):
+    """A port conv (k, in/g, out) as a CausalConvNet's weight-norm conv."""
+    _wn_pair(sd, f"{prefix}.conv", w.permute(2, 1, 0), b)
+
+
+def _put_tconv(sd, prefix, w, b):
+    """A port transposed conv (k, in, out, flipped) as (in, out, k)."""
+    _wn_pair(sd, f"{prefix}.conv", w.flip(0).permute(1, 2, 0), b)
+
+
+def _put_transformer(sd, prefix, p):
+    for i, lp in enumerate(p["layers"]):
+        q = f"{prefix}.layers.{i}"
+        sd[f"{q}.attention.wqkv.weight"] = lp["attention"]["wqkv"]
+        sd[f"{q}.attention.wo.weight"] = lp["attention"]["wo"]
+        for w in ("w1", "w2", "w3"):
+            sd[f"{q}.feed_forward.{w}.weight"] = lp["feed_forward"][w]
+        sd[f"{q}.attention_norm.weight"] = lp["attention_norm"]
+        sd[f"{q}.ffn_norm.weight"] = lp["ffn_norm"]
+        sd[f"{q}.attention_layer_scale.gamma"] = lp["attention_ls"]
+        sd[f"{q}.ffn_layer_scale.gamma"] = lp["ffn_ls"]
+    sd[f"{prefix}.norm.weight"] = p["norm"]
+    for k in ("input_proj", "output_proj"):
+        if f"{k}_w" in p:
+            sd[f"{prefix}.{k}.weight"] = p[f"{k}_w"]
+            sd[f"{prefix}.{k}.bias"] = p[f"{k}_b"]
+
+
+def _put_convnext(sd, prefix, p):
+    _put_conv(sd, f"{prefix}.dwconv", p["dwconv_w"], p["dwconv_b"])
+    sd[f"{prefix}.norm.weight"] = p["norm_w"]
+    sd[f"{prefix}.norm.bias"] = p["norm_b"]
+    sd[f"{prefix}.pwconv1.weight"] = p["pw1_w"].T
+    sd[f"{prefix}.pwconv1.bias"] = p["pw1_b"]
+    sd[f"{prefix}.pwconv2.weight"] = p["pw2_w"].T
+    sd[f"{prefix}.pwconv2.bias"] = p["pw2_b"]
+    if "gamma" in p:
+        sd[f"{prefix}.gamma"] = p["gamma"]
+
+
+def _put_res_unit(sd, prefix, u):
+    sd[f"{prefix}.block.0.alpha"] = u["snake1_alpha"].reshape(1, -1, 1)
+    _put_conv(sd, f"{prefix}.block.1", u["conv1_w"], u["conv1_b"])
+    sd[f"{prefix}.block.2.alpha"] = u["snake2_alpha"].reshape(1, -1, 1)
+    _put_conv(sd, f"{prefix}.block.3", u["conv2_w"], u["conv2_b"])
+
+
+def codec_state_dict(params: dict, cfg) -> dict:
+    """The port's codec tree as the reference's state dict, every conv a
+    weight-norm pair: the inverse of codec/convert.py."""
+    sd: dict = {}
+    enc = params["encoder"]
+    _put_conv(sd, "encoder.block.0", enc["conv_in_w"], enc["conv_in_b"])
+    n = len(cfg.encoder_rates)
+    for bi, blk in enumerate(enc["blocks"]):
+        bp = f"encoder.block.{bi + 1}.block"
+        for u, unit in enumerate(blk["res_units"]):
+            _put_res_unit(sd, f"{bp}.{u}", unit)
+        sd[f"{bp}.3.alpha"] = blk["snake_alpha"].reshape(1, -1, 1)
+        _put_conv(sd, f"{bp}.4", blk["conv_w"], blk["conv_b"])
+        if "transformer" in blk:
+            _put_transformer(sd, f"{bp}.5", blk["transformer"])
+    sd[f"encoder.block.{n + 1}.alpha"] = enc["snake_alpha"].reshape(1, -1, 1)
+    _put_conv(sd, f"encoder.block.{n + 2}", enc["conv_out_w"],
+              enc["conv_out_b"])
+
+    q = params["quantizer"]
+    for name, kind in (("semantic_quantizer", "semantic"),
+                       ("quantizer", "residual")):
+        for i in range(q[f"{kind}_codebooks"].shape[0]):
+            qp = f"quantizer.{name}.quantizers.{i}"
+            sd[f"{qp}.codebook.weight"] = q[f"{kind}_codebooks"][i]
+            _wn_pair(sd, f"{qp}.in_proj", q[f"{kind}_in_w"][i].T[..., None],
+                     q[f"{kind}_in_b"][i])
+            _wn_pair(sd, f"{qp}.out_proj",
+                     q[f"{kind}_out_w"][i].T[..., None],
+                     q[f"{kind}_out_b"][i])
+    for i, (down, up) in enumerate(zip(q["downsample"], q["upsample"])):
+        _put_conv(sd, f"quantizer.downsample.{i}.0", down["conv_w"],
+                  down["conv_b"])
+        _put_convnext(sd, f"quantizer.downsample.{i}.1", down["convnext"])
+        _put_tconv(sd, f"quantizer.upsample.{i}.0", up["conv_w"],
+                   up["conv_b"])
+        _put_convnext(sd, f"quantizer.upsample.{i}.1", up["convnext"])
+    _put_transformer(sd, "quantizer.pre_module", q["pre_module"])
+    _put_transformer(sd, "quantizer.post_module", q["post_module"])
+
+    dec = params["decoder"]
+    _put_conv(sd, "decoder.model.0", dec["conv_in_w"], dec["conv_in_b"])
+    n = len(cfg.decoder_rates)
+    for bi, blk in enumerate(dec["blocks"]):
+        bp = f"decoder.model.{bi + 1}.block"
+        sd[f"{bp}.0.alpha"] = blk["snake_alpha"].reshape(1, -1, 1)
+        _put_tconv(sd, f"{bp}.1", blk["conv_w"], blk["conv_b"])
+        for u, unit in zip((2, 3, 4), blk["res_units"]):
+            _put_res_unit(sd, f"{bp}.{u}", unit)
+    sd[f"decoder.model.{n + 1}.alpha"] = dec["snake_alpha"].reshape(1, -1, 1)
+    _put_conv(sd, f"decoder.model.{n + 2}", dec["conv_out_w"],
+              dec["conv_out_b"])
+    return {"generator." + k: v.detach().float().cpu().contiguous()
+            for k, v in sd.items()}
+
+
+def compare_trees(got: dict, want: dict, rtol: float) -> list[str]:
+    """Leaves of `got` that differ from `want` (rtol 0: bit-equal)."""
+    from fish_speech_tpu_torch.utils.checkpoint import _flatten
+
+    g, want = _flatten(got), _flatten(want)
+    bad = []
+    for path, w in want.items():
+        x = g.get(path)
+        if w is None or x is None:
+            if (w is None) != (x is None):
+                bad.append(f"{path}: missing")
+            continue
+        if x.shape != w.shape or x.dtype != w.dtype:
+            bad.append(f"{path}: {tuple(x.shape)} {x.dtype} != "
+                       f"{tuple(w.shape)} {w.dtype}")
+        elif rtol == 0 and not torch.equal(x, w):
+            bad.append(f"{path}: not bit-equal")
+        elif rtol and not torch.allclose(x, w, rtol=rtol, atol=0):
+            rel = ((x - w).abs() / w.abs().clamp_min(1e-30)).max().item()
+            bad.append(f"{path}: rel err {rel:.3g}")
+    if len(g) != len(want):
+        bad.append(f"{len(g)} leaves, want {len(want)}")
+    return bad
+
+
+class Client:
+    """urllib against the phase's server, the API key on every call."""
+
+    def __init__(self, port: int, key: str | None):
+        self.base = f"http://127.0.0.1:{port}"
+        self.key = key
+
+    def call(self, method: str, path: str, body=None, ctype=None,
+             auth: bool = True, accept=None):
+        """(status, headers, body bytes, seconds); a dict goes as JSON, or
+        as msgpack with ctype="application/msgpack"."""
+        from fish_speech_tpu_torch.serve import msgpack
+
+        import urllib.error
+        import urllib.request
+
+        headers = {}
+        if isinstance(body, dict):
+            if ctype == "application/msgpack":
+                body = msgpack.packb(body)
+            else:
+                body, ctype = json.dumps(body).encode(), "application/json"
+        if ctype:
+            headers["Content-Type"] = ctype
+        if accept:
+            headers["Accept"] = accept
+        if auth and self.key:
+            headers["Authorization"] = f"Bearer {self.key}"
+        req = urllib.request.Request(self.base + path, data=body,
+                                     headers=headers, method=method)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out = r.status, r.headers, r.read()
+        except urllib.error.HTTPError as e:
+            out = e.code, e.headers, e.read()
+        return (*out, time.perf_counter() - t0)
+
+    def stream(self, body: dict) -> tuple[int, bytes, float, float]:
+        """A streamed /v1/tts: (status, body, seconds to the first audio
+        byte after the WAV header, seconds in all)."""
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          int(self.base.rsplit(":", 1)[1]),
+                                          timeout=600)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/v1/tts", json.dumps(body),
+                         {"Content-Type": "application/json",
+                          "Authorization": f"Bearer {self.key}"})
+            resp = conn.getresponse()
+            data, first = b"", None
+            while True:
+                part = resp.read1(1 << 16)
+                if not part:
+                    break
+                data += part
+                if first is None and len(data) > 44:
+                    first = time.perf_counter() - t0
+            return resp.status, data, first, time.perf_counter() - t0
+        finally:
+            conn.close()
+
+
+def audio_frames(body: bytes, fmt: str, fl: int, max_frames: int) -> tuple:
+    """(frames, problem or None) of a wav or pcm body: it parses (RIFF, or
+    even-length PCM16), its samples are finite, and there are frames x
+    `fl` of them, 0 < frames <= max_frames."""
+    import io
+    import wave
+
+    import numpy as np
+
+    if fmt == "wav":
+        if body[:4] != b"RIFF":
+            return 0, "no RIFF header"
+        try:
+            with wave.open(io.BytesIO(body)) as w:
+                pcm = w.readframes(w.getnframes())
+        except (wave.Error, EOFError) as e:
+            return 0, f"wav does not parse: {e}"
+        if len(pcm) == 0 and len(body) > 44:    # a streamed header
+            pcm = body[44:]
+    else:
+        pcm = body
+    if len(pcm) % 2:
+        return 0, f"odd PCM length {len(pcm)}"
+    samples = np.frombuffer(pcm, "<i2").astype(np.float32) / 32768.0
+    n = samples.size
+    if not np.isfinite(samples).all():
+        return 0, "samples not finite"
+    if n == 0 or n % fl or n // fl > max_frames:
+        return n / fl, f"{n} samples: not frames x {fl}, <= {max_frames}"
+    return n // fl, None
+
+
+VOC_IMPL_SHAPES = ((1, 32), (1, 64), (4, 64))  # (batch, frame bucket)
+
+
+def vocoder_impl_ms(engine, rng) -> list[dict]:
+    """The serving vocoder's three routes (`TTSEngine._vocode`: "pallas"
+    #3/#4, "lax" the plain f32 decoder, "mm" its matmul form) timed on the
+    same seeded codes at the server's shapes: a request's 32-frame bucket,
+    the "auto" probe's 64 frames, and /v1/vqgan/decode's batch of 4. Each
+    twice: with the codes on the host, as the engine gets them (their copy
+    to the card waits for the device, so this is a call's wall time), and
+    with the codes already on the card (the device's time)."""
+    n_q = engine.codec_cfg.rvq.total_codebooks
+    out = []
+    for b, frames in VOC_IMPL_SHAPES:
+        host = torch.from_numpy(rng.integers(
+            0, engine.codec_cfg.rvq.codebook_size, (b, n_q, frames)))
+        row = {"batch": b, "frames": frames}
+        for where, codes in (("host_codes", host),
+                             ("device_codes", host.to(engine.device))):
+            row[where] = {
+                impl: time_ms(lambda: engine._vocode(codes, impl), reps=5)
+                for impl in ("pallas", "lax", "mm")}
+            log(f"  vocoder routes at B={b}, {frames} frames, {where}: "
+                + ", ".join(f"{i} {t:.3f} ms"
+                            for i, t in row[where].items()))
+        out.append(row)
+    return out
+
+
+def cli_env() -> dict:
+    """The environment of a CLI subprocess: this checkout on its path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_cli(args: list, cwd: str,
+            timeout: float) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", *args], cwd=cwd,
+                          env=cli_env(), capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def demo_server_check(workdir: str, timeout: float = 300) -> dict:
+    """The server CLI in demo mode on the card, as a subprocess, serving
+    #3/#4 by name: health, one /v1/tts, then SIGTERM. Its first line has to
+    come within `timeout` seconds; its stderr goes to a file of the work
+    dir. Returns its seconds."""
+    import queue
+    import re
+    import threading
+
+    t0 = time.perf_counter()
+    err_path = os.path.join(workdir, "demo_server.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fish_speech_tpu_torch.tools.api_server",
+             "--listen", "127.0.0.1:0", "--vocoder-impl", "pallas",
+             "--references-dir", os.path.join(workdir, "demo_refs")],
+            cwd=workdir, env=cli_env(), stdout=subprocess.PIPE, stderr=err,
+            text=True)
+    try:
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                         daemon=True).start()
+        try:
+            line = lines.get(timeout=timeout)
+        except queue.Empty:
+            line = None
+        m = line and re.search(r"http://127\.0\.0\.1:(\d+), vocoder (\w+)$",
+                               line.strip())
+        if not m or m.group(2) != "pallas":
+            proc.kill()
+            proc.wait()
+            with open(err_path) as f:
+                tail = f.read()[-2000:]
+            raise RuntimeError(
+                f"demo server did not start on #3/#4 within {timeout} s: "
+                f"{line!r}; stderr tail: {tail}")
+        up_s = time.perf_counter() - t0
+        c = Client(int(m.group(1)), None)
+        health = c.call("GET", "/v1/health")
+        tts = c.call("POST", "/v1/tts", {"text": "demo", "max_new_tokens": 8})
+        if health[0] != 200 or tts[0] != 200 or tts[2][:4] != b"RIFF":
+            raise RuntimeError(f"demo server answered {health[0]} / "
+                               f"{tts[0]}: {tts[2][:200]!r}")
+        return {"up_s": up_s, "tts_s": tts[3]}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def run_server(kernels: dict, chk: Checks, card: str, dev,
+               profile: int = 0) -> dict:
+    """Phase 8: a full-width S2-Pro checkpoint written to disk in the
+    reference layout, loaded and served by the port's CLI functions, driven
+    over HTTP (see the module docstring); returns the phase's launch
+    counts. profile > 0: then one more request of the served engine under
+    torch.profiler (`profile_request`)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.codec.config import s2_pro_codec_config
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.models.config import (DualARConfig,
+                                                     s2_pro_lm_config)
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.serve.app import create_server
+    from fish_speech_tpu_torch.serve.wav import decode_audio_bytes, encode_wav
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+    from fish_speech_tpu_torch.tools import api_server
+
+    problems: list[str] = []
+    report: dict = {"card": card}
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".smoke_server_", dir=root)
+    report["disk_free_gb"] = shutil.disk_usage(work).free / 1e9
+    log(f"phase 8: work dir {work}, {report['disk_free_gb']:.1f} GB free")
+    server = engine = None
+    try:
+        # (a) the checkpoint, drawn from the seed on the card
+        tokenizer = ByteTokenizer()
+        cfg = s2_pro_lm_config(max_seq_len=SERVER_CACHE_LEN)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        drawn = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16,
+                                    device=dev)
+        codec_cfg = s2_pro_codec_config()
+        drawn_codec = init_dac_params(gen, codec_cfg, device=dev)
+        ckpt = os.path.join(work, "lm")
+        os.makedirs(ckpt)
+        t0 = time.perf_counter()
+        written = write_lm_checkpoint(ckpt, drawn, cfg, tokenizer)
+        report["write_lm_s"] = time.perf_counter() - t0
+        report.update(lm_bytes=written["bytes"], lm_shards=written["shards"])
+        codec_path = os.path.join(work, "codec.pth")
+        t0 = time.perf_counter()
+        torch.save(codec_state_dict(drawn_codec, codec_cfg), codec_path)
+        report["write_codec_s"] = time.perf_counter() - t0
+        log(f"  wrote {written['bytes'] / 1e9:.2f} GB of LM in "
+            f"{written['shards']} shards in {report['write_lm_s']:.1f} s, "
+            f"codec.pth in {report['write_codec_s']:.1f} s")
+        want_cfg = cfg.with_semantic_range(tokenizer.semantic_begin_id,
+                                           tokenizer.semantic_end_id)
+        if DualARConfig.from_json(ckpt) != want_cfg:
+            problems.append("config.json does not read back as S2-Pro")
+
+        # (b) the engine, through the CLI's own functions
+        args = api_server.parse_args([
+            "--checkpoint", ckpt, "--codec-checkpoint", codec_path,
+            "--kv-cache", "int8", "--pallas-attn", "stream",
+            "--kv-layout", "pos", "--vocoder-impl", "pallas",
+            "--scheduler-slots", str(SCHED_SLOTS),
+            "--cache-len", str(SERVER_CACHE_LEN), "--api-key", SERVER_KEY,
+            "--references-dir", os.path.join(work, "refs"),
+            "--device", str(dev)])
+        t0 = time.perf_counter()
+        engine = api_server.build_engine(args)
+        torch.cuda.synchronize()
+        report["load_s"] = time.perf_counter() - t0
+        bad = compare_trees(engine.params, drawn, rtol=0)
+        bad += compare_trees(engine.codec_params, drawn_codec, rtol=1e-6)
+        if bad:
+            problems.append(f"loaded weights differ: {bad[:5]}")
+        del drawn, drawn_codec
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  engine from disk in {report['load_s']:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; "
+            f"leaves {'equal' if not bad else 'DIFFER'}")
+        t0 = time.perf_counter()
+        api_server.warm_up(engine)
+        torch.cuda.synchronize()
+        report["warmup_s"] = time.perf_counter() - t0
+
+        # (c) the server in a thread, on an ephemeral port
+        server = create_server(engine, "127.0.0.1", 0,
+                               ref_dir=args.references_dir,
+                               api_key=args.api_key)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        c = Client(server.server_address[1], SERVER_KEY)
+        fl = codec_cfg.frame_length
+        requests: list[dict] = []
+
+        def audio_check(label, status, body, fmt, max_new, wall):
+            frames, why = ((0, f"status {status}: {body[:200]!r}")
+                           if status != 200
+                           else audio_frames(body, fmt, fl, max_new))
+            requests.append({"request": label, "status": status,
+                             "frames": frames, "wall_s": wall})
+            if why:
+                problems.append(f"{label}: {why}")
+
+        for k in kernels.values():
+            k.launches = 0
+        st, _, body, wall = c.call("GET", "/v1/health")
+        if st != 200 or json.loads(body) != {"status": "ok"}:
+            problems.append(f"health: {st} {body[:100]!r}")
+        st, _, _, _ = c.call("GET", "/v1/health", auth=False)
+        if st != 401:
+            problems.append(f"health without the key: {st}, not 401")
+        st, _, body, wall = c.call("POST", "/v1/tts", {
+            "text": TEXTS[0], "max_new_tokens": SERVER_NEW_TOKENS})
+        audio_check("tts_json_wav", st, body, "wav", SERVER_NEW_TOKENS, wall)
+        st, _, body, wall = c.call("POST", "/v1/tts", {
+            "text": TEXTS[1], "max_new_tokens": SERVER_SHORT_TOKENS,
+            "format": "pcm"}, ctype="application/msgpack")
+        audio_check("tts_msgpack_pcm", st, body, "pcm", SERVER_SHORT_TOKENS,
+                    wall)
+        st, body, first_s, wall = c.stream({
+            "text": TEXTS[2], "max_new_tokens": SERVER_SHORT_TOKENS,
+            "streaming": True})
+        audio_check("tts_stream_wav", st, body, "wav", SERVER_SHORT_TOKENS,
+                    wall)
+        report["stream_first_audio_s"] = first_s
+        if first_s is None:
+            problems.append("the stream sent no audio")
+
+        rng = np.random.default_rng(SEED + 8)
+        sr = codec_cfg.sample_rate
+        t = np.arange(int(ENCODE_SECONDS * sr)) / sr
+        ref_wav = (0.3 * np.sin(2 * np.pi * 220 * t)
+                   + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+        ref_bytes = encode_wav(ref_wav, sr)
+        st, _, body, wall = c.call("POST", "/v1/references/add", {
+            "id": "smoke", "text": "A seeded reference.",
+            "audio": ref_bytes}, ctype="application/msgpack")
+        if st != 200:
+            problems.append(f"references/add: {st} {body[:200]!r}")
+        st, _, body, wall = c.call("POST", "/v1/tts", {
+            "text": TEXTS[0], "max_new_tokens": SERVER_SHORT_TOKENS,
+            "reference_id": "smoke"})
+        audio_check("tts_reference", st, body, "wav", SERVER_SHORT_TOKENS,
+                    wall)
+
+        results = [None] * SCHED_SLOTS
+
+        def one(i):
+            results[i] = c.call("POST", "/v1/tts", {
+                "text": SCHED_REQUESTS[i][0],
+                "max_new_tokens": SERVER_SHORT_TOKENS, "seed": i})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(SCHED_SLOTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        report["concurrent_wall_s"] = time.perf_counter() - t0
+        for i, r in enumerate(results):
+            if r is None:
+                problems.append(f"concurrent {i}: no answer")
+                continue
+            audio_check(f"tts_concurrent_{i}", r[0], r[2], "wav",
+                        SERVER_SHORT_TOKENS, r[3])
+
+        st, _, body, wall = c.call("POST", "/v1/vqgan/encode",
+                                   {"audios": [ref_bytes]},
+                                   ctype="application/msgpack",
+                                   accept="application/msgpack")
+        from fish_speech_tpu_torch.serve import msgpack
+
+        want = engine.encode_reference(decode_audio_bytes(ref_bytes, sr))
+        got = (np.asarray(msgpack.unpackb(body)["tokens"][0])
+               if st == 200 else None)
+        requests.append({"request": "vqgan_encode", "status": st,
+                         "frames": None if got is None else got.shape[1],
+                         "wall_s": wall})
+        if got is None or got.shape != want.shape or (got != want).any():
+            problems.append(f"vqgan/encode: {st}, not encode_reference's "
+                            f"codes {want.shape}")
+
+        codes = [rng.integers(0, codec_cfg.rvq.codebook_size,
+                              (codec_cfg.rvq.total_codebooks, n))
+                 for n in (20, *BATCH_FRAMES)]
+        st, _, body, wall = c.call(
+            "POST", "/v1/vqgan/decode",
+            {"tokens": [x.tolist() for x in codes]},
+            ctype="application/msgpack", accept="application/msgpack")
+        got = msgpack.unpackb(body)["audios"] if st == 200 else None
+        requests.append({"request": "vqgan_decode", "status": st,
+                         "frames": [x.shape[1] for x in codes],
+                         "wall_s": wall})
+        launches = {n: k.launches for n, k in kernels.items()}
+        # the engine's own call on the same codes, after the count
+        want = [np.asarray(w, np.float16).tobytes()
+                for w in engine.decode_codes_batch(codes)]
+        if got != want:
+            diff = None
+            if got is not None and len(got) == len(want):
+                diff = max(float(np.abs(
+                    np.frombuffer(a, np.float16).astype(np.float32)
+                    - np.frombuffer(b, np.float16).astype(np.float32)).max())
+                    for a, b in zip(got, want))
+            problems.append(f"vqgan/decode: {st}, not decode_codes_batch's "
+                            f"f16 bytes (max diff {diff})")
+        route = ("decode_attention_stream", "voc_block", "voc_res_stack")
+        missing = [n for n in route if launches[n] < 1]
+        stray = [n for n in kernels if n not in route and launches[n] > 0]
+        if missing or stray:
+            problems.append(f"launches: not launched {missing}, launched off "
+                            f"the route {stray}")
+        report["launches"] = {n: launches[n] for n in route}
+        report["requests"] = requests
+        report["vocoder_impl_ms"] = vocoder_impl_ms(engine, rng)
+        if profile:
+            profile_request(engine, profile, "server")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            server.app.close()
+        if engine is not None:
+            engine.close()
+        shutil.rmtree(os.path.join(work, "lm"), ignore_errors=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLIs as subprocesses, demo mode, on the card
+    try:
+        report["demo_server"] = demo_server_check(work)
+        out = os.path.join(work, "demo.wav")
+        t0 = time.perf_counter()
+        r = run_cli(["fish_speech_tpu_torch.tools.tts_cli", "--output", out,
+                     "--max-new-tokens", "8", "--vocoder-impl", "pallas",
+                     "--output-dir", os.path.join(work, "codes")], work, 300)
+        report["demo_tts_cli_s"] = time.perf_counter() - t0
+        if r.returncode != 0 or not os.path.exists(out):
+            problems.append(f"tts_cli exited {r.returncode}: "
+                            f"{r.stderr[-2000:]}")
+        elif r.stdout.splitlines()[:1] != ["vocoder pallas"]:
+            problems.append(f"tts_cli did not serve #3/#4: "
+                            f"{r.stdout[:200]!r}")
+        else:
+            with open(out, "rb") as f:
+                if f.read(4) != b"RIFF":
+                    problems.append("tts_cli wrote no wav")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    print(json.dumps({"server": report}), flush=True)
+    log(f"phase 8: load {report['load_s']:.1f} s, warm-up "
+        f"{report['warmup_s']:.1f} s, first streamed audio "
+        f"{report['stream_first_audio_s']} s, launches "
+        f"{report['launches']}")
+    for p in problems:
+        chk.failed.append(f"server: {p}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -2060,6 +2789,13 @@ def main() -> int:
     if args.profile:
         profile_request(engine, args.profile, "w4a8_fold")
 
+    # phase 8: the HTTP server from a checkpoint on disk (phase 5's engine
+    # freed first)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["server"] = run_server(kernels, chk, card, dev, args.profile)
+
     def entry(name, replaces, cases, head, path):
         """`head`: the cases whose times are summed into the headline;
         `path`: the path (or paths) whose launches are counted."""
@@ -2093,7 +2829,7 @@ def main() -> int:
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
-              ["int8", "scheduler", "codec"]),
+              ["int8", "scheduler", "codec", "server"]),
         entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
               attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
@@ -2110,9 +2846,9 @@ def main() -> int:
               sweep[3:4], ["int8", "scheduler", "codec"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
-              ["int8", "scheduler", "codec"]),
+              ["int8", "scheduler", "codec", "server"]),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              res[:1], ["int8", "scheduler", "codec"]),
+              res[:1], ["int8", "scheduler", "codec", "server"]),
         # the int8 configurations (VOC_QUANT)
         entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
               blk_i8, "voc_quant"),

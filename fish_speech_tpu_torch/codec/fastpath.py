@@ -155,6 +155,45 @@ def rvq_decode_mm(params: dict, cfg: RVQConfig,
     return rvq_upsample_mm(params, z, cfg)
 
 
+def residual_unit_mm(params: dict, x: torch.Tensor,
+                     dilation: int) -> torch.Tensor:
+    y = snake(x, params["snake1_alpha"])
+    y = conv1d_mm(y, params["conv1_w"], params["conv1_b"], dilation=dilation)
+    y = snake(y, params["snake2_alpha"])
+    y = conv1d_mm(y, params["conv2_w"], params["conv2_b"])
+    return x + y
+
+
+def decoder_block_mm(params: dict, x: torch.Tensor,
+                     stride: int) -> torch.Tensor:
+    x = snake(x, params["snake_alpha"])
+    x = conv_transpose1d_mm(x, params["conv_w"], params["conv_b"],
+                            stride=stride)
+    for unit, dilation in zip(params["res_units"], DILATIONS):
+        x = residual_unit_mm(unit, x, dilation)
+    return x
+
+
+def decoder_mm(params: dict, cfg: DACConfig, z: torch.Tensor) -> torch.Tensor:
+    """model.decoder on the matmul primitives (the JAX `--vocoder-impl mm`):
+    latents (B, Tz, latent_dim) -> (B, Tz*hop, 1), in the parameters'
+    dtype."""
+    x = conv1d_mm(z, params["conv_in_w"], params["conv_in_b"])
+    for block, stride in zip(params["blocks"], cfg.decoder_rates):
+        x = decoder_block_mm(block, x, stride)
+    x = snake(x, params["snake_alpha"])
+    x = conv1d_mm(x, params["conv_out_w"], params["conv_out_b"])
+    return torch.tanh(x)
+
+
+def dac_from_indices_mm(params: dict, cfg: DACConfig,
+                        indices: torch.Tensor) -> torch.Tensor:
+    """model.dac_from_indices on the matmul primitives: codes (B, K+1, Tq)
+    on the parameters' device -> waveform (B, Tq*frame_length)."""
+    z = rvq_decode_mm(params["quantizer"], cfg.rvq, indices)
+    return decoder_mm(params["decoder"], cfg, z)[..., 0]
+
+
 def _tail(alpha: torch.Tensor) -> torch.Tensor:
     """(2, C) f32 snake constants [alpha/pi, 1/(alpha+eps)]."""
     a = alpha.float()

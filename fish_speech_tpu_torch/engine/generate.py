@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 import queue
 import re
 import threading
@@ -31,6 +32,9 @@ from ..ops.sampling import semantic_logit_bias
 from ..text.content import TextPart, VQPart
 from ..text.conversation import Conversation, Message
 from ..text.tokenizer import IM_END_TOKEN, ByteTokenizer
+
+
+VOCODER_IMPLS = ("auto", "pallas", "lax", "mm")
 
 
 def split_text_by_speaker(text: str) -> list[str]:
@@ -129,14 +133,17 @@ class TTSEngine:
     prefix cache, prompts longer than `prefill_chunk` prefill a chunk at a
     time between ticks, and a tick runs `scheduler_chunk` decode steps per
     read-back while no request waits. `close()` stops the scheduler's
-    thread."""
+    thread. `vocoder_impl` selects the serving vocoder (`_vocode`): "pallas"
+    (the fused kernels #3/#4, the default), "lax", "mm", or "auto" (the
+    faster of "pallas" and "lax", probed at construction)."""
 
     def __init__(self, params: dict, cfg: DualARConfig, tokenizer,
                  codec_params: dict | None = None,
                  codec_cfg: DACConfig | None = None,
                  cache_len: int | None = None, device=None,
                  voc_quant: bool | None = None, scheduler_slots: int = 0,
-                 scheduler_chunk: int = 1, prefill_chunk: int | None = None):
+                 scheduler_chunk: int = 1, prefill_chunk: int | None = None,
+                 vocoder_impl: str = "pallas"):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -149,17 +156,23 @@ class TTSEngine:
             cfg.vocab_size, cfg.semantic_begin_id, cfg.semantic_end_id,
             self.im_end_id, device=self.device)
         self.packed_decoder = None
+        self.vocoder_impl = None
         # stream-step widths already run once in this engine (stream_tts
         # warms each width once, not per request)
         self._stream_warm_widths: set[int] = set()
         if codec_params is not None:
-            from ..codec.fastpath import pack_decoder
+            if vocoder_impl not in VOCODER_IMPLS:
+                raise ValueError(f"unknown vocoder impl: {vocoder_impl!r}")
+            if vocoder_impl in ("pallas", "auto"):
+                from ..codec.fastpath import pack_decoder
 
-            dtype = (torch.bfloat16 if self.device.type == "cuda"
-                     else torch.float32)
-            self.packed_decoder = pack_decoder(codec_params["decoder"],
-                                                codec_cfg, dtype=dtype,
-                                                quant=voc_quant)
+                dtype = (torch.bfloat16 if self.device.type == "cuda"
+                         else torch.float32)
+                self.packed_decoder = pack_decoder(codec_params["decoder"],
+                                                    codec_cfg, dtype=dtype,
+                                                    quant=voc_quant)
+            self.vocoder_impl = (self._select_vocoder_impl()
+                                 if vocoder_impl == "auto" else vocoder_impl)
         self.scheduler = None
         self._next_request_id = 0
         self._id_lock = threading.Lock()
@@ -178,6 +191,62 @@ class TTSEngine:
         """Stop the scheduler's thread (no-op without one)."""
         if self.scheduler is not None:
             self.scheduler.stop()
+
+    def _vocode(self, codes: torch.Tensor, impl: str | None = None
+                ) -> torch.Tensor:
+        """Codes (B, K+1, T) -> waveform (B, T * frame_length) through the
+        serving vocoder: "pallas" the fused kernels (#3/#4), "lax" the
+        plain f32 decoder of codec/model.py, "mm" the matmul decoder of
+        codec/fastpath.py (the JAX `--vocoder-impl` names)."""
+        impl = impl or self.vocoder_impl
+        if impl == "pallas":
+            from ..codec.fastpath import dac_from_indices_fused
+
+            return dac_from_indices_fused(
+                self.codec_params, self.codec_cfg, codes,
+                packed=self.packed_decoder, device=self.device)
+        codes = codes.to(self.device)
+        if impl == "mm":
+            from ..codec.fastpath import dac_from_indices_mm
+
+            return dac_from_indices_mm(self.codec_params, self.codec_cfg,
+                                       codes)
+        from ..codec.model import dac_from_indices
+
+        return dac_from_indices(self.codec_params, self.codec_cfg, codes)
+
+    def _select_vocoder_impl(self, probe_frames: int = 64) -> str:
+        """"auto": the faster of "pallas" and "lax" in steady state
+        (utils/probing.py), logged. A candidate that raises (a kernel that
+        does not build or launch) fails the engine: the probe never falls
+        back past an error. On the card "auto" serves the fused kernels or
+        nothing: if the plain decoder wins, it raises and names the times,
+        and the caller has to ask for "lax" by name."""
+        from ..utils.probing import steady_state_winner
+
+        n_q = self.codec_cfg.rvq.total_codebooks
+        codes = torch.zeros((1, n_q, probe_frames), dtype=torch.int64)
+
+        def candidate(impl):
+            def call():
+                try:
+                    self._vocode(codes, impl)[0, -1].item()
+                except Exception as e:
+                    raise RuntimeError(f"vocoder impl {impl!r} failed while "
+                                       "probing") from e
+            return call
+
+        winner, times = steady_state_winner(
+            {impl: candidate(impl) for impl in ("pallas", "lax")})
+        took = ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+        if self.device.type == "cuda" and winner != "pallas":
+            raise RuntimeError(
+                f"vocoder_impl='auto': the plain decoder beat the fused "
+                f"kernels #3/#4 at {probe_frames} frames (s a call: {took}); "
+                "ask for vocoder_impl='lax' by name to serve it")
+        logging.getLogger(__name__).info("vocoder impl %s (s a call: %s)",
+                                         winner, took)
+        return winner
 
     def _system_prefix(self, conversation: Conversation) -> tuple[str, int]:
         """(prefix_id, prefix_len) of the shared system prompt: the
@@ -223,25 +292,21 @@ class TTSEngine:
         return codes[0, :, :n_valid].cpu().numpy()
 
     def decode_codes(self, codes: np.ndarray) -> np.ndarray:
-        """(K, n) codes -> (n * frame_length,) f32 waveform. The frame count
-        is bucketed to a multiple of 64 (at least 32), JAX's bucket rule.
-        The bf16 decoder is causal, so the right padding never changes the
-        prefix; the int8 decoder (VOC_QUANT) takes one activation scale per
-        time tile, and a tile that straddles the padding sees the padded
-        rows, so there the padding does change the prefix's last tiles, as
-        it does in JAX with the same buckets and tiles."""
-        from ..codec.fastpath import dac_from_indices_fused
-
+        """(K, n) codes -> (n * frame_length,) f32 waveform through the
+        serving vocoder. The frame count is bucketed to a multiple of 64
+        (at least 32), JAX's bucket rule. The bf16 decoder is causal, so
+        the right padding never changes the prefix; the int8 decoder
+        (VOC_QUANT) takes one activation scale per time tile, and a tile
+        that straddles the padding sees the padded rows, so there the
+        padding does change the prefix's last tiles, as it does in JAX
+        with the same buckets and tiles."""
         if self.codec_params is None:
             raise RuntimeError("no codec attached")
         n = codes.shape[1]
         bucket = max(32, -(-n // 64) * 64)
         padded = np.zeros((codes.shape[0], bucket), dtype=np.int64)
         padded[:, :n] = codes
-        wav = dac_from_indices_fused(
-            self.codec_params, self.codec_cfg,
-            torch.from_numpy(padded)[None], packed=self.packed_decoder,
-            device=self.device)
+        wav = self._vocode(torch.from_numpy(padded)[None])
         fl = self.codec_cfg.frame_length
         return wav[0, :n * fl].float().cpu().numpy()
 
@@ -250,10 +315,8 @@ class TTSEngine:
         """Many (K, T_i) code sequences -> their waveforms, in groups of
         `micro_batch` in submission order: a group is padded with zero
         codes to its longest item's frame bucket (`decode_codes`'s rule)
-        and to a power-of-two batch, and decoded by one call of the fused
-        decoder."""
-        from ..codec.fastpath import dac_from_indices_fused
-
+        and to a power-of-two batch, and decoded by one call of the serving
+        vocoder."""
         if self.codec_params is None:
             raise RuntimeError("no codec attached")
         fl = self.codec_cfg.frame_length
@@ -268,10 +331,7 @@ class TTSEngine:
             padded = np.zeros((bb, group[0].shape[0], bucket), np.int64)
             for i, c in enumerate(group):
                 padded[i, :, :c.shape[1]] = c
-            wav = dac_from_indices_fused(
-                self.codec_params, self.codec_cfg, torch.from_numpy(padded),
-                packed=self.packed_decoder, device=self.device)
-            wav = wav.float().cpu().numpy()
+            wav = self._vocode(torch.from_numpy(padded)).float().cpu().numpy()
             out.extend(wav[i, :n * fl] for i, n in enumerate(lens))
         return out
 
@@ -299,7 +359,6 @@ class TTSEngine:
         with the scheduler, the stream step once at each width, so that no
         request pays the first use (the kernels' nvcc build, cuDNN's
         planning of the stream step's convs)."""
-        from ..codec.fastpath import dac_from_indices_fused
         from ..codec.streaming import StatefulVocoder, init_vocoder_state
 
         if self.codec_params is None:
@@ -308,9 +367,7 @@ class TTSEngine:
         for bb, frames in buckets:
             codes = torch.zeros((bb, n_q, frames), dtype=torch.int64)
             for _ in range(2):
-                dac_from_indices_fused(self.codec_params, self.codec_cfg,
-                                       codes, packed=self.packed_decoder,
-                                       device=self.device)
+                self._vocode(codes)
         if self.scheduler is not None and stream_widths:
             voc = StatefulVocoder(self.codec_params, self.codec_cfg,
                                   chunk_frames=max(stream_widths),

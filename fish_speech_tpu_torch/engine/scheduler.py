@@ -339,10 +339,13 @@ class ContinuousBatcher:
         reqs = [inf["req"] for inf in self._inflight]
         reqs += [r for r in self.slot_req if r is not None]
         self._inflight = []
+        # the error first: freeing a slot sets its request's `done`, and a
+        # waiter woken by it reads `error` at once
+        for r in reqs:
+            r.error = err
         for s in range(self.num_slots):
             self._finish_slot(s)
         for r in reqs:
-            r.error = err
             r.done.set()
 
     def _bucket(self, t: int) -> int:

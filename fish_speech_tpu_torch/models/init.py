@@ -1,5 +1,6 @@
-"""Random init for the Dual-AR transformer, and the weight carry from the
-JAX package's parameter tree.
+"""Random init for the Dual-AR transformer, the conversion of a reference
+(torch) state dict, and the weight carry from the JAX package's parameter
+tree.
 
 Counterpart of `fish_speech_tpu/models/init.py`. Parameters are nested dicts
 of tensors with the same keys and layouts as the JAX pytree: per-layer
@@ -13,6 +14,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.quant import pack_int4_params
+from ..utils.checkpoint import sd_tensor
 from .config import AttnDims, DualARConfig
 
 
@@ -94,6 +96,77 @@ def init_dual_ar_params(gen: torch.Generator, cfg: DualARConfig,
             "w": w((cfg.fast_dim, cfg.dim)),
             "b": torch.zeros(cfg.fast_dim, dtype=dtype, device=device),
         }
+    return params
+
+
+def _convert_stack(sd: dict, prefix: str, n_layer: int, ad: AttnDims, dtype,
+                   device) -> dict:
+    """Per-layer tensors `prefix.{i}.*` stacked on a leading depth axis.
+    Each stack is allocated on `device` and filled a layer at a time, so a
+    layer is read from its (mapped) file once, straight into its slot."""
+    def stack(fmt):
+        first = sd[fmt.format(i=0)]
+        out = torch.empty((n_layer, *first.shape), dtype=dtype, device=device)
+        for i in range(n_layer):
+            out[i].copy_(sd_tensor(sd[fmt.format(i=i)]))
+        return out
+
+    layers = {
+        "attention": {
+            "wqkv": stack(prefix + ".{i}.attention.wqkv.weight"),
+            "wo": stack(prefix + ".{i}.attention.wo.weight"),
+        },
+        "feed_forward": {
+            "w1": stack(prefix + ".{i}.feed_forward.w1.weight"),
+            "w2": stack(prefix + ".{i}.feed_forward.w2.weight"),
+            "w3": stack(prefix + ".{i}.feed_forward.w3.weight"),
+        },
+        "attention_norm": stack(prefix + ".{i}.attention_norm.weight"),
+        "ffn_norm": stack(prefix + ".{i}.ffn_norm.weight"),
+    }
+    if ad.qkv_bias:
+        layers["attention"]["wqkv_b"] = stack(prefix + ".{i}.attention.wqkv.bias")
+    if ad.o_bias:
+        layers["attention"]["wo_b"] = stack(prefix + ".{i}.attention.wo.bias")
+    if ad.qk_norm:
+        layers["attention"]["q_norm"] = stack(
+            prefix + ".{i}.attention.q_norm.weight")
+        layers["attention"]["k_norm"] = stack(
+            prefix + ".{i}.attention.k_norm.weight")
+    return layers
+
+
+def convert_dual_ar_state_dict(sd: dict, cfg: DualARConfig,
+                               dtype=torch.float32, device=None) -> dict:
+    """{reference name: tensor or numpy array} -> the port's parameter tree
+    in `dtype` on `device` (CUDA unless named): the keys and layouts of
+    `init_dual_ar_params`, layers stacked, the optional q/k norms, biases,
+    `fast_project_in` and untied output as the state dict has them.
+    Counterpart of the JAX `convert_dual_ar_state_dict`."""
+    device = resolve_device(device)
+
+    def one(name):
+        return sd_tensor(sd[name]).to(device=device, dtype=dtype)
+
+    if cfg.is_naive:
+        raise NotImplementedError("the naive codebook head is not ported")
+    params = {
+        "embeddings": one("embeddings.weight"),
+        "codebook_embeddings": one("codebook_embeddings.weight"),
+        "layers": _convert_stack(sd, "layers", cfg.n_layer, cfg.slow_attn,
+                                 dtype, device),
+        "norm": one("norm.weight"),
+        "fast_embeddings": one("fast_embeddings.weight"),
+        "fast_layers": _convert_stack(sd, "fast_layers", cfg.n_fast_layer,
+                                      cfg.fast_attn, dtype, device),
+        "fast_norm": one("fast_norm.weight"),
+        "fast_output": one("fast_output.weight"),
+    }
+    if not cfg.tie_word_embeddings:
+        params["output"] = one("output.weight")
+    if "fast_project_in.weight" in sd:
+        params["fast_project_in"] = {"w": one("fast_project_in.weight"),
+                                     "b": one("fast_project_in.bias")}
     return params
 
 

@@ -145,3 +145,21 @@ def test_tiles_follow_jax():
         cp = jfast._lane_pad(c)
         assert tfast._tile_cap(c) == (2048 if cp <= 128 else
                                       (1024 if cp <= 256 else 512))
+
+
+@pytest.mark.parametrize("which", ["tiny", "s2pro_strides"])
+def test_mm_decoder_matches_jax(which):
+    """The `--vocoder-impl mm` decoder (dac_from_indices_mm) against the
+    JAX package's, f32 end to end."""
+    cfg = tiny_codec_config() if which == "tiny" else _s2pro_strides_cfg()
+    params = init_dac_params(jax.random.key(7), cfg)
+    codes = jax.random.randint(jax.random.key(8),
+                               (2, cfg.rvq.total_codebooks, 3), 0, 32,
+                               dtype=jnp.int32)
+    ref = np.asarray(jfast.dac_from_indices_mm(params, cfg, codes))
+    port = codec_params_from_jax(jax.tree.map(np.asarray, params),
+                                 device="cpu")
+    got = tfast.dac_from_indices_mm(port, _port(cfg),
+                                    torch.from_numpy(np.array(codes))).numpy()
+    assert got.shape == ref.shape == (2, 3 * cfg.frame_length)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)

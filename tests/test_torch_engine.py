@@ -282,3 +282,92 @@ def test_port_imports_no_jax_and_needs_cuda():
     assert out.stdout.strip().endswith("clean")
     # with no GPU, chip_smoke prints no result line
     assert '"ok"' not in out.stdout
+
+
+def test_vocoder_impls_agree_and_auto_probes():
+    """TTSEngine(vocoder_impl=...): "pallas" (the fused kernels' twins on
+    the CPU), "lax" and "mm" decode the same codes alike; "auto" keeps one
+    of pallas and lax; an unknown name is refused."""
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.engine.generate import TTSEngine
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(n_semantic=32)
+    cfg = dataclasses.replace(tiny_lm_config(), vocab_size=tok.vocab_size)
+    params = init_dual_ar_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    ccfg = tiny_codec_config()
+    cparams = init_dac_params(torch.Generator().manual_seed(1), ccfg,
+                              device="cpu")
+    codes = np.random.default_rng(0).integers(
+        0, 32, (ccfg.rvq.total_codebooks, 7))
+    wavs = {}
+    for impl in ("pallas", "lax", "mm", "auto"):
+        eng = TTSEngine(params, cfg, tok, cparams, ccfg, cache_len=128,
+                        device="cpu", vocoder_impl=impl)
+        assert eng.vocoder_impl == impl or (
+            impl == "auto" and eng.vocoder_impl in ("pallas", "lax"))
+        wavs[impl] = eng.decode_codes(codes)
+        assert wavs[impl].shape == (7 * ccfg.frame_length,)
+    for impl in ("lax", "mm", "auto"):
+        np.testing.assert_allclose(wavs[impl], wavs["pallas"], atol=1e-4,
+                                   rtol=1e-4)
+    with pytest.raises(ValueError):
+        TTSEngine(params, cfg, tok, cparams, ccfg, cache_len=128,
+                  device="cpu", vocoder_impl="xla")
+
+
+def test_auto_probe_raises_on_a_kernel_error(monkeypatch):
+    """"auto" never falls back past an error: a candidate that raises
+    (a kernel that fails to build or launch) fails the engine."""
+    from fish_speech_tpu_torch.codec import fastpath
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.engine.generate import TTSEngine
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+
+    def broken(*a, **k):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(fastpath, "dac_from_indices_fused", broken)
+    tok = ByteTokenizer(n_semantic=32)
+    cfg = dataclasses.replace(tiny_lm_config(), vocab_size=tok.vocab_size)
+    params = init_dual_ar_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    ccfg = tiny_codec_config()
+    cparams = init_dac_params(torch.Generator().manual_seed(1), ccfg,
+                              device="cpu")
+    with pytest.raises(RuntimeError, match="pallas") as e:
+        TTSEngine(params, cfg, tok, cparams, ccfg, cache_len=128,
+                  device="cpu", vocoder_impl="auto")
+    assert "nvcc failed" in repr(e.value.__cause__)
+
+
+def test_auto_probe_on_the_card_refuses_the_plain_decoder(monkeypatch):
+    """On a CUDA engine "auto" serves #3/#4 or raises: a probe that the
+    plain decoder wins names the times and does not serve "lax"."""
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.engine.generate import TTSEngine
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+    from fish_speech_tpu_torch.utils import probing
+
+    tok = ByteTokenizer(n_semantic=32)
+    cfg = dataclasses.replace(tiny_lm_config(), vocab_size=tok.vocab_size)
+    params = init_dual_ar_params(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    ccfg = tiny_codec_config()
+    cparams = init_dac_params(torch.Generator().manual_seed(1), ccfg,
+                              device="cpu")
+    eng = TTSEngine(params, cfg, tok, cparams, ccfg, cache_len=128,
+                    device="cpu", vocoder_impl="pallas")
+    times = {"pallas": 0.002, "lax": 0.001}
+    monkeypatch.setattr(probing, "steady_state_winner",
+                        lambda c: (min(times, key=times.get), times))
+    assert eng._select_vocoder_impl() == "lax"      # the CPU: no kernels
+    eng.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="beat the fused kernels"):
+        eng._select_vocoder_impl()
+    times["pallas"] = 0.0005
+    assert eng._select_vocoder_impl() == "pallas"
