@@ -64,7 +64,20 @@ Phases, in order; any failure exits non-zero:
      samples; #1 (pos int8) and #3/#4 launch and nothing else; the
      serving vocoder's three routes (pallas, lax, mm) timed at the
      server's shapes; then both CLIs as subprocesses in demo mode, each
-     with --vocoder-impl pallas and held to report it.
+     with --vocoder-impl pallas and held to report it;
+  9. training and LoRA (that engine freed): a synthetic corpus (two
+     speakers, 16 clips of 10 x 40-200 random codes with transcripts)
+     through the port's build_dataset; a full-width S2-Pro drawn from the
+     seed in bf16 and written as a native checkpoint; the training CLI's
+     `main` (in this process) with --lora, 4 steps at batch 2 and up to
+     1024 tokens, checkpoints every 2 (finite losses and gradient norms,
+     the base bit-equal after, some b factor non-zero at step 2, the final
+     factors read back), then merge_lora's `main` (differs from the base);
+     a full finetune with make_train_step (remat), 3 steps at batch 2 x
+     1024 (finite; unchanged after step 1 at LR 0, moved after step 2;
+     seconds, tokens/s and peak memory a step); one full and one LoRA
+     step on a tiny f32 model on the card against the CPU (loss, metrics,
+     every gradient leaf); none of the 12 kernels launches.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
@@ -73,8 +86,8 @@ vocoder entries against their plain versions, and measures the int8
 vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
-the `{"scheduler": ...}`, `{"codec": ...}` and `{"server": ...}` lines,
-then the
+the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}` and
+`{"train": ...}` lines, then the
 `{"kernels": [...]}` line, the card's name and power limit, and last the
 `{"ok": true, ...}` line.
 """
@@ -131,6 +144,12 @@ SERVER_CACHE_LEN = 2048  # phase 8: the served engine's cache,
 SERVER_KEY = "smoke-key"  # its API key,
 SERVER_NEW_TOKENS = 32   # the buffered JSON request's frames at most,
 SERVER_SHORT_TOKENS = 24  # every other request's
+TRAIN_SPEAKERS = 2      # phase 9: the synthetic corpus's speakers,
+TRAIN_CLIPS = 8         # clips a speaker,
+TRAIN_BATCH = 2         # the training batch,
+TRAIN_LEN = 1024        # its tokens a row at most,
+LORA_STEPS = 4          # the LoRA CLI's steps,
+FULL_STEPS = 3          # the full finetune's
 # phase 6's requests: (text, voice reference (its frames) or None, frames
 # at most). Without a reference the system prompt is the default one, a
 # prefix all of them share (the first misses, the others hit); the two
@@ -2640,6 +2659,303 @@ def run_server(kernels: dict, chk: Checks, card: str, dev,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training and LoRA at full S2-Pro width
+# ---------------------------------------------------------------------------
+
+
+def tree_to(tree, device):
+    """A detached copy of a parameter tree on `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def trees_equal(a: dict, b: dict) -> list[str]:
+    """The key paths whose leaves are not bit-equal (or are missing)."""
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    la, lb = dict(tree_leaves(a)), dict(tree_leaves(b))
+    if la.keys() != lb.keys():
+        return sorted(map(str, la.keys() ^ lb.keys()))
+    return [str(k) for k in la if not torch.equal(la[k], lb[k])]
+
+
+def write_train_corpus(root: str, rng) -> None:
+    """TRAIN_SPEAKERS x TRAIN_CLIPS clips of random codes (10 x 40-200
+    frames) as .npy, each with a .lab transcript."""
+    import numpy as np
+
+    words = ("the", "card", "trains", "a", "voice", "on", "random", "codes",
+             "slowly", "and", "then", "quickly", "again")
+    for s in range(TRAIN_SPEAKERS):
+        d = os.path.join(root, f"speaker{s}")
+        os.makedirs(d)
+        for i in range(TRAIN_CLIPS):
+            frames = int(rng.integers(40, 201))
+            np.save(os.path.join(d, f"clip{i}.npy"),
+                    rng.integers(0, 4096, (10, frames)))
+            text = " ".join(rng.choice(words, int(rng.integers(5, 14))))
+            with open(os.path.join(d, f"clip{i}.lab"), "w") as f:
+                f.write(f"Speaker {s}, clip {i}: {text}.")
+
+
+def card_vs_cpu(dev) -> dict:
+    """(d) One full step's and one LoRA step's loss, metrics and gradient
+    leaves on the card against the port on the CPU, from the same tiny f32
+    weights and batch (TF32 off). Tolerances: a loss, a norm 1e-5
+    relative; top-5 accuracy within one flipped entry; a gradient leaf
+    1e-4 of its largest entry on the CPU (cuBLAS and the embeddings' index
+    accumulation sum in other orders)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.models.config import tiny_dual_ar_config
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.train import lora as tl
+    from fish_speech_tpu_torch.train import step as ts
+    from fish_speech_tpu_torch.train.scheduler import constant_warmup_schedule
+
+    cfg = dataclasses.replace(
+        tiny_dual_ar_config(), tie_word_embeddings=False,
+        attention_qk_norm=True, scale_codebook_embeddings=True,
+        norm_fastlayer_input=True)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    base = init_dual_ar_params(gen, cfg, device="cpu")
+    lcfg = tl.LoraConfig(r=4, lora_alpha=8.0)
+    lora = tl.init_lora_params(gen, base, lcfg)
+    for v in lora.values():   # b drawn too: with b = 0, a gets no gradient
+        v["b"] = 0.02 * torch.randn(v["b"].shape, generator=gen)
+    rng = np.random.default_rng(SEED + 9)
+    b, t, k = 2, 24, cfg.num_codebooks
+    tokens = rng.integers(0, cfg.vocab_size, (b, 1, t))
+    tokens[:, 0, t // 2:] = rng.integers(cfg.semantic_begin_id,
+                                         cfg.semantic_end_id + 1,
+                                         (b, t - t // 2))
+    inputs = np.concatenate([tokens, rng.integers(0, cfg.codebook_size,
+                                                  (b, k, t))], 1)
+    labels = inputs.copy()
+    labels[:, :, :4] = -100
+    masks = np.zeros((b, t), bool)
+    masks[1, -5:] = True
+    batch_np = {"inputs": inputs.astype(np.int32),
+                "labels": labels.astype(np.int32), "attention_masks": masks}
+    sem = ((labels[:, 0] >= cfg.semantic_begin_id)
+           & (labels[:, 0] <= cfg.semantic_end_id))[..., None]
+    n_acc = int((sem & (labels[:, 1:].transpose(0, 2, 1) > 0)).sum())
+
+    def run(device):
+        batch = ts.TrainBatch.from_numpy(batch_np, device)
+        params = tree_to(base, device)
+        m_full, g_full = ts.dual_ar_grads(params, cfg, batch, remat=True)
+        opt = ts.make_optimizer(params, constant_warmup_schedule(1e-3, 0))
+        _, _, s_full = ts.make_train_step(cfg, opt)(params, opt.init(params),
+                                                    batch)
+        frozen, factors = tree_to(base, device), tree_to(lora, device)
+        leaves = [x for _, x in ts.tree_leaves(factors)]
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, m_lora = ts.dual_ar_loss(
+            tl.merge_lora(frozen, factors, lcfg), cfg, batch, True)
+        g_lora = dict(zip((p for p, _ in ts.tree_leaves(factors)),
+                          ts.grads_of(loss, leaves)))
+        opt = tl.make_lora_optimizer(constant_warmup_schedule(1e-3, 0))
+        _, _, s_lora = tl.make_lora_train_step(cfg, frozen, lcfg, opt)(
+            factors, opt.init(factors), batch)
+        return ({"full": m_full, "full_step": s_full, "lora": m_lora,
+                 "lora_step": s_lora},
+                {"full": dict(ts.tree_leaves(g_full)), "lora": g_lora})
+
+    m_cpu, g_cpu = run("cpu")
+    m_dev, g_dev = run(dev)
+    out = {"metrics": {}, "grads": {}, "problems": []}
+    for part, ms in m_cpu.items():
+        for name, want in ms.items():
+            want, got = float(want), float(m_dev[part][name])
+            err = abs(got - want)
+            tol = (1.0 / max(n_acc, 1) if name == "top_5_accuracy"
+                   else 1e-5 * max(abs(want), 1e-30))
+            out["metrics"][f"{part}.{name}"] = [want, got]
+            if not err <= tol:
+                out["problems"].append(f"{part} {name}: card {got} cpu {want}")
+    for part, gs in g_cpu.items():
+        worst = 0.0
+        for path, want in gs.items():
+            scale = max(float(want.abs().max()), 1e-30)
+            rel = max_err(g_dev[part][path].cpu(), want) / scale
+            worst = max(worst, rel)
+            if not rel <= 1e-4:
+                out["problems"].append(f"{part} grad {path}: {rel:.3g} of "
+                                       "its largest entry")
+        out["grads"][part] = {"leaves": len(gs), "max_rel_err": worst}
+    return out
+
+
+def run_train(kernels: dict, chk: Checks, card: str, dev) -> dict:
+    """Phase 9: training at full S2-Pro width, bf16 weights drawn from the
+    seed on the card: (a) a synthetic corpus through the port's
+    build_dataset; (b) LoRA through the training CLI's `main` (in this
+    process), then merge_lora's `main`; (c) a full finetune with
+    make_train_step (remat); (d) the card against the CPU on a tiny f32
+    model (`card_vs_cpu`); (e) none of the hand-written kernels launches.
+    Returns the phase's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.data import (SemanticIterableDataset,
+                                            TextDataCollator, data_loader)
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+    from fish_speech_tpu_torch.tools import build_dataset, merge_lora, train
+    from fish_speech_tpu_torch.train import (TrainBatch,
+                                             cosine_warmup_schedule,
+                                             make_optimizer, make_train_step)
+    from fish_speech_tpu_torch.utils.checkpoint import (load_params,
+                                                        save_params)
+
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    report: dict = {"card": card}
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".smoke_train_", dir=root)
+    for k in kernels.values():
+        k.launches = 0
+    try:
+        # (a) the corpus
+        rng = np.random.default_rng(SEED + 9)
+        corpus, protos = (os.path.join(work, d) for d in ("corpus", "protos"))
+        write_train_corpus(corpus, rng)
+        n = build_dataset.main(["--input", corpus, "--output", protos])
+        if n != TRAIN_SPEAKERS * TRAIN_CLIPS:
+            problems.append(f"build_dataset wrote {n} sentences")
+
+        # (b) LoRA through the CLI, on a checkpoint drawn from the seed
+        tokenizer = ByteTokenizer()
+        cfg = s2_pro_lm_config(max_seq_len=TRAIN_LEN).with_semantic_range(
+            tokenizer.semantic_begin_id, tokenizer.semantic_end_id)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        drawn = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16,
+                                    device=dev)
+        ckpt, out = (os.path.join(work, d) for d in ("base", "lora"))
+        t0 = time.perf_counter()
+        save_params(ckpt, drawn, cfg)
+        report["write_base_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = train.main([
+            "--proto-dir", protos, "--output-dir", out, "--checkpoint", ckpt,
+            "--lora", "--max-steps", str(LORA_STEPS), "--batch-size",
+            str(TRAIN_BATCH), "--max-length", str(TRAIN_LEN),
+            "--warmup-steps", "1", "--checkpoint-every", "2",
+            "--log-every", "1", "--device", str(dev)])
+        torch.cuda.synchronize()
+        report["lora_cli_s"] = time.perf_counter() - t0
+        hist = r["history"]
+        report["lora_history"] = hist
+        if [h["step"] for h in hist] != list(range(1, LORA_STEPS + 1)) or \
+                not all(math.isfinite(h[m]) for h in hist
+                        for m in ("loss", "grad_norm")):
+            problems.append(f"LoRA CLI: steps or losses wrong: {hist}")
+        bad = trees_equal(r["params"], drawn)
+        report["base_frozen"] = not bad
+        if bad:
+            problems.append(f"LoRA moved the base: {bad[:5]}")
+        step2, _ = load_params(os.path.join(out, "step_000000002"),
+                               device=dev)
+        report["b_nonzero_after_step_2"] = sum(
+            int(v["b"].count_nonzero()) for v in step2.values())
+        if not report["b_nonzero_after_step_2"]:
+            problems.append("every b factor is zero after step 2")
+        final, cfg_final = load_params(r["final"], device=dev)
+        bad = trees_equal(final, tree_to(r["state"], dev))
+        if cfg_final is not None or bad:
+            problems.append(f"the final LoRA checkpoint: config "
+                            f"{cfg_final is not None}, differs at {bad[:5]}")
+        report["lora_factors"] = len(final)
+        del r, step2, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        diff = merge_lora.main(["--base", ckpt, "--lora",
+                                os.path.join(out, f"step_{LORA_STEPS:09d}"
+                                                  "_final"),
+                                "--output", os.path.join(work, "merged"),
+                                "--device", str(dev)])
+        report["merge_s"] = time.perf_counter() - t0
+        report["merge_l1"] = diff
+        if not os.path.exists(os.path.join(work, "merged",
+                                           "model.safetensors")):
+            problems.append("merge_lora wrote no checkpoint")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) a full finetune with make_train_step, remat on
+        ds = SemanticIterableDataset([protos], tokenizer,
+                                     max_length=TRAIN_LEN,
+                                     num_codebooks=cfg.num_codebooks)
+        loader = data_loader(ds, TextDataCollator(tokenizer, TRAIN_LEN),
+                             TRAIN_BATCH)
+        before = tree_to(drawn, dev)
+        opt = make_optimizer(drawn, cosine_warmup_schedule(1e-4, 1,
+                                                           FULL_STEPS))
+        state = opt.init(drawn)
+        step_fn = make_train_step(cfg, opt, remat=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(FULL_STEPS):
+            batch = TrainBatch.from_numpy(next(loader), dev)
+            t0 = time.perf_counter()
+            _, state, m = step_fn(drawn, state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            tokens = batch.inputs.shape[0] * batch.inputs.shape[2]
+            steps.append({"step": i + 1, "s": dt, "tokens": tokens,
+                          "tokens_per_s": tokens / dt, **m})
+            if not (math.isfinite(m["loss"]) and math.isfinite(
+                    m["grad_norm"])):
+                problems.append(f"full step {i + 1}: {m}")
+            moved = trees_equal(drawn, before)
+            if i == 0 and moved:
+                problems.append(f"LR 0 moved {moved[:5]}")
+            if i == 1 and not moved:
+                problems.append("step 2 moved no parameter")
+        report["full_steps"] = steps
+        report["full_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del before, state, opt, step_fn, drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the card against the CPU
+        versus = card_vs_cpu(dev)
+        problems += versus.pop("problems")
+        report["card_vs_cpu"] = versus
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (e) no hand-written kernel on the training path
+    launches = {n: k.launches for n, k in kernels.items()}
+    if any(launches.values()):
+        problems.append(f"kernels launched in training: "
+                        f"{ {n: c for n, c in launches.items() if c} }")
+    report["launches"] = sum(launches.values())
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"train": report}), flush=True)
+    log(f"phase 9: {report['phase_s']:.1f} s; LoRA CLI "
+        f"{report['lora_cli_s']:.1f} s; full steps "
+        + ", ".join(f"{s['s']:.2f} s ({s['tokens_per_s']:.0f} tok/s)"
+                    for s in steps)
+        + f"; peak {report['full_peak_gib']:.1f} GiB; card vs cpu "
+        f"{versus['grads']}")
+    for p in problems:
+        chk.failed.append(f"train: {p}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -2795,6 +3111,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["server"] = run_server(kernels, chk, card, dev, args.profile)
+
+    # phase 9: training and LoRA at full S2-Pro width (phase 8's engine
+    # freed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["train"] = run_train(kernels, chk, card, dev)
 
     def entry(name, replaces, cases, head, path):
         """`head`: the cases whose times are summed into the headline;

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
-from ..ops.quant import take_rows
+from ..ops.quant import as_weight, take_rows
 from ..ops.sampling import (
     RAS_WIN_SIZE,
     greedy_one,
@@ -35,6 +35,7 @@ from .dual_ar import (
     forward_generate_fast,
     param_dtype,
     precompute_freqs_cis,
+    rms_norm,
 )
 
 
@@ -73,6 +74,31 @@ def _sample(logits, sampling: SamplingConfig, top_k: int, greedy: bool, gen):
         return greedy_one(logits)
     return sample_one(logits, sampling.temperature, sampling.top_p, top_k,
                       sampling.top_k_row, gen=gen)
+
+
+def _naive_codes(params: dict, cfg: DualARConfig, hidden: torch.Tensor,
+                 sampling: SamplingConfig, top_k: int, greedy: bool,
+                 gen) -> torch.Tensor:
+    """The naive (parallel) codebook head: all K codes of a step at once
+    from the slow hidden state (B, D), each codebook a row of its own in
+    the sampler, a per-row parameter repeated over its K rows. -> (B, K)
+    int32."""
+    b, k = hidden.shape[0], cfg.num_codebooks
+    cb = rms_norm(hidden, params["codebook_norm"], cfg.norm_eps)
+    logits = (cb @ as_weight(params["codebook_output"], cb.dtype).T)
+    logits = logits.reshape(b * k, cfg.codebook_size).float()
+    if greedy:
+        return greedy_one(logits).reshape(b, k)
+
+    def rows(x):
+        if isinstance(x, torch.Tensor) and x.ndim == 1:
+            return x.repeat_interleave(k)
+        return x
+
+    codes = sample_one(logits, rows(sampling.temperature),
+                       rows(sampling.top_p), top_k,
+                       rows(sampling.top_k_row), gen=gen)
+    return codes.reshape(b, k).to(torch.int32)
 
 
 def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
@@ -126,6 +152,11 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
     else:
         token = unmap(_sample(logits, sampling, top_k, greedy, gen))
 
+    if cfg.is_naive:
+        return torch.cat([token[:, None].to(torch.int32),
+                          _naive_codes(params, cfg, hidden, sampling, top_k,
+                                       greedy, gen)], dim=1)
+
     # fast head: prime position 0 with the slow hidden state, then emit the
     # residual codebooks one position at a time
     if fast_cache is None:
@@ -176,7 +207,8 @@ def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,
     fast_freqs_table = precompute_freqs_cis(cfg.num_codebooks,
                                             cfg.fast_head_dim, cfg.rope_base,
                                             dev)
-    fast_cache = new_fast_cache(params, cfg, b, dev, param_dtype(params))
+    fast_cache = (None if cfg.is_naive else
+                  new_fast_cache(params, cfg, b, dev, param_dtype(params)))
     rope_positions = (torch.arange(t, device=dev)[None, :]
                       - start_offsets[:, None]).clamp_min(0)
     bias = bias.to(dev)

@@ -1,7 +1,9 @@
 """Dual-AR transformer (slow token decoder + fast residual-codebook head).
 
-Counterpart of `fish_speech_tpu/models/dual_ar.py`, for the branches the
-serving paths take (int8 W8A8 or packed-int4 W4A8 weights, fused fast-head
+Counterpart of `fish_speech_tpu/models/dual_ar.py`: the teacher-forced
+training forward (`forward_train`, plain PyTorch with gradients, the layers
+optionally recomputed in the backward pass) and the branches the serving
+paths take (int8 W8A8 or packed-int4 W4A8 weights, fused fast-head
 sweeps; the position-major int8 KV cache read by the stream attention
 kernel, optionally written by it too (`kv_fold_write`), or the head-major
 int8 or native cache read by the stream, blocks, rows or per-layer kernel)
@@ -28,6 +30,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import (
     decode_attention,
@@ -362,36 +365,69 @@ def _layer(layers: dict, i: int) -> dict:
     return pick(layers)
 
 
+def _unbind_layers(layers: dict, n_layer: int) -> list[dict]:
+    """The stacked layer tree as one dict a layer, through one `unbind` a
+    leaf: its backward stacks the layers' gradients once, where indexing a
+    layer at a time would add a full-depth zero gradient per layer."""
+    out = [{} for _ in range(n_layer)]
+    for k, v in layers.items():
+        parts = (_unbind_layers(v, n_layer) if isinstance(v, dict)
+                 else torch.unbind(v))
+        for d, part in zip(out, parts):
+            d[k] = part
+    return out
+
+
+def _block(p: dict, ad: AttnDims, eps: float, x: torch.Tensor, freqs_cis,
+           mask, cache: KVCache | None = None, layer: int = 0,
+           input_pos: int | torch.Tensor = 0,
+           bounds: DecodeBounds | None = None,
+           stacked: bool = True) -> torch.Tensor:
+    a = attention(p["attention"], ad, rms_norm(x, p["attention_norm"], eps),
+                  freqs_cis, mask, cache, layer, input_pos, bounds,
+                  stacked=stacked)
+    h = x + a
+    return h + _ffn(p["feed_forward"], rms_norm(h, p["ffn_norm"], eps),
+                    w8a8=ad.w8a8)
+
+
 def run_stack(layers: dict, ad: AttnDims, eps: float, x: torch.Tensor,
               freqs_cis, mask, cache: KVCache | None = None,
               input_pos: int | torch.Tensor = 0,
               bounds: DecodeBounds | None = None,
-              mode: str = "") -> torch.Tensor:
+              mode: str = "", remat: bool = False) -> torch.Tensor:
     """The layer stack, one layer at a time, each writing its own slab of
     the stacked cache in place. `mode` is the JAX function's cached-decode
     stack mode: "carry" (or "") hands every layer the stacked cache and its
     index; "scan" and "unrolled" hand each layer its own cache (a depth-1
     view), which the kernel path reads with the dense per-layer kernel.
-    "unrolled" on an int8 cache falls back to "carry", as in JAX."""
+    "unrolled" on an int8 cache falls back to "carry", as in JAX.
+
+    Without a cache (training) gradients flow through every layer; with
+    `remat` each layer keeps only its input and is recomputed in the
+    backward pass (the JAX function's `jax.checkpoint` per layer)."""
+    n_layer = layers["attention_norm"].shape[0]
+    if cache is None:
+        for p in _unbind_layers(layers, n_layer):
+            if remat:
+                x = checkpoint(_block, p, ad, eps, x, freqs_cis, mask,
+                               use_reentrant=False)
+            else:
+                x = _block(p, ad, eps, x, freqs_cis, mask)
+        return x
     mode = mode or "carry"
     if mode not in ("carry", "scan", "unrolled"):
         raise ValueError(f"unknown decode stack mode {mode!r}")
-    if mode == "unrolled" and cache is not None and cache.k.dtype == torch.int8:
+    if mode == "unrolled" and cache.k.dtype == torch.int8:
         mode = "carry"
-    per_layer = cache is not None and mode != "carry"
+    per_layer = mode != "carry"
     if per_layer and cache.pos_major:
         raise ValueError("kv_cache_layout='pos' needs the carry-mode "
                          "stacked cache")
-    n_layer = layers["attention_norm"].shape[0]
     for i in range(n_layer):
-        p = _layer(layers, i)
         c, li = (cache.layer_view(i), 0) if per_layer else (cache, i)
-        a = attention(p["attention"], ad, rms_norm(x, p["attention_norm"], eps),
-                      freqs_cis, mask, c, li, input_pos, bounds,
-                      stacked=not per_layer)
-        h = x + a
-        x = h + _ffn(p["feed_forward"], rms_norm(h, p["ffn_norm"], eps),
-                     w8a8=ad.w8a8)
+        x = _block(_layer(layers, i), ad, eps, x, freqs_cis, mask, c, li,
+                   input_pos, bounds, stacked=not per_layer)
     return x
 
 
@@ -539,3 +575,68 @@ def forward_generate_fast(params: dict, cfg: DualARConfig, x: torch.Tensor,
         return None
     x = rms_norm(x, params["fast_norm"], cfg.norm_eps)
     return matmul_t(x[:, 0, :], params["fast_output"], w8a8=cfg.w8a8_matmuls)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+class TrainOut(NamedTuple):
+    token_logits: torch.Tensor     # (B, T, vocab)
+    codebook_logits: torch.Tensor  # (B, T, K, codebook_size)
+
+
+def forward_train(params: dict, cfg: DualARConfig, inp: torch.Tensor,
+                  labels: torch.Tensor | None = None,
+                  key_padding_mask: torch.Tensor | None = None,
+                  remat: bool = True) -> TrainOut:
+    """Teacher-forced forward for training, with gradients. The fast head
+    runs over EVERY position (the positions folded into the batch) and the
+    loss mask selects the semantic ones, as in the JAX function.
+
+    inp: (B, K+1, T) int; labels: (B, K+1, T), whose codes (clipped to the
+    codebook) feed the fast head, `inp`'s when None; key_padding_mask: (B,
+    T) bool, True at PAD positions. Codebook k >= 1 conditions on codes
+    [..., :k]. The naive head (`cfg.is_naive`) predicts all K codebooks at
+    once from the slow stack's output."""
+    b, _, t = inp.shape
+    dev = inp.device
+    x = embed_tokens(params, cfg, inp)
+    freqs_cis = precompute_freqs_cis(t, cfg.head_dim, cfg.rope_base, dev)
+    q_pos = torch.arange(t, device=dev)
+    causal = (q_pos[None, :] <= q_pos[:, None])[None, None]     # (1,1,T,T)
+    if key_padding_mask is not None:
+        mask = causal & ~key_padding_mask.bool()[:, None, None, :]
+    else:
+        mask = causal.expand(b, 1, t, t)
+    x = run_stack(params["layers"], cfg.slow_attn, cfg.norm_eps, x, freqs_cis,
+                  mask, remat=remat)
+    slow_normed = rms_norm(x, params["norm"], cfg.norm_eps)
+    token_logits = _token_logits(params, cfg, slow_normed)
+    k = cfg.num_codebooks
+
+    if cfg.is_naive:
+        h = slow_normed if cfg.norm_fastlayer_input else x
+        cb = rms_norm(h, params["codebook_norm"], cfg.norm_eps)
+        cb_logits = cb @ as_weight(params["codebook_output"], cb.dtype).T
+        return TrainOut(token_logits,
+                        cb_logits.reshape(b, t, k, cfg.codebook_size))
+
+    h = _fast_input(params, cfg, x, slow_normed)                 # (B, T, Df)
+    src = labels if labels is not None else inp
+    codes = src[:, 1:, :].long().clamp(0, cfg.codebook_size - 1)   # (B,K,T)
+    code_emb = take_rows(params["fast_embeddings"], codes[:, :-1, :])
+    # the fast input sequence: [h, emb(c_0), ..., emb(c_{K-2})]
+    fast_in = torch.cat([h[:, None], code_emb.to(h.dtype)], dim=1)  # B,K,T,Df
+    fast_in = fast_in.transpose(1, 2).reshape(b * t, k, -1)
+    fast_freqs = precompute_freqs_cis(k, cfg.fast_head_dim, cfg.rope_base,
+                                      dev)
+    kq = torch.arange(k, device=dev)
+    fmask = (kq[None, :] <= kq[:, None])[None, None]
+    fx = run_stack(params["fast_layers"], cfg.fast_attn, cfg.norm_eps,
+                   fast_in, fast_freqs, fmask, remat=remat)
+    fx = rms_norm(fx, params["fast_norm"], cfg.norm_eps)
+    codebook_logits = fx @ as_weight(params["fast_output"], fx.dtype).T
+    return TrainOut(token_logits,
+                    codebook_logits.reshape(b, t, k, cfg.codebook_size))

@@ -80,18 +80,22 @@ def init_dual_ar_params(gen: torch.Generator, cfg: DualARConfig,
         "norm": ones(cfg.dim),
     }
     if cfg.is_naive:
-        raise NotImplementedError("the naive codebook head is not ported")
-    params.update({
-        "fast_embeddings": w((cfg.codebook_size, cfg.fast_dim)),
-        "fast_layers": _init_stack(gen, cfg.fast_attn, cfg.n_fast_layer,
-                                   cfg.fast_intermediate_size, std, dtype,
-                                   device),
-        "fast_norm": ones(cfg.fast_dim),
-        "fast_output": w((cfg.codebook_size, cfg.fast_dim)),
-    })
+        # the parallel codebook head: all K codebooks from the slow stack
+        params["codebook_norm"] = ones(cfg.dim)
+        params["codebook_output"] = w((cfg.codebook_size * cfg.num_codebooks,
+                                       cfg.dim))
+    else:
+        params.update({
+            "fast_embeddings": w((cfg.codebook_size, cfg.fast_dim)),
+            "fast_layers": _init_stack(gen, cfg.fast_attn, cfg.n_fast_layer,
+                                       cfg.fast_intermediate_size, std,
+                                       dtype, device),
+            "fast_norm": ones(cfg.fast_dim),
+            "fast_output": w((cfg.codebook_size, cfg.fast_dim)),
+        })
     if not cfg.tie_word_embeddings:
         params["output"] = w((cfg.vocab_size, cfg.dim))
-    if cfg.fast_dim != cfg.dim:
+    if cfg.fast_dim != cfg.dim and not cfg.is_naive:
         params["fast_project_in"] = {
             "w": w((cfg.fast_dim, cfg.dim)),
             "b": torch.zeros(cfg.fast_dim, dtype=dtype, device=device),
@@ -141,27 +145,33 @@ def convert_dual_ar_state_dict(sd: dict, cfg: DualARConfig,
     """{reference name: tensor or numpy array} -> the port's parameter tree
     in `dtype` on `device` (CUDA unless named): the keys and layouts of
     `init_dual_ar_params`, layers stacked, the optional q/k norms, biases,
-    `fast_project_in` and untied output as the state dict has them.
+    `fast_project_in` and untied output as the state dict has them, and
+    the naive head's `codebook_norm` / `codebook_output` for
+    `model_type="naive"`.
     Counterpart of the JAX `convert_dual_ar_state_dict`."""
     device = resolve_device(device)
 
     def one(name):
         return sd_tensor(sd[name]).to(device=device, dtype=dtype)
 
-    if cfg.is_naive:
-        raise NotImplementedError("the naive codebook head is not ported")
     params = {
         "embeddings": one("embeddings.weight"),
         "codebook_embeddings": one("codebook_embeddings.weight"),
         "layers": _convert_stack(sd, "layers", cfg.n_layer, cfg.slow_attn,
                                  dtype, device),
         "norm": one("norm.weight"),
-        "fast_embeddings": one("fast_embeddings.weight"),
-        "fast_layers": _convert_stack(sd, "fast_layers", cfg.n_fast_layer,
-                                      cfg.fast_attn, dtype, device),
-        "fast_norm": one("fast_norm.weight"),
-        "fast_output": one("fast_output.weight"),
     }
+    if cfg.is_naive:
+        params["codebook_norm"] = one("codebook_norm.weight")
+        params["codebook_output"] = one("codebook_output.weight")
+    else:
+        params.update({
+            "fast_embeddings": one("fast_embeddings.weight"),
+            "fast_layers": _convert_stack(sd, "fast_layers", cfg.n_fast_layer,
+                                          cfg.fast_attn, dtype, device),
+            "fast_norm": one("fast_norm.weight"),
+            "fast_output": one("fast_output.weight"),
+        })
     if not cfg.tie_word_embeddings:
         params["output"] = one("output.weight")
     if "fast_project_in.weight" in sd:
@@ -184,7 +194,8 @@ def _to_torch(a, device) -> torch.Tensor:
 
 def lm_params_from_jax(tree: dict, device=None) -> dict:
     """The JAX Dual-AR parameter tree, with every leaf already a numpy
-    array (`jax.tree.map(np.asarray, params)`), as the port's tree: float,
+    array (`jax.tree.map(np.asarray, params)`), as the port's tree: float
+    (the naive head's leaves too),
     int8-quantized ({"q", "s"}), packed int4 ({"q4", "gs"}, carried as it
     is) or with the packed fast stack ("fast_packed", see
     ops/fast_fused.py). Layouts are kept, except the packed stack's

@@ -1,2 +1,3 @@
-"""Command-line entry points: `python -m fish_speech_tpu_torch.tools.api_server`
-and `python -m fish_speech_tpu_torch.tools.tts_cli`."""
+"""Command-line entry points, each run as `python -m
+fish_speech_tpu_torch.tools.<name>`: api_server and tts_cli (serving),
+build_dataset, create_train_split, train and merge_lora (training)."""

@@ -1,2 +1,2 @@
-"""Checkpoint IO (the port's own safetensors reader and writer) and the
-steady-state probe."""
+"""Checkpoint IO (the port's own safetensors reader and writer), the
+steady-state probe and file helpers."""

@@ -65,3 +65,22 @@ def test_guard_sees_every_kind_of_import():
     assert found == [("jax", ()), ("fish_speech_tpu", ()),
                      ("msgpack", ("f",)), ("pydantic", ("C", "g"))]
     assert "fish_speech_tpu" not in ALLOWED
+
+
+TRAINING_MODULES = (
+    "models/dual_ar.py", "train/step.py", "train/lora.py",
+    "train/scheduler.py", "data/protos.py", "data/stream.py",
+    "data/braceexpand.py", "data/semantic.py", "utils/file.py",
+    "tools/train.py", "tools/build_dataset.py",
+    "tools/create_train_split.py", "tools/merge_lora.py")
+
+
+def test_guard_covers_the_training_path():
+    """The training modules are among the guarded files, and the JAX
+    training path's imports (optax, google.protobuf) are not allowed."""
+    guarded = {str(p.relative_to(PACKAGE)) for p in FILES
+               if PACKAGE in p.parents}
+    assert set(TRAINING_MODULES) <= guarded
+    assert not {"optax", "google", "jax", "flax"} & ALLOWED
+    src = "import optax\nfrom google.protobuf import message\n"
+    assert [m for m, _ in _imports(ast.parse(src))] == ["optax", "google"]
