@@ -77,7 +77,26 @@ Phases, in order; any failure exits non-zero:
      1024 (finite; unchanged after step 1 at LR 0, moved after step 2;
      seconds, tokens/s and peak memory a step); one full and one LoRA
      step on a tiny f32 model on the card against the CPU (loss, metrics,
-     every gradient leaf); none of the 12 kernels launches.
+     every gradient leaf); none of the 12 kernels launches;
+ 10. tensor parallelism (phase 9's engines freed): two ranks of this
+     script (--tp-rank) on cuda:0, joined over gloo into one model group
+     of TP = 2, each drawing the S2-Pro weights from the seed on the card
+     (int8 and W4A8 serving trees, fused fast head) and keeping its slices
+     (parallel/mesh.py); rank 0 decodes each case at TP = 1 on the whole
+     weights first, then both decode it at TP = 2 under decode_mesh:
+     (a) two 32-frame greedy requests at batch 1 and one batch of 2 on
+     the int8 path (#1 position-major on the rank's 4 KV heads, #2 on
+     its rows of the batch), (b) one 16-frame request on the head-major
+     blocks16 route (#6), (c) one on W4A8 (#11 on the local wqkv / w1 /
+     w3 slices and the whole wo / w2), (d) four requests through a 4-slot
+     ContinuousBatcher; every rank's codes must equal TP = 1's bit for
+     bit, and each case must launch its route's kernels on every rank and
+     no other; (e) `tools.api_server --multihost` in demo mode as leader
+     and follower on cuda:0: one /v1/tts to the leader gives a wav of
+     frames x the demo codec's frame length finite samples, the follower
+     logs the same codes as the leader, and both exit 0 after the
+     leader's SIGINT. Two ranks on one card time-share it: the phase's
+     seconds are no measure of TP speed.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
@@ -86,8 +105,8 @@ vocoder entries against their plain versions, and measures the int8
 vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
-the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}` and
-`{"train": ...}` lines, then the
+the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}`,
+`{"train": ...}` and `{"parallel": ...}` lines, then the
 `{"kernels": [...]}` line, the card's name and power limit, and last the
 `{"ok": true, ...}` line.
 """
@@ -95,6 +114,7 @@ the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -2956,12 +2976,447 @@ def run_train(kernels: dict, chk: Checks, card: str, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tensor parallelism, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP = 2               # phase 10: the model group's ranks, all on cuda:0,
+TP_FRAMES = 32       # frames of 10a's requests,
+TP_SHORT = 16        # of 10b, 10c and 10d's,
+TP_PROMPT = 48       # tokens of a prompt,
+TP_CACHE_LEN = 256   # the KV cache's positions,
+TP_SLOTS = 4         # 10d's batcher slots,
+TP_PHASE_S = 180.0   # the two ranks' time limit,
+MULTIHOST_S = 120.0  # 10e's
+# each case's route: the kernels that must launch on every rank, all
+# others must not
+TP_ROUTES = {
+    "int8_b1_a": ("decode_attention_stream", "fast_sweep"),
+    "int8_b1_b": ("decode_attention_stream", "fast_sweep"),
+    "int8_b2": ("decode_attention_stream", "fast_sweep"),
+    "blocks16": ("decode_attention_blocks", "fast_sweep"),
+    "w4a8": ("decode_attention_stream", "fast_sweep", "w4a8_matmul"),
+    "batcher": ("decode_attention_stream", "fast_sweep"),
+}
+
+
+def tp_prompts(cfg, n: int, seed: int):
+    """n seeded (K+1, TP_PROMPT) prompts: text tokens, then semantic tokens
+    with their codes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = TP_PROMPT
+        p = np.zeros((cfg.num_codebooks + 1, t), np.int32)
+        p[0] = rng.integers(0, cfg.semantic_begin_id, t)
+        p[0, t // 2:] = rng.integers(cfg.semantic_begin_id,
+                                     cfg.semantic_end_id + 1, t - t // 2)
+        p[1:, t // 2:] = rng.integers(0, cfg.codebook_size,
+                                      (cfg.num_codebooks, t - t // 2))
+        out.append(p)
+    return out
+
+
+def first_parting(want, got, calls_want, calls_got, k: int) -> dict | None:
+    """Where two (B, K+1, T) code arrays first part (batch row, frame, code
+    row, in sampling order), with each side's five best logits of the
+    sampling call there; None if they agree."""
+    import numpy as np
+
+    if want.shape == got.shape and np.array_equal(want, got):
+        return None
+    if want.shape != got.shape:
+        return {"shapes": [list(want.shape), list(got.shape)]}
+    b, r, f = min((int(b), int(r), int(f)) for b, r, f in
+                  zip(*np.nonzero(want != got)))
+    i = f * k + max(r - 1, 0)
+
+    def top(calls):
+        if i >= len(calls):
+            return None
+        v, idx = calls[i][b].topk(5)
+        return {"values": v.tolist(), "indices": idx.tolist()}
+
+    return {"row": b, "frame": f, "code_row": r,
+            "codes": [int(want[b, r, f]), int(got[b, r, f])],
+            "logits_tp1": top(calls_want), "logits_tp": top(calls_got)}
+
+
+def tp_rank_main(rank: int, addr: str, out_dir: str) -> int:
+    """One rank of phase 10 (`--tp-rank`): joins a gloo world of TP ranks
+    on cuda:0, draws the S2-Pro weights from the seed, runs each case at
+    TP = 1 (rank 0, on the whole weights) and then at TP = 2 on the rank's
+    slices under decode_mesh, and writes DIR/rank{R}.json: per case the
+    codes, the TP = 1 codes (rank 0), the seconds, the launches and the
+    local shapes."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.engine.generate import serving_config
+    from fish_speech_tpu_torch.engine.scheduler import (ContinuousBatcher,
+                                                        SlotRequest)
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+    from fish_speech_tpu_torch.models.decode import SamplingConfig, generate
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.ops import attention, fast_fused, w4a8
+    from fish_speech_tpu_torch.ops.fast_fused import enable_fused_fast_head
+    from fish_speech_tpu_torch.ops.quant import quantize_lm_params
+    from fish_speech_tpu_torch.ops.sampling import semantic_logit_bias
+    from fish_speech_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                     shard_dual_ar_params)
+    from fish_speech_tpu_torch.parallel.tp import decode_mesh
+    from fish_speech_tpu_torch.text.tokenizer import (IM_END_TOKEN,
+                                                      ByteTokenizer)
+
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}",
+                            world_size=TP, rank=rank,
+                            timeout=timedelta(seconds=60))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh(MeshConfig(data=1, model=TP), backend="gloo",
+                       device=dev)
+    kernels = {"decode_attention_stream": attention.KERNEL,
+               "decode_attention_stream_bf16": attention.BF16_KERNEL,
+               "decode_attention_stream_fold": attention.FOLD_KERNEL,
+               "decode_attention_stream_head": attention.STREAM_HEAD_KERNEL,
+               "decode_attention_blocks": attention.BLOCKS_KERNEL,
+               "decode_attention_stacked_rows": attention.ROWS_KERNEL,
+               "decode_attention": attention.DENSE_KERNEL,
+               "decode_attention_stacked": attention.STACKED_KERNEL,
+               "decode_attention_chunked": attention.CHUNKED_KERNEL,
+               "w4a8_matmul": w4a8.KERNEL, "w4a8_matmul_pc": w4a8.KERNEL_PC,
+               "fast_sweep": fast_fused.KERNEL}
+
+    tokenizer = ByteTokenizer(n_semantic=4096)
+    base = s2_pro_lm_config(max_seq_len=TP_CACHE_LEN).with_semantic_range(
+        tokenizer.semantic_begin_id, tokenizer.semantic_end_id)
+    im_end = tokenizer.get_token_id(IM_END_TOKEN)
+    bias = semantic_logit_bias(base.vocab_size, base.semantic_begin_id,
+                               base.semantic_end_id, im_end, device=dev)
+    # the same draw as build_engine's LM, then both serving quantizations
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    drawn = init_dual_ar_params(gen, base, dtype=torch.bfloat16, device=dev)
+    whole = {"int8": enable_fused_fast_head(quantize_lm_params(drawn)),
+             "w4a8": enable_fused_fast_head(quantize_lm_params(
+                 drawn, mode="w4a8", groupsize=GROUPSIZE))}
+    del drawn
+    local = {q: shard_dual_ar_params(p, mesh) for q, p in whole.items()}
+    if rank != 0:
+        whole = None        # only rank 0 decodes at TP = 1
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = tp_prompts(base, 6, SEED + 10)
+    cfg_pos = serving_config(base)
+    cfg_blocks = serving_config(base, kv_layout="head", attn="blocks16")
+    result = {"rank": rank, "setup_s": time.perf_counter() - t_start,
+              "local_shapes": {
+                  "wqkv": list(local["int8"]["layers"]["attention"]["wqkv"]
+                               ["q"].shape),
+                  "wo": list(local["int8"]["layers"]["attention"]["wo"]
+                             ["q"].shape),
+                  "w1": list(local["int8"]["layers"]["feed_forward"]["w1"]
+                             ["q"].shape),
+                  "w2": list(local["int8"]["layers"]["feed_forward"]["w2"]
+                             ["q"].shape),
+                  "w4a8_wqkv": list(local["w4a8"]["layers"]["attention"]
+                                    ["wqkv"]["q4"].shape),
+                  "w4a8_wo": list(local["w4a8"]["layers"]["attention"]["wo"]
+                                  ["q4"].shape),
+                  "fast_output": list(local["int8"]["fast_output"]["q"]
+                                      .shape),
+                  "kv_heads": cfg_pos.n_local_heads // TP},
+              "cases": {}}
+
+    def decode(params, cfg, batch, frames):
+        prompt = torch.from_numpy(np.stack(batch))
+        codes, _ = generate(params, cfg, prompt,
+                            torch.zeros(len(batch), dtype=torch.int32), None,
+                            SamplingConfig.create(), bias,
+                            max_new_tokens=frames, im_end_id=im_end,
+                            greedy=True, cache_len=TP_CACHE_LEN, device=dev)
+        return codes.cpu().numpy()
+
+    def batcher_codes(params, cfg, batch, frames):
+        b = ContinuousBatcher(params, cfg, num_slots=TP_SLOTS,
+                              cache_len=TP_CACHE_LEN, im_end_id=im_end,
+                              bias=bias, greedy=True, prompt_bucket=64,
+                              device=dev)
+        out = b.run([SlotRequest(request_id=i, prompt=p,
+                                 max_new_tokens=frames)
+                     for i, p in enumerate(batch)])
+        n = max(v.shape[1] for v in out.values())
+        codes = np.full((len(batch), base.num_codebooks + 1, n), -1,
+                        np.int32)
+        for i, v in out.items():
+            codes[i, :, :v.shape[1]] = v
+        return codes
+
+    cases = [("int8_b1_a", decode, "int8", cfg_pos, prompts[:1], TP_FRAMES),
+             ("int8_b1_b", decode, "int8", cfg_pos, prompts[1:2], TP_FRAMES),
+             ("int8_b2", decode, "int8", cfg_pos, prompts[:2], TP_FRAMES),
+             ("blocks16", decode, "int8", cfg_blocks, prompts[2:3],
+              TP_SHORT),
+             ("w4a8", decode, "w4a8", cfg_pos, prompts[3:4], TP_SHORT),
+             ("batcher", batcher_codes, "int8", cfg_pos, prompts[2:6],
+              TP_SHORT)]
+    for name, fn, quant, cfg, batch, frames in cases:
+        ref = ref_calls = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            with LogitRecorder() as rec:
+                ref = fn(whole[quant], cfg, batch, frames)
+            torch.cuda.synchronize()
+            tp1_s = time.perf_counter() - t0
+            ref_calls = rec.calls
+        dist.barrier()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with decode_mesh(mesh), LogitRecorder() as rec:
+            got = fn(local[quant], dataclasses.replace(cfg, tp_shards=TP),
+                     batch, frames)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        case = {"codes": got.tolist(), "seconds": seconds,
+                "launches": launches, "frames": int(got.shape[2])}
+        if rank == 0:
+            # the batcher's sampling calls are its ticks and prefills, not
+            # frames: its parting is reported without logits
+            per_frame = fn is decode
+            case["tp1"] = ref.tolist()
+            case["tp1_seconds"] = tp1_s
+            case["parting"] = first_parting(
+                ref, got, ref_calls if per_frame else [],
+                rec.calls if per_frame else [], base.num_codebooks)
+        result["cases"][name] = case
+        log(f"  rank {rank} {name}: {seconds:.2f} s, frames "
+            f"{case['frames']}, launches "
+            f"{ {n: v for n, v in launches.items() if v} }")
+        dist.barrier()
+    result["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_tp_ranks(out_dir: str, timeout: float) -> list:
+    """Phase 10's two ranks (this script with --tp-rank) to their end; a
+    rank that fails or outlives `timeout` (then both are killed) raises
+    with both ranks' output tails."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    script = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--tp-rank", str(r), "--tp-addr", addr,
+         "--tp-out", out_dir], cwd=os.path.dirname(script), env=cli_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(TP)]
+    outs, deadline = [], time.monotonic() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        outs = [p.communicate()[0] for p in procs]
+        raise RuntimeError(f"phase 10 ranks outlived {timeout} s:\n" + "\n".join(
+            f"--- rank {r}\n{o[-3000:]}" for r, o in enumerate(outs)))
+    for r, o in enumerate(outs):
+        for line in o.splitlines():
+            if line.startswith("  rank "):
+                log(line)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError("\n".join(
+            f"phase 10 rank {r} exited {procs[r].returncode}:\n"
+            f"{outs[r][-4000:]}" for r in bad))
+    out = []
+    for r in range(TP):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def multihost_server_check(workdir: str, timeout: float) -> dict:
+    """10e: `tools.api_server --multihost` in demo mode, leader and
+    follower on cuda:0 over gloo, each logging its requests' codes
+    (--codes-log). One /v1/tts to the leader must give a wav of frames x
+    the demo codec's frame length finite samples; SIGINT to the leader
+    sends the shutdown plan; both must exit 0 with the same codes logged.
+    Returns the check's numbers and its problems."""
+    import re
+    import signal
+    import socket
+
+    from fish_speech_tpu_torch.tools.api_server import demo_codec
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    fl = demo_codec(torch.device("cpu"))[0].frame_length
+    codes_log = os.path.join(workdir, "codes")
+    t0 = time.perf_counter()
+    procs, errs = [], []
+    for pid in range(2):
+        err = open(os.path.join(workdir, f"multihost{pid}.err"), "w")
+        errs.append(err)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "fish_speech_tpu_torch.tools.api_server",
+             "--multihost", "--coordinator", coord, "--num-processes", "2",
+             "--process-id", str(pid), "--scheduler-slots", "2",
+             "--cache-len", "512", "--listen", "127.0.0.1:0",
+             "--vocoder-impl", "pallas", "--codes-log", codes_log,
+             "--references-dir", os.path.join(workdir, "refs")],
+            cwd=workdir, env=cli_env(), stdout=subprocess.PIPE, stderr=err,
+            text=True))
+    problems, report = [], {"frame_length": fl}
+    deadline = time.monotonic() + timeout
+    try:
+        import queue
+        import threading
+
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(x) for x in
+                                         procs[0].stdout], daemon=True).start()
+        m = None
+        while m is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                break
+            m = re.search(r"http://127\.0\.0\.1:(\d+), vocoder (\w+)$",
+                          line.strip())
+        if m is None:
+            raise RuntimeError("the multihost leader did not serve within "
+                               f"{timeout} s")
+        report["up_s"] = time.perf_counter() - t0
+        status, _, body, secs = Client(int(m.group(1)), None).call(
+            "POST", "/v1/tts", {"text": "multihost", "max_new_tokens": 16})
+        report["tts_s"] = secs
+        frames, problem = audio_frames(body, "wav", fl, 16)
+        report["frames"] = frames
+        if status != 200 or problem:
+            problems.append(f"10e /v1/tts: {status} {problem}")
+        if procs[1].poll() is not None:
+            problems.append("10e: the follower exited while serving")
+        procs[0].send_signal(signal.SIGINT)
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        report["exit_codes"] = [p.returncode for p in procs]
+        if report["exit_codes"] != [0, 0]:
+            problems.append(f"10e exit codes {report['exit_codes']}")
+        logs = []
+        for pid in range(2):
+            path = f"{codes_log}.{pid}"
+            with open(path) as f:
+                logs.append([json.loads(x) for x in f.read().splitlines()])
+        report["requests_logged"] = [len(x) for x in logs]
+        report["codes_equal"] = logs[0] == logs[1] and len(logs[0]) >= 2
+        if not report["codes_equal"]:
+            problems.append("10e: the follower's codes differ from the "
+                            "leader's")
+        elif frames and len(logs[0][-1]["codes"]) != frames:
+            problems.append(f"10e: {frames} frames served, "
+                            f"{len(logs[0][-1]['codes'])} logged")
+    except Exception as e:  # noqa: BLE001 - reported, fails the phase
+        problems.append(f"10e: {e!r}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for err in errs:
+            err.close()
+        if problems:
+            for pid in range(2):
+                with open(os.path.join(workdir, f"multihost{pid}.err")) as f:
+                    log(f"  multihost {pid} stderr tail: {f.read()[-1500:]}")
+    report["seconds"] = time.perf_counter() - t0
+    return report, problems
+
+
+def run_parallel(kernels: dict, chk: Checks, card: str) -> dict:
+    """Phase 10 (see the module docstring): the two ranks' cases, then the
+    multihost server. Prints the {"parallel": ...} line and returns the
+    ranks' launches summed (the path's counts)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".smoke_tp_", dir=root)
+    t0 = time.perf_counter()
+    report = {"card": card, "ranks": TP, "backend": "gloo",
+              "device": "cuda:0 (both ranks)", "cases": {}}
+    problems = []
+    total = {n: 0 for n in kernels}
+    try:
+        ranks = spawn_tp_ranks(work, TP_PHASE_S)
+        report["local_shapes"] = [r["local_shapes"] for r in ranks]
+        report["setup_s"] = [r["setup_s"] for r in ranks]
+        for name, route in TP_ROUTES.items():
+            cs = [r["cases"][name] for r in ranks]
+            tp1 = np.asarray(cs[0]["tp1"])
+            equal = all(np.array_equal(np.asarray(c["codes"]), tp1)
+                        for c in cs)
+            entry = {"codes_equal": equal, "frames": cs[0]["frames"],
+                     "tp1_seconds": cs[0]["tp1_seconds"],
+                     "seconds": [c["seconds"] for c in cs],
+                     "launches": [{n: v for n, v in c["launches"].items()
+                                   if v} for c in cs]}
+            if not equal:
+                entry["parting"] = cs[0]["parting"]
+                problems.append(f"10 {name}: TP = {TP} codes differ from "
+                                f"TP = 1")
+            for r, c in enumerate(cs):
+                missing = [n for n in route if c["launches"][n] < 1]
+                stray = [n for n, v in c["launches"].items()
+                         if v and n not in route]
+                if missing or stray:
+                    problems.append(f"10 {name} rank {r}: not launched "
+                                    f"{missing}, launched off route {stray}")
+                for n, v in c["launches"].items():
+                    total[n] += v
+            report["cases"][name] = entry
+    except Exception as e:  # noqa: BLE001 - reported, fails the phase
+        problems.append(f"10 ranks: {e!r}")
+    mh, mh_problems = multihost_server_check(work, MULTIHOST_S)
+    report["multihost"] = mh
+    problems += mh_problems
+    shutil.rmtree(work, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t0
+    report["problems"] = problems
+    print(json.dumps({"parallel": report}), flush=True)
+    chk.failed += problems
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="after the checks, profile one more request and "
                          "list its N costliest device kernels")
+    # phase 10 runs this script again as each of its ranks
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-addr", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_addr, args.tp_out)
 
     from fish_speech_tpu_torch.codec.fastpath import pack_decoder
     from fish_speech_tpu_torch.engine.generate import (build_engine,
@@ -3118,6 +3573,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train"] = run_train(kernels, chk, card, dev)
 
+    # phase 10: tensor parallelism, two ranks on the card (phase 9's
+    # engines freed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["parallel"] = run_parallel(kernels, chk, card)
+
     def entry(name, replaces, cases, head, path):
         """`head`: the cases whose times are summed into the headline;
         `path`: the path (or paths) whose launches are counted."""
@@ -3151,7 +3612,7 @@ def main() -> int:
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
-              ["int8", "scheduler", "codec", "server"]),
+              ["int8", "scheduler", "codec", "server", "parallel"]),
         entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
               attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
@@ -3160,12 +3621,13 @@ def main() -> int:
         # headline: one decode layer's five products (M = 1); "prefill":
         # the same at M = 256
         with_prefill(entry("w4a8_matmul", "fish_speech_tpu/ops/w4a8.py:72",
-                           w4a8_grouped, decode(w4a8_grouped), "w4a8_fold")),
+                           w4a8_grouped, decode(w4a8_grouped),
+                           ["w4a8_fold", "parallel"])),
         with_prefill(entry("w4a8_matmul_pc",
                            "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
                            decode(w4a8_pc), "w4a8_fold")),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
-              sweep[3:4], ["int8", "scheduler", "codec"]),
+              sweep[3:4], ["int8", "scheduler", "codec", "parallel"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
               ["int8", "scheduler", "codec", "server"]),
@@ -3180,7 +3642,7 @@ def main() -> int:
     # the head-major entries; headline: the batch-1 case over the full
     # cache of the route's cache; launches: their routes' requests (#9,
     # #10: the checks')
-    routes_of = {}
+    routes_of = {"decode_attention_blocks": ["parallel"]}
     for route, _, _, _, kernel in HEAD_ROUTES:
         routes_of.setdefault(kernel, []).append(f"head_{route}")
     for name, _, replaces, _, (hk, hi8) in HEAD_ENTRIES:

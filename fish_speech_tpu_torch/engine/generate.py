@@ -135,7 +135,13 @@ class TTSEngine:
     read-back while no request waits. `close()` stops the scheduler's
     thread. `vocoder_impl` selects the serving vocoder (`_vocode`): "pallas"
     (the fused kernels #3/#4, the default), "lax", "mm", or "auto" (the
-    faster of "pallas" and "lax", probed at construction)."""
+    faster of "pallas" and "lax", probed at construction).
+
+    multihost=True (with scheduler_slots, in a torch.distributed world of
+    lockstep replicas, serve/multihost.py): on rank 0 the scheduler is a
+    `MultihostSchedulerThread` that broadcasts its plans; on the other
+    ranks the batcher is `follower_batcher`, for `run_follower_loop`.
+    Chunked prefill is off there, as in JAX: plans do not carry it."""
 
     def __init__(self, params: dict, cfg: DualARConfig, tokenizer,
                  codec_params: dict | None = None,
@@ -143,7 +149,7 @@ class TTSEngine:
                  cache_len: int | None = None, device=None,
                  voc_quant: bool | None = None, scheduler_slots: int = 0,
                  scheduler_chunk: int = 1, prefill_chunk: int | None = None,
-                 vocoder_impl: str = "pallas"):
+                 vocoder_impl: str = "pallas", multihost: bool = False):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -176,16 +182,31 @@ class TTSEngine:
         self.scheduler = None
         self._next_request_id = 0
         self._id_lock = threading.Lock()
+        self.follower_batcher = None
+        if multihost and scheduler_slots <= 0:
+            raise ValueError("multihost serving needs scheduler_slots > 0")
         if scheduler_slots > 0:
             from .scheduler import ContinuousBatcher, SchedulerThread
 
             batcher = ContinuousBatcher(
                 params, cfg, num_slots=scheduler_slots,
                 cache_len=self.cache_len, im_end_id=self.im_end_id,
-                bias=self._bias, prefill_chunk=prefill_chunk,
+                bias=self._bias,
+                prefill_chunk=None if multihost else prefill_chunk,
                 device=self.device)
-            self.scheduler = SchedulerThread(batcher,
-                                             chunk_steps=scheduler_chunk)
+            if not multihost:
+                self.scheduler = SchedulerThread(batcher,
+                                                 chunk_steps=scheduler_chunk)
+            else:
+                import torch.distributed as dist
+
+                if dist.get_rank() == 0:
+                    from ..serve.multihost import MultihostSchedulerThread
+
+                    self.scheduler = MultihostSchedulerThread(
+                        batcher, chunk_steps=scheduler_chunk)
+                else:
+                    self.follower_batcher = batcher
 
     def close(self) -> None:
         """Stop the scheduler's thread (no-op without one)."""

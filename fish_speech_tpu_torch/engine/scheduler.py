@@ -22,6 +22,14 @@ device read. A tick's column is read back once per `step()`, or once per
 `step_chunk(n)` for n ticks. Uniforms come from the batcher's own
 `torch.Generator`, drawn in the same order whether ticks run one by one or
 in chunks.
+
+Under a decode mesh (`parallel.tp.decode_mesh`), the batcher ticks on the
+rank's parameter slices: the cache holds the rank's Hkv / tp heads, and
+the slots split over the data axis, data rank d owning the contiguous
+block of num_slots / data. Every rank keeps the same host bookkeeping of
+all slots: a prefill runs on the owning data rank's model group only, and
+each fetched column (a tick's, or a prefill's first) is gathered over the
+data group before the host reads it.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from ..models.dual_ar import (
     precompute_freqs_cis,
 )
 from ..ops.sampling import RAS_WIN_SIZE, push_window
+from ..parallel.collectives import all_gather
+from ..parallel.tp import active_mesh
 
 
 def slice_slot_cache(cache: KVCache, slot: int) -> KVCache:
@@ -101,7 +111,9 @@ class ContinuousBatcher:
         """`device`: CUDA unless the caller names another (the parameters
         must already be there). Prompts are bucketed to multiples of
         `prompt_bucket`; prompts longer than `prefill_chunk` (None: never)
-        prefill one chunk per `prefill_tick()`, between decode ticks."""
+        prefill one chunk per `prefill_tick()`, between decode ticks.
+        Under a decode mesh, `params` are the rank's slices and num_slots
+        must divide by the data axis."""
         if prompt_bucket < 2 or (prefill_chunk is not None
                                  and prefill_chunk < 2):
             # a slot's prefill reads the cache through a strided view,
@@ -129,12 +141,27 @@ class ContinuousBatcher:
         self.cancelled_requests = 0
         self.ticks = 0
         self.chunked_ticks = 0
+        # single-host mode sweeps cancelled requests at every tick entry;
+        # multihost serving sets this False, so that cancellations apply
+        # only through the broadcast TickPlan (a leader-local sweep would
+        # free a slot that followers still hold active)
+        self.local_sweep = True
 
+        # the slots this rank holds: [slot0, slot0 + local_slots)
+        self.mesh = active_mesh(cfg.tp_shards)
+        data = self.mesh.data if self.mesh is not None else 1
+        if num_slots % data:
+            raise ValueError(f"num_slots={num_slots} does not split over "
+                             f"{data} data ranks")
+        self.local_slots = num_slots // data
+        self.slot0 = (self.mesh.data_index * self.local_slots
+                      if self.mesh is not None else 0)
+        self.kv_heads = cfg.n_local_heads // cfg.tp_shards
         self.kv_dtype = (torch.int8 if cfg.kv_cache_dtype == "int8"
                          else param_dtype(params))
         self.pos_major = cfg.kv_cache_layout == "pos"
-        self.cache = KVCache.create(cfg.n_layer, num_slots, cache_len,
-                                    cfg.n_local_heads, cfg.head_dim,
+        self.cache = KVCache.create(cfg.n_layer, self.local_slots, cache_len,
+                                    self.kv_heads, cfg.head_dim,
                                     dtype=self.kv_dtype,
                                     pos_major=self.pos_major, device=dev)
         self.freqs = precompute_freqs_cis(cache_len, cfg.head_dim,
@@ -143,26 +170,29 @@ class ContinuousBatcher:
                                                cfg.fast_head_dim,
                                                cfg.rope_base, dev)
         # each batch size has its own fast-head cache (a fused one also
-        # holds its sweep's scratch): num_slots rows for ticks, 1 for
+        # holds its sweep's scratch): the rank's slots for ticks, 1 for
         # prefills
         act = param_dtype(params)
-        self.fast_cache = new_fast_cache(params, cfg, num_slots, dev, act)
+        self.fast_cache = new_fast_cache(params, cfg, self.local_slots, dev,
+                                         act)
         self.fast_cache_1 = new_fast_cache(params, cfg, 1, dev, act)
 
-        # device state; temperature, top_p and top_k are per slot (top_k
-        # masked inside the static roof, so one tick serves any k <= roof)
+        # device state of the rank's slots; temperature, top_p and top_k
+        # are per slot (top_k masked inside the static roof, so one tick
+        # serves any k <= roof)
         def full(v, dtype):
-            return torch.full((num_slots,), v, dtype=dtype, device=dev)
+            return torch.full((self.local_slots,), v, dtype=dtype,
+                              device=dev)
 
         self.temp = full(float(self.sampling.temperature), torch.float32)
         self.top_p = full(float(self.sampling.top_p), torch.float32)
         self.top_k_row = full(top_k, torch.int32)
-        self.cur = torch.zeros((num_slots, cfg.num_codebooks + 1),
+        self.cur = torch.zeros((self.local_slots, cfg.num_codebooks + 1),
                                dtype=torch.int32, device=dev)
         self.pos = full(0, torch.int32)       # next write slot
         self.start = full(0, torch.int32)     # left-pad offset
         self.active = full(False, torch.bool)
-        self.prev_win = torch.zeros((num_slots, RAS_WIN_SIZE),
+        self.prev_win = torch.zeros((self.local_slots, RAS_WIN_SIZE),
                                     dtype=torch.int32, device=dev)
         self.gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -188,6 +218,19 @@ class ContinuousBatcher:
         self.prefix_misses = 0
 
     # ------------------------------------------------------------------
+    def _local(self, slot: int) -> int | None:
+        """The slot's index on this rank, None if another data rank holds
+        it."""
+        i = slot - self.slot0
+        return i if 0 <= i < self.local_slots else None
+
+    def _gather_slots(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The rank's slot rows of `t` (along `dim`) gathered over the data
+        group into every slot's."""
+        if self.local_slots == self.num_slots:
+            return t
+        return all_gather(t, self.mesh.data_group, dim=dim)
+
     def _step_kw(self) -> dict:
         return dict(top_k=self.top_k, greedy=self.greedy, gen=self.gen,
                     sample_support=self.support)
@@ -231,8 +274,11 @@ class ContinuousBatcher:
         rows [input_pos, input_pos + T), through a view of the shared cache.
         With `req`, sample the request's first column (at `sample_at`, else
         the last) and return it (K+1,) on the device; without, only write
-        the cache (a chunk whose column would be discarded)."""
-        view = slice_slot_cache(self.cache, slot)
+        the cache (a chunk whose column would be discarded). On a rank that
+        does not hold the slot: nothing, None."""
+        if self._local(slot) is None:
+            return None
+        view = slice_slot_cache(self.cache, self._local(slot))
         x = torch.from_numpy(np.ascontiguousarray(block)).to(
             self.device)[None]
         kvf = torch.full((1,), key_valid_from, dtype=torch.int32,
@@ -262,7 +308,7 @@ class ContinuousBatcher:
         any slot; the pad rows are overwritten by the suffix or decode
         writes before any read."""
         cfg, t = self.cfg, block.shape[1]
-        pre = KVCache.create(cfg.n_layer, 1, t, cfg.n_local_heads,
+        pre = KVCache.create(cfg.n_layer, 1, t, self.kv_heads,
                              cfg.head_dim, dtype=self.kv_dtype,
                              pos_major=self.pos_major, device=self.device)
         x = torch.from_numpy(np.ascontiguousarray(block)).to(
@@ -276,14 +322,15 @@ class ContinuousBatcher:
 
     def _copy_prefix(self, slot: int, pre: KVCache) -> None:
         """Copy a cached 1-slot prefix cache into the head of the slot's
-        rows, in place."""
-        view = slice_slot_cache(self.cache, slot)
+        rows, in place (both at the rank's heads: a position-major flat
+        [b, s*Hkv_local + h] copies as one span)."""
+        view = slice_slot_cache(self.cache, self._local(slot))
         tpb = pre.seq_len
         if self.pos_major:
             view.k[:, :tpb] = pre.k
             view.v[:, :tpb] = pre.v
             if pre.ks is not None:
-                n = tpb * self.cfg.n_local_heads    # flat [b, s*Hkv + h]
+                n = pre.ks.shape[2]             # tpb * Hkv_local
                 view.ks[:, :, :n] = pre.ks
                 view.vs[:, :, :n] = pre.vs
             return
@@ -307,9 +354,13 @@ class ContinuousBatcher:
 
     def _install_sampling(self, req: SlotRequest, slot: int) -> None:
         """The request's per-slot sampling parameters for decode ticks."""
-        self.temp[slot] = float(req.temperature)
-        self.top_p[slot] = float(req.top_p)
-        self.top_k_row[slot] = self._clamped_top_k(req)
+        k = self._clamped_top_k(req)
+        i = self._local(slot)
+        if i is None:
+            return
+        self.temp[i] = float(req.temperature)
+        self.top_p[i] = float(req.top_p)
+        self.top_k_row[i] = k
 
     def sweep_cancelled(self) -> None:
         """Free the resources of cancelled requests: in-flight chunked
@@ -390,11 +441,11 @@ class ContinuousBatcher:
         sb = self._bucket(t_sfx)
         if tp + sb > self.cache_len or self._bucket(tp) > self.cache_len:
             return False  # no room for the padded layout; full prefill
-        pre = self._get_prefix_entry(req)
         block = np.zeros((req.prompt.shape[0], sb), np.int32)
         block[:, :t_sfx] = req.prompt[:, tp:]  # RIGHT padding
         self._install_sampling(req, slot)
-        self._copy_prefix(slot, pre)
+        if self._local(slot) is not None:
+            self._copy_prefix(slot, self._get_prefix_entry(req))
         col = self._prefill(slot, block, tp, tp + self._arange(sb)[None], 0,
                             req, sample_at=t_sfx - 1)
         self._activate_slot(req, slot, col, tp + t_sfx, 0)
@@ -403,18 +454,24 @@ class ContinuousBatcher:
     def _activate_slot(self, req: SlotRequest, slot: int, col: torch.Tensor,
                        end: int, start: int) -> None:
         """Shared assign tail: install the decode state, emit the first
-        column."""
-        self.cur[slot] = col
-        self.pos[slot] = end
-        self.start[slot] = start
-        self.prev_win[slot] = 0
-        self.prev_win[slot, -1] = col[0]
-        self.active[slot] = True
+        column (`col` None on a rank that does not hold the slot: it gets
+        the column through the data group)."""
+        i = self._local(slot)
+        if i is not None:
+            self.cur[i] = col
+            self.pos[i] = end
+            self.start[i] = start
+            self.prev_win[i] = 0
+            self.prev_win[i, -1] = col[0]
+            self.active[i] = True
+        else:
+            col = torch.zeros_like(self.cur[0])
         self.active_h[slot] = True
         self.slot_req[slot] = req
         self.slot_budget[slot] = min(req.max_new_tokens,
                                      self.cache_len - end) - 1
-        first = _host(col)
+        first = _host(self._gather_slots(col[None]))[
+            slot // self.local_slots]
         if first[0] == self.im_end_id:
             self._finish_slot(slot)
         else:
@@ -449,7 +506,7 @@ class ContinuousBatcher:
         padded[:, :t_sfx] = req.prompt[:, tp:]
         blocks = [padded[:, c * cs:(c + 1) * cs] for c in range(n_chunks)]
         self.slot_req[slot] = req  # reserve: free_slots() skips this slot
-        if tp > 0:
+        if tp > 0 and self._local(slot) is not None:
             self._copy_prefix(slot, self._get_prefix_entry(req))
         self._inflight.append({"req": req, "slot": slot, "blocks": blocks,
                                "next": 0, "t_total": t_total, "tp": tp})
@@ -464,7 +521,8 @@ class ContinuousBatcher:
         at positions [tp + c*cs, tp + (c+1)*cs); its queries attend to the
         slot's rows already written. The final chunk is right-padded,
         samples at the last real column and activates the slot."""
-        self.sweep_cancelled()
+        if self.local_sweep:
+            self.sweep_cancelled()
         if not self._inflight:
             return
         inf = self._inflight[0]
@@ -503,7 +561,8 @@ class ContinuousBatcher:
 
     def _finish_slot(self, slot: int) -> None:
         req = self.slot_req[slot]
-        self.active[slot] = False
+        if self._local(slot) is not None:
+            self.active[self._local(slot)] = False
         self.active_h[slot] = False
         self.slot_req[slot] = None
         if req is not None:
@@ -528,11 +587,12 @@ class ContinuousBatcher:
     def step(self) -> None:
         """One decode tick for all active slots, then the host's
         bookkeeping on one fetch of the tick's column."""
-        self.sweep_cancelled()
+        if self.local_sweep:
+            self.sweep_cancelled()
         if self._inflight:
             self.ticks_while_prefilling += 1
         col, _ = self._tick()
-        col_h = _host(col)                              # one fetch
+        col_h = _host(self._gather_slots(col))          # one fetch
         for slot in np.flatnonzero(self.active_h).tolist():
             self._emit(slot, col_h[slot])
 
@@ -546,7 +606,8 @@ class ContinuousBatcher:
         cache_len - 1 (`_tick`)."""
         if n <= 1:
             return self.step()
-        self.sweep_cancelled()
+        if self.local_sweep:
+            self.sweep_cancelled()
         active_before = self.active_h.copy()
         cols = []
         for _ in range(n):
@@ -554,7 +615,7 @@ class ContinuousBatcher:
             self.active = self.active & ~finished
             cols.append(col)
         self.chunked_ticks += n
-        out_h = _host(torch.stack(cols))                # (n, B, K+1)
+        out_h = _host(self._gather_slots(torch.stack(cols), dim=1))  # n,B,K+1
         for slot in np.flatnonzero(active_before).tolist():
             for j in range(n):
                 if self._emit(slot, out_h[j, slot]):

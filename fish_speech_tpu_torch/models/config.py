@@ -107,12 +107,15 @@ class DualARConfig:
     # codebook positions fold RoPE/mask to constants and let attention read
     # only the filled fast-cache prefix; bit-identical sampling stream
     unroll_fast_sweeps: bool = False
-    # tensor-parallel shard count over the mesh `model` axis. >1 routes the
-    # Pallas serving kernels through shard_map (parallel/tp.py: stream
-    # attention head-sharded, fused fast head batch-split) and shard-blocks
-    # the position-major int8 scale layout so each device owns a contiguous
-    # flat slice. Decode programs must be traced under
-    # parallel.tp.decode_mesh(mesh) with mesh.shape["model"] == tp_shards.
+    # tensor-parallel shard count over the mesh `model` axis. >1: each rank
+    # of a torch.distributed model group holds its slices of the weights
+    # (parallel/mesh.py) and of the KV cache (Hkv / tp_shards heads, its
+    # batch rows; position-major int8 scales its own s-major flat
+    # (L, B, S*Hkv/tp), the single-device layout over its heads), calls
+    # the kernels on them (parallel/tp.py: stream and blocks attention
+    # head-local, the fused fast head batch-split) and runs the collectives
+    # of parallel/collectives.py. Decode must run under
+    # parallel.tp.decode_mesh(mesh) with mesh.model == tp_shards.
     tp_shards: int = 1
 
     def __post_init__(self):
@@ -176,7 +179,7 @@ class DualARConfig:
         return AttnDims(self.fast_dim, self.fast_n_head, self.fast_n_local_heads,
                         self.fast_head_dim, self.fast_attention_qkv_bias,
                         self.fast_attention_o_bias, self.fast_attention_qk_norm,
-                        self.w8a8_matmuls)
+                        self.w8a8_matmuls, tp_shards=self.tp_shards)
 
     @staticmethod
     def from_json(path: str | Path) -> "DualARConfig":
@@ -251,9 +254,10 @@ class AttnDims:
     # kernel (cross-block DMA pipelining)
     pallas_stream: bool = False
     kv_pos_major: bool = False
-    # >1: kernels dispatch through parallel/tp.py shard_map wrappers, and
-    # the pos-major int8 flat scales use the shard-blocked encoding
-    # [shard*(S*Hkv/tp) + s*(Hkv/tp) + h_local]
+    # >1: the layer runs on the rank's heads and weight slices, its kernels
+    # through the wrappers of parallel/tp.py; the cache holds the rank's
+    # heads in the single-device layout (pos-major int8 flat scales
+    # [b, s*(Hkv/tp) + h_local])
     tp_shards: int = 1
     # fold the decode-step KV quantize+write into the streaming kernel
     # (pos-major int8 single-shard decode only; ops/attention.py

@@ -10,6 +10,13 @@ syncs every `sync_every` steps to test whether all rows have finished.
 Batching: prompts are LEFT-padded to a common length; `start_offsets (B,)`
 marks each row's first real slot. RoPE positions are shifted per row and
 the attention mask excludes pad slots.
+
+Under a decode mesh (`parallel.tp.decode_mesh`) every rank passes the
+whole prompt and gets the whole result: `generate` keeps the data rank's
+rows, creates the cache at those rows and the rank's Hkv / tp heads, and
+gathers the codes over the data group at the end. Every rank of a model
+group reads the same gathered logits, so greedy codes, and draws from
+generators seeded alike, agree across it.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from ..ops.sampling import (
     sample_main_and_high,
     sample_one,
 )
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import shard_batch
+from ..parallel.tp import active_mesh, tp_mesh
 from .config import DualARConfig
 from .dual_ar import (
     KVCache,
@@ -57,15 +67,20 @@ class SamplingConfig:
 def new_fast_cache(params: dict, cfg: DualARConfig, batch: int, device,
                    dtype=torch.bfloat16):
     """The fast head's per-step cache. Every position is written before it
-    is read within a step, so one cache serves all steps of a decode."""
+    is read within a step, so one cache serves all steps of a decode.
+    Under tensor parallelism (`batch` the data rank's rows): the fused
+    sweep's cache holds this rank's block of the batch padded to a
+    multiple of the model-group size, the plain one its fast KV heads."""
+    tp = cfg.tp_shards
+    tp_mesh(tp)
     if "fast_packed" in params:
         from ..ops.fast_fused import FusedFastCache
 
         return FusedFastCache.create(cfg.n_fast_layer, cfg.num_codebooks,
-                                     batch, cfg.fast_dim, device)
+                                     -(-batch // tp), cfg.fast_dim, device)
     kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
     return KVCache.create(cfg.n_fast_layer, batch, cfg.num_codebooks,
-                          cfg.fast_n_local_heads, cfg.fast_head_dim,
+                          cfg.fast_n_local_heads // tp, cfg.fast_head_dim,
                           dtype=kv_dtype, device=device)
 
 
@@ -86,6 +101,9 @@ def _naive_codes(params: dict, cfg: DualARConfig, hidden: torch.Tensor,
     b, k = hidden.shape[0], cfg.num_codebooks
     cb = rms_norm(hidden, params["codebook_norm"], cfg.norm_eps)
     logits = (cb @ as_weight(params["codebook_output"], cb.dtype).T)
+    mesh = tp_mesh(cfg.tp_shards)
+    if mesh is not None:   # row-sharded: the rank's columns, gathered
+        logits = all_gather(logits, mesh.model_group)
     logits = logits.reshape(b * k, cfg.codebook_size).float()
     if greedy:
         return greedy_one(logits).reshape(b, k)
@@ -185,9 +203,17 @@ def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,
     moved there). prompt: (B, K+1, T) int, left-padded; start_offsets:
     (B,) first real slot. Returns (codes (B, K+1, max_new_tokens) int32,
     lengths (B,)) on that device, lengths counting the columns before each
-    row's im_end. The parameters must already be on it."""
+    row's im_end. The parameters must already be on it.
+
+    Under a decode mesh: the rank's parameter slices, the whole prompt in
+    and the whole result out; B must divide by the data axis."""
     dev = resolve_device(device)
+    mesh = active_mesh(cfg.tp_shards)
+    split = mesh is not None and mesh.data > 1
     prompt = prompt.to(dev)
+    if split:
+        prompt = shard_batch(prompt, mesh)
+        start_offsets = shard_batch(start_offsets, mesh)
     support = None
     if (restrict_sampling and cfg.semantic_begin_id is not None
             and cfg.semantic_end_id is not None):
@@ -200,7 +226,8 @@ def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,
     start_offsets = start_offsets.to(dev)
     kv_dtype = (torch.int8 if cfg.kv_cache_dtype == "int8"
                 else param_dtype(params))
-    cache = KVCache.create(cfg.n_layer, b, s, cfg.n_local_heads, cfg.head_dim,
+    cache = KVCache.create(cfg.n_layer, b, s,
+                           cfg.n_local_heads // cfg.tp_shards, cfg.head_dim,
                            dtype=kv_dtype,
                            pos_major=cfg.kv_cache_layout == "pos", device=dev)
     freqs_table = precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base, dev)
@@ -243,4 +270,7 @@ def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,
         finished = finished | now
         cur = col
         pos += 1
+    if split:
+        out = all_gather(out, mesh.data_group, dim=0)
+        lengths = all_gather(lengths, mesh.data_group, dim=0)
     return out, lengths

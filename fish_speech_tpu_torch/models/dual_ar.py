@@ -7,8 +7,18 @@ paths take (int8 W8A8 or packed-int4 W4A8 weights, fused fast-head
 sweeps; the position-major int8 KV cache read by the stream attention
 kernel, optionally written by it too (`kv_fold_write`), or the head-major
 int8 or native cache read by the stream, blocks, rows or per-layer kernel)
-and the unquantized head-major branch the parity goldens need. The
-tensor-parallel branches are not ported.
+and the unquantized head-major branch the parity goldens need.
+
+Tensor parallelism (`cfg.tp_shards > 1`, run under
+`parallel.tp.decode_mesh`): every rank holds its own slices of the
+weights (`parallel.mesh.shard_dual_ar_params`) and of the KV cache (its
+Hkv / tp heads and its batch rows), and the collectives that GSPMD
+inserts in the JAX package are written out here: wqkv's columns are
+gathered (its row split is not head-aligned) and each rank keeps its
+heads; wo and w2 are row-parallel products (`ops.quant.
+matmul_t_row_parallel`); the row-sharded heads (`output`, `fast_output`,
+`fast_project_in`) gather their columns; the fused fast sweep splits the
+batch over the model group (`parallel.tp.fused_fast_sweep_tp`).
 
 A decode step writes every row at one shared slot, or (continuous
 batching) each row at its own slot given as a (B,) tensor on the device.
@@ -40,7 +50,21 @@ from ..ops.attention import (
     decode_attention_stream_fold,
     quantize_kv_rows,
 )
-from ..ops.quant import as_weight, is_quantized, matmul_t, slice_rows, take_rows
+from ..ops.quant import (
+    as_weight,
+    is_quantized,
+    matmul_t,
+    matmul_t_row_parallel,
+    slice_rows,
+    take_rows,
+)
+from ..parallel.collectives import all_gather
+from ..parallel.tp import (
+    blocks_attention_tp,
+    fused_fast_sweep_tp,
+    stream_attention_tp,
+    tp_mesh,
+)
 from .config import AttnDims, DualARConfig
 
 
@@ -220,6 +244,12 @@ def _read_cache(cache: KVCache, layer: int):
     return k, v, unflat(cache.ks), unflat(cache.vs)
 
 
+def _gather_columns(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-sharded head's output columns, gathered over the model group
+    (exact: bits move)."""
+    return y if mesh is None else all_gather(y, mesh.model_group)
+
+
 class DecodeBounds(NamedTuple):
     """Per-row filled key range [starts, lengths) for the T=1 kernel path."""
     lengths: torch.Tensor  # (B,) int32
@@ -235,8 +265,9 @@ def _decode_kernel(ad: AttnDims, q: torch.Tensor, cache: KVCache, layer: int,
                    stacked: bool, bounds: DecodeBounds,
                    dtype: torch.dtype) -> torch.Tensor:
     """A T=1 step's attention through the kernel the configuration selects
-    (the dispatch of the JAX function, without its TP branches). q (B, Hkv,
-    G, D) -> (B, Hkv, G, D)."""
+    (the dispatch of the JAX function). q (B, Hkv, G, D) -> (B, Hkv, G, D);
+    under tensor parallelism the rank's own heads and rows, through the
+    wrappers of parallel/tp.py (#1, #6; the per-row kernel has none)."""
     lengths, starts = bounds
     if not stacked:
         # a per-layer cache: the dense kernel reads a float layer, so an
@@ -248,14 +279,26 @@ def _decode_kernel(ad: AttnDims, q: torch.Tensor, cache: KVCache, layer: int,
             v = v.to(dtype) * cache.vs[layer][..., None].to(dtype)
         return decode_attention(q, k, v, lengths, starts)
     args = (q, cache.k, cache.v, cache.ks, cache.vs, layer, lengths, starts)
+    tp = ad.tp_shards
     if ad.pallas_block_rows > 0 and (ad.pallas_stream or ad.kv_pos_major):
         # a position-major cache is readable by the stream kernel only
+        if tp > 1:
+            return stream_attention_tp(
+                *args, int8_scores=ad.pallas_int8_scores,
+                pos_major=ad.kv_pos_major, tp_shards=tp)
         return decode_attention_stream(*args, ad.pallas_int8_scores,
                                        pos_major=ad.kv_pos_major)
     if ad.pallas_block_rows > 0:
+        if tp > 1:
+            return blocks_attention_tp(
+                *args, rows=ad.pallas_block_rows, chunk=ad.pallas_chunk,
+                int8_scores=ad.pallas_int8_scores, tp_shards=tp)
         return decode_attention_blocks(*args, rows=ad.pallas_block_rows,
                                        chunk=ad.pallas_chunk,
                                        int8_scores=ad.pallas_int8_scores)
+    if tp > 1:
+        raise ValueError("the per-row kernel has no tensor-parallel wrapper; "
+                         "use stream[N] or blocks[N]")
     return decode_attention_stacked_rows(*args)
 
 
@@ -270,16 +313,33 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
     a position-major int8 cache and a host-int `input_pos`, the fold kernel
     writes this step's k/v rows itself (the gate of the JAX function; a
     per-row (B,) `input_pos` takes the scatter write and the read kernel). stacked=False: `cache` is one
-    layer's depth-1 view (the per-layer stack modes)."""
+    layer's depth-1 view (the per-layer stack modes).
+
+    Under tensor parallelism (ad.tp_shards > 1) x is whole, the weights
+    and the cache are the rank's, and so is the attention: its n_head / tp
+    query and n_local_heads / tp KV heads."""
     b, t, _ = x.shape
     h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
+    mesh = tp_mesh(ad.tp_shards)
     qkv = matmul_t(x, p["wqkv"], w8a8=ad.w8a8)
     if ad.qkv_bias:
         qkv = qkv + p["wqkv_b"]
+    # wqkv's rows are [q | k | v], so its contiguous row split does not
+    # follow the heads: gather the columns, then keep the rank's heads
+    qkv = _gather_columns(qkv, mesh)
     q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
     q = q.reshape(b, t, h, d)
     k = k.reshape(b, t, hkv, d)
     v = v.reshape(b, t, hkv, d)
+    if mesh is not None:
+        if h % mesh.model or hkv % mesh.model:
+            raise ValueError(f"tp_shards={mesh.model} must divide "
+                             f"n_head={h} and n_local_heads={hkv}")
+        h, hkv = h // mesh.model, hkv // mesh.model
+        r = mesh.model_index
+        q = q[:, :, r * h:(r + 1) * h]
+        k = k[:, :, r * hkv:(r + 1) * hkv]
+        v = v[:, :, r * hkv:(r + 1) * hkv]
     if ad.qk_norm:
         q = rms_norm(q, p["q_norm"], 1e-5)
         k = rms_norm(k, p["k_norm"], 1e-5)
@@ -309,8 +369,7 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
             else:
                 y = _decode_kernel(ad, qg[:, 0], cache, layer, stacked,
                                    bounds, x.dtype)
-            out = matmul_t(y.reshape(b, 1, h * d), p["wo"], w8a8=ad.w8a8)
-            return out + p["wo_b"] if ad.o_bias else out
+            return _out_proj(p, ad, y.reshape(b, 1, h * d), mesh)
         k, v, k_scale, v_scale = _read_cache(cache, layer)
 
     if cache is not None and t == 1 and g > 1:
@@ -347,14 +406,29 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
             y = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(x.dtype), v)
         else:
             y = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(x.dtype), v)
-    out = matmul_t(y.reshape(b, t, h * d), p["wo"], w8a8=ad.w8a8)
+    return _out_proj(p, ad, y.reshape(b, t, h * d), mesh)
+
+
+def _out_proj(p: dict, ad: AttnDims, y: torch.Tensor, mesh) -> torch.Tensor:
+    """wo (row-parallel under tensor parallelism) and its bias."""
+    if mesh is None:
+        out = matmul_t(y, p["wo"], w8a8=ad.w8a8)
+    else:
+        out = matmul_t_row_parallel(y, p["wo"], mesh.model_group,
+                                    w8a8=ad.w8a8)
     return out + p["wo_b"] if ad.o_bias else out
 
 
-def _ffn(p: dict, x: torch.Tensor, w8a8: bool = False) -> torch.Tensor:
+def _ffn(p: dict, x: torch.Tensor, w8a8: bool = False,
+         mesh=None) -> torch.Tensor:
+    """The gated MLP; under tensor parallelism w1 and w3 give the rank's
+    hidden columns and w2 is row-parallel."""
     gate = torch.nn.functional.silu(matmul_t(x, p["w1"], w8a8=w8a8))
-    return matmul_t(gate * matmul_t(x, p["w3"], w8a8=w8a8), p["w2"],
-                    w8a8=w8a8)
+    hidden = gate * matmul_t(x, p["w3"], w8a8=w8a8)
+    if mesh is None:
+        return matmul_t(hidden, p["w2"], w8a8=w8a8)
+    return matmul_t_row_parallel(hidden, p["w2"], mesh.model_group,
+                                 w8a8=w8a8)
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -388,7 +462,7 @@ def _block(p: dict, ad: AttnDims, eps: float, x: torch.Tensor, freqs_cis,
                   stacked=stacked)
     h = x + a
     return h + _ffn(p["feed_forward"], rms_norm(h, p["ffn_norm"], eps),
-                    w8a8=ad.w8a8)
+                    w8a8=ad.w8a8, mesh=tp_mesh(ad.tp_shards))
 
 
 def run_stack(layers: dict, ad: AttnDims, eps: float, x: torch.Tensor,
@@ -472,8 +546,19 @@ def _token_logits(params: dict, cfg: DualARConfig, slow_out: torch.Tensor,
                   logit_support: tuple | None = None) -> torch.Tensor:
     """Logits over the vocabulary, or with `logit_support` = (semantic
     begin, semantic end, im_end) over just those n_s + 1 rows (exact under
-    the semantic bias, which is -inf everywhere else)."""
+    the semantic bias, which is -inf everywhere else). An untied `output`
+    is row-sharded under tensor parallelism: the rank's vocabulary rows,
+    gathered."""
     w = params["embeddings"] if cfg.tie_word_embeddings else params["output"]
+    mesh = None if cfg.tie_word_embeddings else tp_mesh(cfg.tp_shards)
+    if mesh is not None:
+        logits = all_gather(slow_out @ as_weight(w, slow_out.dtype).T,
+                            mesh.model_group)
+        if logit_support is None:
+            return logits
+        sb, se, im = logit_support
+        return torch.cat([logits[..., sb:se + 1], logits[..., im:im + 1]],
+                         dim=-1)
     if logit_support is not None:
         sb, se, im = logit_support
         sem = slow_out @ as_weight(slice_rows(w, sb, se + 1), slow_out.dtype).T
@@ -487,6 +572,7 @@ def _fast_input(params: dict, cfg: DualARConfig, x: torch.Tensor,
     h = slow_normed if cfg.norm_fastlayer_input else x
     if "fast_project_in" in params:
         h = h @ params["fast_project_in"]["w"].T + params["fast_project_in"]["b"]
+        h = _gather_columns(h, tp_mesh(cfg.tp_shards))
     return h
 
 
@@ -553,17 +639,33 @@ def forward_generate_fast(params: dict, cfg: DualARConfig, x: torch.Tensor,
     """One fast-head step at codebook position `input_pos` (host int).
     x: (B, fast_dim). Returns codebook logits (B, codebook_size), or None
     with want_logits=False (the priming sweep only writes its cache).
-    The cache is updated in place."""
+    The cache is updated in place.
+
+    Under tensor parallelism the fused sweep takes the rank's rows of the
+    batch, padded with zero rows to the cache's rows x tp (the padding is
+    cut off before the logits); the row-sharded `fast_output` gives the
+    rank's codebook columns, gathered."""
+    mesh = tp_mesh(cfg.tp_shards)
     if "fast_packed" in params:
         from ..ops.fast_fused import fused_fast_sweep
 
-        x = fused_fast_sweep(params["fast_packed"], x, fast_cache,
-                             fast_freqs_table, pos=input_pos,
-                             n_head=cfg.fast_n_head, eps=cfg.norm_eps)
+        kw = dict(pos=input_pos, n_head=cfg.fast_n_head, eps=cfg.norm_eps)
+        if mesh is None:
+            x = fused_fast_sweep(params["fast_packed"], x, fast_cache,
+                                 fast_freqs_table, **kw)
+        else:
+            b = x.shape[0]
+            pad = fast_cache.k.shape[2] * mesh.model - b
+            if pad:
+                x = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+            x = fused_fast_sweep_tp(params["fast_packed"], x, fast_cache,
+                                    fast_freqs_table, tp_shards=mesh.model,
+                                    **kw)[:b]
         if not want_logits:
             return None
         x = rms_norm(x, params["fast_norm"], cfg.norm_eps)
-        return matmul_t(x, params["fast_output"], w8a8=True)
+        return _gather_columns(matmul_t(x, params["fast_output"], w8a8=True),
+                               mesh)
 
     x = x[:, None, :]                                          # (B, 1, D)
     freqs_cis = fast_freqs_table[input_pos:input_pos + 1]
@@ -574,7 +676,8 @@ def forward_generate_fast(params: dict, cfg: DualARConfig, x: torch.Tensor,
     if not want_logits:
         return None
     x = rms_norm(x, params["fast_norm"], cfg.norm_eps)
-    return matmul_t(x[:, 0, :], params["fast_output"], w8a8=cfg.w8a8_matmuls)
+    return _gather_columns(matmul_t(x[:, 0, :], params["fast_output"],
+                                    w8a8=cfg.w8a8_matmuls), mesh)
 
 
 # ---------------------------------------------------------------------------

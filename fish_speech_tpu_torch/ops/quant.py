@@ -121,6 +121,38 @@ def matmul_t(x: torch.Tensor, w, *, w8a8: bool = False) -> torch.Tensor:
     return x @ as_weight(w, x.dtype).T
 
 
+def matmul_t_row_parallel(x: torch.Tensor, w, group, *,
+                          w8a8: bool = False) -> torch.Tensor:
+    """x @ W.T for a row-parallel weight (wo, w2): x holds this rank's
+    columns of the input and w its input columns, except a packed int4
+    weight, which is whole on every rank (its packed axis is replicated).
+    The result is whole, and the same on every rank of `group`.
+
+    - W8A8 int8: the row absmax is reduced (MAX) over the group before
+      quantizing, so every rank quantizes with the single-device scale;
+      the int32 accumulators are summed over the group, then rescaled as
+      `matmul_t` does: bit for bit the single-device product.
+    - W4A8: the input columns are gathered and the whole product is taken
+      (`matmul_t`): bit for bit the single-device product.
+    - Otherwise (a float product): the partial products are summed over
+      the group in f32, which rounds as a psum does."""
+    from ..parallel.collectives import (all_gather, all_reduce_max,
+                                        all_reduce_sum)
+
+    if is_quantized(w) and "q4" in w:
+        return matmul_t(all_gather(x, group), w, w8a8=w8a8)
+    if is_quantized(w) and w8a8:
+        lead = x.shape[:-1]
+        xf = x.reshape(-1, x.shape[-1]).float()
+        amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+        xs = div_exact(amax.clamp_min(1e-8), 127.0)
+        acc = all_reduce_sum(int8_matmul_t(torch.round(xf / xs).to(
+            torch.int8), w["q"]), group)
+        y = acc.float() * xs * w["s"].float()
+        return y.to(x.dtype).reshape(*lead, -1)
+    return all_reduce_sum(matmul_t(x, w, w8a8=w8a8), group)
+
+
 def take_rows(w, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """Embedding-style row gather that dequantizes only the gathered rows."""
     if not is_quantized(w):

@@ -3,8 +3,17 @@
     python -m fish_speech_tpu_torch.tools.api_server [--listen HOST:PORT]
         [--checkpoint DIR --codec-checkpoint codec.pth] [--device cpu] ...
 
-Counterpart of `tools/api_server.py` (the JAX CLI), with its flags but the
-multi-host ones. Without --checkpoint / --codec-checkpoint it serves the
+Counterpart of `tools/api_server.py` (the JAX CLI), with its flags.
+--multihost runs lockstep replicas (serve/multihost.py): every process
+joins a gloo world at --coordinator, builds the same engine, and process
+0 serves HTTP and broadcasts its scheduler's plans, which the others
+mirror:
+
+    python -m fish_speech_tpu_torch.tools.api_server --multihost \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 \
+        --scheduler-slots 2 --listen 127.0.0.1:8080      # and --process-id 1
+
+Without --checkpoint / --codec-checkpoint it serves the
 JAX CLI's tiny random models (a demo: the audio is noise, the request path
 is real); the demo codec's decoder is 256 wide instead of 128, so that every
 vocoder block has a multiple of 32 channels, which the fused vocoder
@@ -61,6 +70,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "--pallas-attn stream)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="lockstep replicas over torch.distributed "
+                             "(gloo): process 0 serves HTTP and broadcasts "
+                             "its scheduler's plans; the other processes "
+                             "mirror them (needs --scheduler-slots, "
+                             "--coordinator, --num-processes, --process-id)")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of the process group's TCP "
+                             "rendezvous (--multihost)")
+    parser.add_argument("--num-processes", type=int, default=1)
+    parser.add_argument("--process-id", type=int, default=0)
+    parser.add_argument("--codes-log", default=None,
+                        help="(--multihost) append each finished request's "
+                             "id and codes as a JSON line to "
+                             "CODES_LOG.<process id>")
     return parser.parse_args(argv)
 
 
@@ -182,7 +206,8 @@ def build_engine(args):
                      device=device, scheduler_slots=args.scheduler_slots,
                      scheduler_chunk=args.scheduler_chunk,
                      prefill_chunk=args.prefill_chunk,
-                     vocoder_impl=args.vocoder_impl)
+                     vocoder_impl=args.vocoder_impl,
+                     multihost=args.multihost)
 
 
 def warm_up(engine) -> None:
@@ -197,12 +222,48 @@ def warm_up(engine) -> None:
         engine.warmup_vocoder()
 
 
+def codes_logger(path: str):
+    """on_done(request) that appends {"request_id", "codes"} to `path`."""
+    import json
+
+    def log(req) -> None:
+        codes = [c.tolist() for c in req.result]
+        with open(path, "a") as f:
+            f.write(json.dumps({"request_id": req.request_id,
+                                "codes": codes}) + "\n")
+
+    return log
+
+
 def main(argv=None) -> None:
     from ..serve.app import create_server
 
     logging.basicConfig(level=logging.INFO)
     args = parse_args(argv)
+    log = None
+    if args.multihost:
+        from ..serve.multihost import init_multihost, run_follower_loop
+
+        if args.scheduler_slots <= 0:
+            raise SystemExit("--multihost needs --scheduler-slots N")
+        if args.coordinator is None:
+            raise SystemExit("--multihost needs --coordinator host:port")
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id)
+        if args.codes_log:
+            log = codes_logger(f"{args.codes_log}.{args.process_id}")
     engine = build_engine(args)
+    if engine.follower_batcher is not None:
+        import torch.distributed as dist
+
+        # a follower: mirror the leader's plans (no HTTP) until it stops
+        print(f"multihost follower {args.process_id}/{args.num_processes}: "
+              f"mirroring leader plans", flush=True)
+        run_follower_loop(engine.follower_batcher, on_done=log)
+        dist.destroy_process_group()
+        return
+    if log is not None:
+        engine.scheduler.on_done = log
     warm_up(engine)
     host, port = args.listen.rsplit(":", 1)
     server = create_server(engine, host, int(port),
@@ -218,6 +279,10 @@ def main(argv=None) -> None:
         server.server_close()
         server.app.close()
         engine.close()
+        if args.multihost:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -72,7 +72,7 @@ def main(argv=None) -> None:
         pallas_attn=args.pallas_attn, fused_fast=args.fused_fast,
         kv_layout=args.kv_layout, device=args.device, scheduler_slots=0,
         scheduler_chunk=1, prefill_chunk=None,
-        vocoder_impl=args.vocoder_impl))
+        vocoder_impl=args.vocoder_impl, multihost=False))
     print(f"vocoder {engine.vocoder_impl}", flush=True)
 
     prompt_tokens = None

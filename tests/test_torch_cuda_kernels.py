@@ -1284,3 +1284,97 @@ def test_per_row_step_matches_rowwise(dev):
     torch.cuda.synchronize()
     for name in ("k", "v", "ks", "vs"):
         assert torch.equal(getattr(cache, name), getattr(rowwise, name)), name
+
+
+# --- tensor parallelism: the kernels on a rank's shard ---------------------
+
+# (route, cache) of the TP path's attention: #1 position-major and
+# head-major, #6 (blocks); int8 caches with int8 scores
+TP_ATTENTION = [("pos", "int8"), ("pos", "bf16"), ("head", "int8"),
+                ("head", "bf16"), ("blocks", "int8"), ("blocks", "bf16")]
+
+
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("route,cache", TP_ATTENTION,
+                         ids=[f"{r}-{c}" for r, c in TP_ATTENTION])
+def test_attention_head_slice(dev, route, cache, half):
+    """TP = 2 at S2-Pro's Hkv = 8: a rank's launch on its 4 heads (q's and
+    the cache's head slice; position-major int8 scales as the rank's own
+    flat (L, B, S*4)) == those heads of the full-width launch, bit for bit.
+    B = 1, S = 2048, keys 37-1500 of layer 1."""
+    g = _gen(dev, 90 + half)
+    L, b, hkv, grp, d, s = 2, 1, 8, 4, 128, 2048
+    pos = route == "pos"
+    shape = (L, s, b, hkv, d) if pos else (L, b, hkv, s, d)
+    if cache == "int8":
+        k = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8)
+        sshape = (L, b, s * hkv) if pos else (L, b, hkv, s)
+        ks = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(sshape, generator=g, device=dev) * 0.02 + 1e-3
+    else:
+        k = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        ks = vs = None
+    q = torch.randn((b, hkv, grp, d), generator=g,
+                    device=dev).to(torch.bfloat16)
+    lengths = torch.full((b,), 1501, dtype=torch.int32, device=dev)
+    starts = torch.full((b,), 37, dtype=torch.int32, device=dev)
+    h0, h1 = half * hkv // 2, (half + 1) * hkv // 2
+
+    def heads(t, axis):
+        return t.narrow(axis, h0, h1 - h0).contiguous()
+
+    def flat_heads(t):
+        return t.reshape(L, b, s, hkv)[..., h0:h1].reshape(L, b, -1) \
+            .contiguous()
+
+    local_kv = [heads(t, 3 if pos else 2) for t in (k, v)]
+    local_sc = [None if t is None else
+                (flat_heads(t) if pos else heads(t, 2)) for t in (ks, vs)]
+    kernel = {"pos": ta.KERNEL if cache == "int8" else ta.BF16_KERNEL,
+              "head": ta.STREAM_HEAD_KERNEL,
+              "blocks": ta.BLOCKS_KERNEL}[route]
+
+    def call(q_, k_, v_, ks_, vs_):
+        args = (q_, k_, v_, ks_, vs_, 1, lengths, starts)
+        if route == "blocks":
+            return ta.decode_attention_blocks(*args,
+                                              int8_scores=cache == "int8")
+        return decode_attention_stream(*args, cache == "int8",
+                                       pos_major=pos)
+
+    before = kernel.launches
+    full = call(q, k, v, ks, vs)
+    got = call(heads(q, 1), *local_kv, *local_sc)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, full[:, h0:h1])
+
+
+@pytest.mark.parametrize("half", [0, 1])
+def test_fast_sweep_batch_half(dev, half):
+    """TP = 2 splits the fused sweep's batch over the model group: a
+    rank's row of a B = 2 batch, swept alone at B = 1 (the kernel's own
+    instance and plan there), == that row of the B = 2 launch, output and
+    written cache row, bit for bit; S2-Pro's fast stack width over its 28
+    layers, codebook position 3."""
+    pos = 3
+    packed, freqs, x, cache, kw = _sweep_setup(dev, "s2pro", 2, pos,
+                                               n_layer=28)
+    mine = FusedFastCache(*(t.narrow(2, half, 1).contiguous() for t in (
+        cache.k, cache.v, cache.ks, cache.vs)))
+    before = ff.KERNEL.launches
+    full = fused_fast_sweep(packed, x, cache, freqs, pos=pos, **kw)
+    got = fused_fast_sweep(packed, x[half:half + 1].contiguous(), mine,
+                           freqs, pos=pos, **kw)
+    torch.cuda.synchronize()
+    assert ff.KERNEL.launches == before + 2
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, full[half:half + 1])
+    for a, r in zip((mine.k, mine.v, mine.ks, mine.vs),
+                    (cache.k, cache.v, cache.ks, cache.vs)):
+        assert torch.equal(a[:, pos], r[:, pos, half:half + 1])

@@ -84,3 +84,21 @@ def test_guard_covers_the_training_path():
     assert not {"optax", "google", "jax", "flax"} & ALLOWED
     src = "import optax\nfrom google.protobuf import message\n"
     assert [m for m, _ in _imports(ast.parse(src))] == ["optax", "google"]
+
+
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/tp.py", "parallel/collectives.py",
+                    "serve/multihost.py")
+
+
+def test_guard_covers_the_parallel_slice():
+    """The parallel modules (the mesh, the TP wrappers, the collectives,
+    the multihost plans) are among the guarded files; what they need of
+    torch.distributed, gloo included, is there: the card's machine runs
+    them on the torch it has, nothing else."""
+    import torch.distributed as dist
+
+    guarded = {str(p.relative_to(PACKAGE)) for p in FILES
+               if PACKAGE in p.parents}
+    assert set(PARALLEL_MODULES) <= guarded
+    assert dist.is_available() and dist.is_gloo_available()
