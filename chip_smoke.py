@@ -96,7 +96,23 @@ Phases, in order; any failure exits non-zero:
      frames x the demo codec's frame length finite samples, the follower
      logs the same codes as the leader, and both exit 0 after the
      leader's SIGINT. Two ranks on one card time-share it: the phase's
-     seconds are no measure of TP speed.
+     seconds are no measure of TP speed;
+ 11. the tools at full S2-Pro width (phase 10's ranks gone), weights drawn
+     from the seed: (a) a bf16 native checkpoint through tools.quantize
+     --mode int8 and w4a8, the loaded leaves bit-equal to
+     quantize_lm_params of the drawn tree, the GB before and after; (b)
+     tools.quant_drift at its defaults (36 layers, B = 8, prompt 48, 16
+     steps, cache 256): the full serving configuration within
+     QUANT_DRIFT.md's max and mean |dlogit| go bounds on prefill, decode
+     slow and decode fast (its top-1 in the bf16 top-5 logged), the
+     other configurations logged; (c)
+     tools.latency_bench --full --quant --kv-int8 --w8a8 --pallas-attn
+     stream --fused-fast --kv-layout pos --slots 2 --max-new 48: finite
+     TTFA and RTF, audio > 0; (d) tools.profile_decode at B = 1 over a
+     2048 cache and B = 64 over 384, 32 steps each: #1 and #2 among the
+     device kernels, the idle share logged; (e) tools.extract_vq with a
+     seeded S2-Pro codec.pth on three seeded 3 s waveforms: the codes
+     equal encode_reference's; #1, #2 and #11 launch; under 150 s.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
@@ -106,8 +122,10 @@ vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
 the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}`,
-`{"train": ...}` and `{"parallel": ...}` lines, then the
-`{"kernels": [...]}` line, the card's name and power limit, and last the
+`{"train": ...}`, `{"parallel": ...}` and `{"tools": ...}` lines, then the
+`{"kernels": [...]}` line, the card's name and power limit, one compact
+`{"phase": ...}` line a phase (ok, seconds, launches, key numbers: the
+earlier lines may fall outside a 24 KB tail of the output), and last the
 `{"ok": true, ...}` line.
 """
 
@@ -177,13 +195,13 @@ FULL_STEPS = 3          # the full finetune's
 # tokens: only the fourth is longer than PREFILL_CHUNK (prefilled in
 # chunks). Every prompt has another length.
 SCHED_REQUESTS = (
-    ("Hello there, this is request one.", None, 40),
-    ("Request two shares the system prompt.", None, 48),
-    ("Request three has a voice reference.", 12, 32),
+    ("Hello there, this is request one.", None, 20),
+    ("Request two shares the system prompt.", None, 24),
+    ("Request three has a voice reference.", 12, 16),
     ("The fourth request is the long one: its prompt does not fit in one "
-     "prefill chunk, so it is prefilled in pieces.", None, 44),
-    ("Four and a fifth.", 20, 36),
-    ("Six: the last one.", None, 40),
+     "prefill chunk, so it is prefilled in pieces.", None, 22),
+    ("Four and a fifth.", 20, 18),
+    ("Six: the last one.", None, 20),
 )
 TEXTS = (
     "Hello there. This is the first request to the serving path.",
@@ -1419,18 +1437,13 @@ def profile_request(engine, n_rows: int, path: str) -> None:
 
 def log_profile(prof, head: str, wall: float, n_rows: int) -> None:
     """The device busy time and idle share of a profiled window of `wall`
-    seconds, then its n_rows costliest device kernels (to stderr)."""
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"{head}, device busy {busy:.1f} ms, idle share "
-        f"{1 - busy / (wall * 1e3):.3f}")
-    for ms, n, key in rows[:n_rows]:
-        log(f"  {ms:10.3f} ms {ms / busy:6.1%} {n:7d}x  {key[:90]}")
+    seconds, then its n_rows costliest device kernels (to stderr), by
+    utils/profiling.py's accounting."""
+    from fish_speech_tpu_torch.utils.profiling import (profile_table,
+                                                       table_lines)
+
+    for line in table_lines(profile_table(prof, wall), head, n_rows):
+        log(line)
 
 
 # ---------------------------------------------------------------------------
@@ -3404,6 +3417,316 @@ def run_parallel(kernels: dict, chk: Checks, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the tools (quantize, quant_drift, latency_bench, profile_decode,
+# extract_vq) at full S2-Pro width
+# ---------------------------------------------------------------------------
+
+# QUANT_DRIFT.md's go bounds that the phase holds the full serving
+# configuration to: the two it calls distribution-robust. Its third, top-1
+# in the bf16 top-5 >= 0.99, is in the drift lines and not held here:
+# PERF.md's Findings list the seeds' misses of the random weights and
+# ROADMAP's Queue C the bound's restatement
+DRIFT_BOUNDS = {"max_abs_dlogit": 1.0, "mean_abs_dlogit": 0.10}
+LATENCY_ARGS = ("--full", "--quant", "--kv-int8", "--w8a8", "--pallas-attn",
+                "stream", "--fused-fast", "--kv-layout", "pos", "--slots",
+                "2", "--max-new", "48")
+PROFILE_SHAPES = ((1, 2048), (64, 384))   # (batch, cache) of 11d
+PROFILE_STEPS = 32
+PROFILE_ROWS = 6      # kernels of each profile in the phase's report
+TOOLS_WAVS = 3        # 11e: seeded waveforms
+TOOLS_WAV_S = 3.0     # of this many seconds
+TOOLS_PHASE_S = 150.0
+
+
+def drift_gate(results: dict) -> list[str]:
+    """The full serving configuration's parts outside the max / mean go
+    bounds."""
+    return [f"11b {r['compare']} outside the go bounds: {r}"
+            for r in results["serving_full"]
+            if not all(r[k] <= v for k, v in DRIFT_BOUNDS.items())]
+
+
+def run_tools(kernels: dict, chk: Checks, card: str, dev) -> tuple:
+    """Phase 11: the port's tools at full S2-Pro width, weights drawn from
+    the seed on the card. (a) a bf16 native checkpoint through
+    tools.quantize --mode int8 and w4a8, the loaded leaves bit-equal to
+    quantize_lm_params of the drawn tree; (b) tools.quant_drift at its
+    defaults (36 layers, B = 8, prompt 48, 16 steps, cache 256), the full
+    serving configuration within QUANT_DRIFT.md's max and mean go bounds,
+    the others logged; (c)
+    tools.latency_bench on the full serving flags: finite TTFA and RTF,
+    audio > 0; (d) tools.profile_decode at B = 1 over a
+    2048 cache and B = 64 over 384, 32 steps each: #1 and #2 among the
+    device kernels, the idle share logged; (e) tools.extract_vq with a
+    seeded S2-Pro codec.pth on three seeded 3 s waveforms: each file's
+    codes equal encode_reference's. #1, #2 and #11 must launch. Prints
+    the {"tools": ...} line; returns the phase's launch counts and its
+    compact summary."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.codec.config import s2_pro_codec_config
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.codec.model import encode_reference
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.ops.quant import quantize_lm_params
+    from fish_speech_tpu_torch.serve.wav import decode_audio_bytes, encode_wav
+    from fish_speech_tpu_torch.tools import (extract_vq, latency_bench,
+                                             profile_decode, quant_drift,
+                                             quantize)
+    from fish_speech_tpu_torch.tools.quantize import tree_bytes
+    from fish_speech_tpu_torch.utils.checkpoint import (load_params,
+                                                        save_params)
+    from fish_speech_tpu_torch.utils.profiling import table_lines
+
+    t_phase = time.perf_counter()
+    problems: list[str] = []
+    report: dict = {"card": card}
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".smoke_tools_", dir=root)
+    for k in kernels.values():
+        k.launches = 0
+    # 11c's stream_tts decodes through the streaming vocoder (plain f32):
+    # #3/#4 run only in the engine's warm-up of its buckets
+    need = {"decode_attention_stream": "11b-d", "fast_sweep": "11b-d",
+            "w4a8_matmul": "11b"}
+    try:
+        # (a) quantize: the CLI against quantize_lm_params, bit for bit
+        t0 = time.perf_counter()
+        cfg = s2_pro_lm_config(max_seq_len=SERVER_CACHE_LEN)
+        drawn = init_dual_ar_params(
+            torch.Generator(device=dev).manual_seed(SEED + 11), cfg,
+            dtype=torch.bfloat16, device=dev)
+        src = os.path.join(work, "bf16")
+        save_params(src, drawn, cfg)
+        quant = {"bf16_gb": tree_bytes(drawn) / 1e9,
+                 "write_s": time.perf_counter() - t0}
+        for mode in ("int8", "w4a8"):
+            t0 = time.perf_counter()
+            out = quantize.main(["--checkpoint", src, "--output",
+                                 os.path.join(work, mode), "--mode", mode,
+                                 "--groupsize", str(GROUPSIZE)])
+            cli_s = time.perf_counter() - t0
+            loaded, _ = load_params(out, device=dev)
+            want = quantize_lm_params(drawn, mode=mode, groupsize=GROUPSIZE)
+            diff = trees_equal(loaded, want)
+            quant[mode] = {"gb": tree_bytes(loaded) / 1e9, "cli_s": cli_s,
+                           "leaves_equal": not diff}
+            if diff:
+                problems.append(f"11a {mode}: {len(diff)} leaves differ "
+                                f"from quantize_lm_params, e.g. {diff[:3]}")
+            log(f"  11a quantize {mode}: {quant['bf16_gb']:.2f} GB -> "
+                f"{quant[mode]['gb']:.2f} GB in {cli_s:.1f} s, leaves "
+                f"{'bit-equal' if not diff else 'DIFFER'}")
+            del loaded, want
+            shutil.rmtree(out, ignore_errors=True)
+        del drawn
+        shutil.rmtree(src, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["quantize"] = quant
+
+        # (b) quant_drift at its defaults
+        t0 = time.perf_counter()
+        drift = quant_drift.main([])
+        report["quant_drift"] = {
+            "seconds": time.perf_counter() - t0,
+            **{f"{name}/{part}": {k: r[k] for k in (
+                "max_abs_dlogit", "mean_abs_dlogit", "top1_agree",
+                "top1_in_ref_top5")}
+               for name, rs in drift.items()
+               for part, r in zip(quant_drift.PARTS, rs)}}
+        problems += drift_gate(drift)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) latency_bench on the full serving flags
+        t0 = time.perf_counter()
+        lat = latency_bench.main(list(LATENCY_ARGS))
+        report["latency_bench"] = {**lat,
+                                   "seconds": time.perf_counter() - t0}
+        if not (lat["ttfa_s"] is not None and math.isfinite(lat["ttfa_s"])
+                and math.isfinite(lat["rtf"]) and lat["audio_s"] > 0):
+            problems.append(f"11c latency_bench: {lat}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) profile_decode at the two shapes
+        profiles = {}
+        for b, cache in PROFILE_SHAPES:
+            t0 = time.perf_counter()
+            # no --logdir: the chrome trace of 32 steps takes tens of
+            # seconds to write
+            table = profile_decode.main([
+                "--batch", str(b), "--cache", str(cache), "--steps",
+                str(PROFILE_STEPS), "--kv-int8", "--pallas", "stream",
+                "--fused-fast", "--kv-layout", "pos",
+                "--top", str(PROFILE_ROWS)])
+            names = " ".join(k["name"] for k in table["kernels"])
+            found = {n: n in names for n in ("pos_attn_kernel",
+                                             "sweep_kernel")}
+            profiles[f"b{b}_cache{cache}"] = {
+                "seconds": time.perf_counter() - t0,
+                "wall_ms": table["wall_ms"], "busy_ms": table["busy_ms"],
+                "idle_share": table["idle_share"], "found": found,
+                "top": [[k["name"][:60], round(k["ms"], 3), k["count"]]
+                        for k in table["kernels"][:PROFILE_ROWS]]}
+            for line in table_lines(table, f"  11d profile_decode B={b} "
+                                    f"cache={cache}", PROFILE_ROWS):
+                log(line)
+            if not all(found.values()):
+                problems.append(f"11d B={b}: #1 / #2 not among the "
+                                f"device kernels: {found}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        report["profile_decode"] = profiles
+
+        # (e) extract_vq with a seeded S2-Pro codec.pth
+        t0 = time.perf_counter()
+        ccfg = s2_pro_codec_config()
+        cparams = init_dac_params(
+            torch.Generator(device=dev).manual_seed(SEED + 12), ccfg,
+            device=dev)
+        pth = os.path.join(work, "codec.pth")
+        torch.save(codec_state_dict(cparams, ccfg), pth)
+        del cparams
+        corpus = os.path.join(work, "corpus")
+        os.makedirs(corpus)
+        rng = np.random.default_rng(SEED + 13)
+        n = int(TOOLS_WAV_S * ccfg.sample_rate)
+        for i in range(TOOLS_WAVS):
+            wav = (0.3 * rng.standard_normal(n)).astype(np.float32)
+            with open(os.path.join(corpus, f"w{i}.wav"), "wb") as f:
+                f.write(encode_wav(wav, ccfg.sample_rate))
+        written = extract_vq.main([corpus, "--codec-checkpoint", pth])
+        loaded_codec, _ = extract_vq.load_codec(pth, dev)
+        equal = []
+        for i in range(TOOLS_WAVS):
+            path = os.path.join(corpus, f"w{i}")
+            with open(path + ".wav", "rb") as f:
+                wav = decode_audio_bytes(f.read(), ccfg.sample_rate)
+            got = np.load(path + ".npy")
+            want = encode_reference(loaded_codec, ccfg, wav, device=dev)
+            equal.append(bool(np.array_equal(got, want)))
+        report["extract_vq"] = {"files": written, "codes_equal": equal,
+                                "frames": int(got.shape[1]),
+                                "seconds": time.perf_counter() - t0}
+        if written != TOOLS_WAVS or not all(equal):
+            problems.append(f"11e extract_vq: {written} files, codes equal "
+                            f"{equal}")
+        del loaded_codec
+    except Exception as e:  # noqa: BLE001 - reported, fails the phase
+        import traceback
+
+        traceback.print_exc()
+        problems.append(f"11: {e!r}")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {n: k.launches for n, k in kernels.items()}
+    missing = [f"{n} ({where})" for n, where in need.items()
+               if launches[n] < 1]
+    if missing:
+        problems.append(f"11: not launched: {missing}")
+    report["launches"] = {n: v for n, v in launches.items() if v}
+    report["seconds"] = time.perf_counter() - t_phase
+    if report["seconds"] > TOOLS_PHASE_S:
+        problems.append(f"11: {report['seconds']:.1f} s, over its "
+                        f"{TOOLS_PHASE_S:.0f} s")
+    report["problems"] = problems
+    print(json.dumps({"tools": report}), flush=True)
+    chk.failed += problems
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, tools_summary(report)
+
+
+def tools_summary(report: dict) -> dict:
+    """Phase 11's key numbers for its compact line."""
+    out = {}
+    if "quantize" in report:
+        q = report["quantize"]
+        out["quantize"] = {m: [round(q[m]["gb"], 2), q[m]["leaves_equal"]]
+                           for m in ("int8", "w4a8") if m in q}
+        out["quantize"]["bf16_gb"] = round(q["bf16_gb"], 2)
+    if "quant_drift" in report:
+        out["serving_full"] = {
+            part: [v["max_abs_dlogit"], v["mean_abs_dlogit"],
+                   v["top1_in_ref_top5"]]
+            for k, v in report["quant_drift"].items()
+            if isinstance(v, dict) and k.startswith("serving_full/")
+            for part in [k.split("/")[1]]}
+    if "latency_bench" in report:
+        out.update({k: report["latency_bench"].get(k)
+                    for k in ("ttfa_s", "rtf", "audio_s")})
+    if "profile_decode" in report:
+        out["idle_share"] = {k: v["idle_share"]
+                             for k, v in report["profile_decode"].items()}
+    if "extract_vq" in report:
+        out["codes_equal"] = all(report["extract_vq"]["codes_equal"])
+    return out
+
+
+def kernel_counters() -> dict:
+    """Every hand-written kernel's launch counter by its C entry's name
+    (the `{"kernels"}` line's names)."""
+    from fish_speech_tpu_torch.ops import attention, fast_fused, voc_fused
+    from fish_speech_tpu_torch.ops import w4a8
+
+    return {"decode_attention_stream": attention.KERNEL,
+            "decode_attention_stream_bf16": attention.BF16_KERNEL,
+            "decode_attention_stream_fold": attention.FOLD_KERNEL,
+            "decode_attention_stream_head": attention.STREAM_HEAD_KERNEL,
+            "decode_attention_blocks": attention.BLOCKS_KERNEL,
+            "decode_attention_stacked_rows": attention.ROWS_KERNEL,
+            "decode_attention": attention.DENSE_KERNEL,
+            "decode_attention_stacked": attention.STACKED_KERNEL,
+            "decode_attention_chunked": attention.CHUNKED_KERNEL,
+            "w4a8_matmul": w4a8.KERNEL,
+            "w4a8_matmul_pc": w4a8.KERNEL_PC,
+            "fast_sweep": fast_fused.KERNEL,
+            "voc_block": voc_fused.BLOCK,
+            "voc_res_stack": voc_fused.RES_STACK,
+            "voc_block_i8": voc_fused.BLOCK_I8,
+            "voc_res_stack_i8": voc_fused.RES_STACK_I8}
+
+
+class PhaseLog:
+    """One compact result line a phase, printed together just before the
+    last line (the `{"kernels"}` line and the phases' own report lines
+    come earlier and may fall outside a 24 KB tail): the phase, whether
+    no check failed during it, its seconds, its path's launches and a
+    few key numbers."""
+
+    def __init__(self, chk: Checks):
+        self.chk = chk
+        self.lines: list[dict] = []
+        self.start()
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+        self._failed = len(self.chk.failed)
+
+    def end(self, phase: str, launches: dict | None = None,
+            **extra) -> None:
+        failed = self.chk.failed[self._failed:]
+        line = {"phase": phase, "ok": not failed,
+                "seconds": round(time.perf_counter() - self._t0, 1)}
+        if launches:
+            line["launches"] = {n: v for n, v in launches.items() if v}
+        if failed:
+            line["failed"] = [f[:160] for f in failed[:3]]
+        line.update(extra)
+        self.lines.append(line)
+        self.start()
+
+    def print(self) -> None:
+        for line in self.lines:
+            print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="N",
@@ -3422,8 +3745,6 @@ def main() -> int:
     from fish_speech_tpu_torch.engine.generate import (build_engine,
                                                        serving_config)
     from fish_speech_tpu_torch.ops import _cuda
-    from fish_speech_tpu_torch.ops import attention, fast_fused, voc_fused
-    from fish_speech_tpu_torch.ops import w4a8
 
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -3438,7 +3759,8 @@ def main() -> int:
     # phase 2: build
     t0 = time.perf_counter()
     _cuda.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s")
     for src, text in _cuda.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -3453,24 +3775,12 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     chk = Checks()
+    phases = PhaseLog(chk)
+    phases.lines.append({"phase": "2 build", "ok": True,
+                         "seconds": round(build_s, 1)})
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     attn, attn_bf16 = check_attention(chk, engine.cfg, dev, gen)
-    kernels = {"decode_attention_stream": attention.KERNEL,
-               "decode_attention_stream_bf16": attention.BF16_KERNEL,
-               "decode_attention_stream_fold": attention.FOLD_KERNEL,
-               "decode_attention_stream_head": attention.STREAM_HEAD_KERNEL,
-               "decode_attention_blocks": attention.BLOCKS_KERNEL,
-               "decode_attention_stacked_rows": attention.ROWS_KERNEL,
-               "decode_attention": attention.DENSE_KERNEL,
-               "decode_attention_stacked": attention.STACKED_KERNEL,
-               "decode_attention_chunked": attention.CHUNKED_KERNEL,
-               "w4a8_matmul": w4a8.KERNEL,
-               "w4a8_matmul_pc": w4a8.KERNEL_PC,
-               "fast_sweep": fast_fused.KERNEL,
-               "voc_block": voc_fused.BLOCK,
-               "voc_res_stack": voc_fused.RES_STACK,
-               "voc_block_i8": voc_fused.BLOCK_I8,
-               "voc_res_stack_i8": voc_fused.RES_STACK_I8}
+    kernels = kernel_counters()
     # #9 and #10 are on no serving path: their launches are these checks'
     for k in kernels.values():
         k.launches = 0
@@ -3487,6 +3797,8 @@ def main() -> int:
         f"{accuracy['rel_max_err']:.4g}, corr {accuracy['corr']:.6f}")
     print(json.dumps({"voc_quant_vs_bf16": accuracy}), flush=True)
     torch.cuda.empty_cache()
+    phases.end("3 checks", voc_quant_rel_max_err=round(
+        accuracy["rel_max_err"], 5))
 
     shared = ("fast_sweep", "voc_block", "voc_res_stack")
 
@@ -3495,6 +3807,7 @@ def main() -> int:
     by_path["int8"] = run_path(
         engine, "int8", [(t, MAX_NEW_TOKENS, None, int8_route)
                          for t in TEXTS], kernels, chk)
+    phases.end("4 int8", by_path["int8"])
     if args.profile:
         profile_request(engine, args.profile, "int8")
 
@@ -3510,6 +3823,7 @@ def main() -> int:
         by_path[path] = run_path(engine, path, [
             (TEXTS[i % len(TEXTS)], HEAD_NEW_TOKENS, None,
              (kernel, *shared))], kernels, chk)
+        phases.end(f"4b {route}", by_path[path])
         if args.profile and route in ("a", "d"):
             profile_request(engine, args.profile, path)
 
@@ -3520,6 +3834,7 @@ def main() -> int:
         (TEXTS[0], HEAD_NEW_TOKENS, None,
          ("decode_attention_stream_bf16", *shared))], kernels, chk)
     engine.cfg = base_cfg
+    phases.end("4c pos_native", by_path["pos_native"])
 
     # phase 4d: the int8 vocoder (VOC_QUANT), same engine and weights
     bf16_decoder = engine.packed_decoder
@@ -3531,15 +3846,18 @@ def main() -> int:
          ("decode_attention_stream", "fast_sweep", "voc_block_i8",
           "voc_res_stack_i8"))], kernels, chk)
     engine.packed_decoder = bf16_decoder
+    phases.end("4d voc_quant", by_path["voc_quant"])
 
     # phase 6: the continuous-batching scheduler on the int8 path, phase
     # 4's weights (before phase 5 frees them)
     by_path["scheduler"] = run_scheduler(engine, kernels, chk, card)
+    phases.end("6 scheduler", by_path["scheduler"])
     if args.profile:
         profile_scheduler(engine, args.profile)
 
     # phase 7: streaming, batched decode and encode on the same weights
     by_path["codec"] = run_codec(engine, kernels, chk, card, dev, gen)
+    phases.end("7 codec", by_path["codec"])
 
     # phase 5: the W4A8 path with the KV-write fold, same seed
     del engine
@@ -3557,6 +3875,7 @@ def main() -> int:
         (TEXTS[1], W4A8_NEW_TOKENS, None, ("w4a8_matmul", *fold_route)),
         (TEXTS[2], W4A8_NEW_TOKENS, "pc", ("w4a8_matmul_pc", *fold_route)),
     ], kernels, chk)
+    phases.end("5 w4a8_fold", by_path["w4a8_fold"])
     if args.profile:
         profile_request(engine, args.profile, "w4a8_fold")
 
@@ -3565,19 +3884,29 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    phases.start()
     by_path["server"] = run_server(kernels, chk, card, dev, args.profile)
+    phases.end("8 server", by_path["server"])
 
     # phase 9: training and LoRA at full S2-Pro width (phase 8's engine
     # freed)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["train"] = run_train(kernels, chk, card, dev)
+    phases.end("9 train", by_path["train"])
 
     # phase 10: tensor parallelism, two ranks on the card (phase 9's
     # engines freed)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["parallel"] = run_parallel(kernels, chk, card)
+    phases.end("10 parallel", by_path["parallel"])
+
+    # phase 11: the tools at full S2-Pro width (phase 10's ranks gone)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["tools"], tools_summary = run_tools(kernels, chk, card, dev)
+    phases.end("11 tools", by_path["tools"], **tools_summary)
 
     def entry(name, replaces, cases, head, path):
         """`head`: the cases whose times are summed into the headline;
@@ -3612,7 +3941,7 @@ def main() -> int:
         # headline: the main path's own shape (batch 1)
         entry("decode_attention_stream",
               "fish_speech_tpu/ops/attention.py:910", attn, attn[1:2],
-              ["int8", "scheduler", "codec", "server", "parallel"]),
+              ["int8", "scheduler", "codec", "server", "parallel", "tools"]),
         entry("decode_attention_stream_bf16", f"{_ATT}:910", attn_bf16,
               attn_bf16[1:2], "pos_native"),
         entry("decode_attention_stream_fold",
@@ -3622,17 +3951,18 @@ def main() -> int:
         # the same at M = 256
         with_prefill(entry("w4a8_matmul", "fish_speech_tpu/ops/w4a8.py:72",
                            w4a8_grouped, decode(w4a8_grouped),
-                           ["w4a8_fold", "parallel"])),
+                           ["w4a8_fold", "parallel", "tools"])),
         with_prefill(entry("w4a8_matmul_pc",
                            "fish_speech_tpu/ops/w4a8.py:134", w4a8_pc,
                            decode(w4a8_pc), "w4a8_fold")),
         entry("fast_sweep", "fish_speech_tpu/ops/fast_fused.py:351", sweep,
-              sweep[3:4], ["int8", "scheduler", "codec", "parallel"]),
+              sweep[3:4], ["int8", "scheduler", "codec", "parallel",
+                           "tools"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
-              ["int8", "scheduler", "codec", "server"]),
+              ["int8", "scheduler", "codec", "server", "tools"]),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              res[:1], ["int8", "scheduler", "codec", "server"]),
+              res[:1], ["int8", "scheduler", "codec", "server", "tools"]),
         # the int8 configurations (VOC_QUANT)
         entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
               blk_i8, "voc_quant"),
@@ -3653,9 +3983,11 @@ def main() -> int:
             name, replaces, cs, hl, routes_of.get(name, "phase3_checks")))
     print(json.dumps(report), flush=True)
     if chk.failed:
+        phases.print()
         log("chip_smoke FAILED: " + ", ".join(chk.failed))
         return 1
     print(card_line(), flush=True)
+    phases.print()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -111,6 +112,22 @@ def dac_encode(params: dict, cfg: DACConfig, audio: torch.Tensor,
     codes = rvq_encode(params["quantizer"], cfg.rvq, z).codes
     code_lengths = torch.ceil(audio_lengths.to(device) / cfg.frame_length)
     return EncodeResult(codes=codes, code_lengths=code_lengths.to(torch.int32))
+
+
+def encode_reference(params: dict, cfg: DACConfig, wav,
+                     device=None):
+    """One waveform (n,) -> its (K, ceil(n / frame_length)) codes (numpy,
+    the quantizer's index dtype). The samples are zero-padded to a bucket
+    of max(32, ceil(frames / 64) * 64) frames, JAX's rule (the encoder is
+    causal: the padding changes no earlier code)."""
+    fl = cfg.frame_length
+    n_frames = -(-len(wav) // fl)
+    bucket = max(32, -(-n_frames // 64) * 64)
+    padded = np.zeros(bucket * fl, dtype=np.float32)
+    padded[:len(wav)] = wav
+    res = dac_encode(params, cfg, torch.from_numpy(padded)[None],
+                     device=device)
+    return res.codes[0, :, :n_frames].cpu().numpy()
 
 
 def dac_decode_latents(params: dict, cfg: DACConfig,

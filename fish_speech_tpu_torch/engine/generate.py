@@ -358,21 +358,13 @@ class TTSEngine:
 
     def encode_reference(self, wav: np.ndarray) -> np.ndarray:
         """A reference waveform (n,) -> its (K, ceil(n / frame_length))
-        codes. The samples are zero-padded to a bucket of max(32,
-        ceil(frames / 64) * 64) frames, JAX's rule (the encoder is causal:
-        the padding changes no earlier code)."""
-        from ..codec.model import dac_encode
+        codes (`codec.model.encode_reference`)."""
+        from ..codec.model import encode_reference
 
         if self.codec_params is None:
             raise RuntimeError("no codec attached")
-        fl = self.codec_cfg.frame_length
-        n_frames = -(-len(wav) // fl)
-        bucket = max(32, -(-n_frames // 64) * 64)
-        padded = np.zeros(bucket * fl, dtype=np.float32)
-        padded[:len(wav)] = wav
-        res = dac_encode(self.codec_params, self.codec_cfg,
-                         torch.from_numpy(padded)[None], device=self.device)
-        return res.codes[0, :, :n_frames].cpu().numpy()
+        return encode_reference(self.codec_params, self.codec_cfg, wav,
+                                device=self.device)
 
     def warmup_vocoder(self, buckets=((1, 32), (8, 64)),
                        stream_widths=(4, 16)) -> None:

@@ -1,13 +1,16 @@
 """Weight quantization and the W8A8 / W4A8 products.
 
-Counterpart of `fish_speech_tpu/ops/quant.py` (int8 and packed-int4 modes).
-A quantized weight is one of two dicts:
+Counterpart of `fish_speech_tpu/ops/quant.py`. A quantized weight is one of
+two dicts:
   int8 per output channel: {"q": int8 (..., out, in), "s": f32 (..., out)};
   groupwise int4, two nibbles per byte: {"q4": int8 (..., out, in/2),
     "gs": f32 (..., out, in/groupsize)}, SPLIT-HALF packed: byte j holds
     value j in its low nibble and value j + in/2 in its high nibble.
 Plain and quantized parameter trees share every code path through
-`as_weight`, `matmul_t`, `take_rows` and `slice_rows`.
+`as_weight`, `matmul_t`, `take_rows` and `slice_rows`. The JAX package's
+native int4 ({"q": int4, "gs"}, its checkpoint form) is carried here as
+{"q": int8 values in [-8, 7], "gs"}: written by `quantize_lm_params(mode=
+"int4")` and `save_params`, packed on load (`pack_int4_params`).
 """
 
 from __future__ import annotations
@@ -187,47 +190,126 @@ _LM_QUANT_TOP = {"embeddings", "codebook_embeddings", "fast_embeddings",
                  "output", "fast_output"}
 
 
-def _int4_by_layer(w: torch.Tensor, groupsize: int) -> dict:
-    """quantize_weight_int4_packed one leading-axis slice at a time, so a
+def quantize_weight_int4(w: torch.Tensor, groupsize: int = 128) -> dict:
+    """(..., out, in) -> {"q": int8 values in [-8, 7] (..., out, in), "gs":
+    f32 (..., out, in/groupsize)}: the JAX package's native int4 (its
+    checkpoint form, `quantize_weight_int4`), carried as int8.
+    `save_params` lists such "q" leaves in quant_meta.json, as JAX writes
+    them; `pack_int4_params` turns them into the packed serving form."""
+    *lead, out, inner = w.shape
+    if inner % groupsize:
+        raise ValueError(f"groupsize {groupsize} must divide {inner}")
+    wf = w.float().reshape(*lead, out, inner // groupsize, groupsize)
+    scale = div_exact(wf.abs().amax(dim=-1), 7.0).clamp_min(1e-12)
+    q = torch.round(wf / scale[..., None]).clamp(-8, 7).to(torch.int8)
+    return {"q": q.reshape(*lead, out, inner), "gs": scale}
+
+
+def _by_layer(fn, w: torch.Tensor):
+    """fn (a quantizer, or a cast) one leading-axis slice at a time, so a
     layer-stacked leaf's f32 temporaries are one layer's (a whole (36,
-    9728, 2560) leaf's would take 3.6 GB)."""
-    if w.ndim == 2:
-        return quantize_weight_int4_packed(w, groupsize)
-    first = quantize_weight_int4_packed(w[0], groupsize)
+    9728, 2560) leaf's would take 3.6 GB). Every quantizer here works row
+    by row, so the result is the whole leaf's, bit for bit."""
+    if w.ndim < 3:
+        return fn(w)
+    first = fn(w[0])
+    if isinstance(first, torch.Tensor):
+        out = first.new_empty((w.shape[0], *first.shape))
+        out[0] = first
+        for i in range(1, w.shape[0]):
+            out[i] = fn(w[i])
+        return out
     out = {k: v.new_empty((w.shape[0], *v.shape)) for k, v in first.items()}
     for i in range(w.shape[0]):
-        part = first if i == 0 else quantize_weight_int4_packed(w[i],
-                                                                groupsize)
+        part = first if i == 0 else fn(w[i])
         for k in out:
             out[k][i] = part[k]
     return out
+
+
+def _int4_by_layer(w: torch.Tensor, groupsize: int) -> dict:
+    """quantize_weight_int4_packed one layer at a time (`_by_layer`)."""
+    return _by_layer(lambda v: quantize_weight_int4_packed(v, groupsize), w)
+
+
+QUANT_MODES = ("int8", "int4", "w4a8")
+
+
+def _quantize_leaf(keys: tuple, w: torch.Tensor, mode: str,
+                   groupsize: int):
+    """One leaf of the Dual-AR tree as the JAX `quantize_lm_params`
+    selects it: the large matrices quantized (the slow stack's ("layers")
+    in int4 / w4a8 mode when `groupsize` divides their input width, every
+    other one int8), other floating leaves cast to bf16, the rest as is.
+    A layer-stacked leaf goes one layer at a time."""
+    leaf = keys[-1]
+    target = leaf in _LM_QUANT_LEAVES or (leaf in _LM_QUANT_TOP
+                                          and len(keys) == 1)
+    if target and w.ndim >= 2:
+        if (mode != "int8" and keys[0] == "layers"
+                and w.shape[-1] % groupsize == 0):
+            if mode == "w4a8":
+                return _int4_by_layer(w, groupsize)
+            return _by_layer(lambda v: quantize_weight_int4(v, groupsize), w)
+        return _by_layer(quantize_weight, w)
+    if w.is_floating_point():
+        return w.to(torch.bfloat16)
+    return w
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unknown quantization mode {mode!r}")
 
 
 def quantize_lm_params(params: dict, mode: str = "int8",
                        groupsize: int = 128) -> dict:
     """Quantize the Dual-AR tree's large matrices; other floating leaves
     become bf16. Same leaf selection as the JAX `quantize_lm_params`:
-    mode "int8" quantizes per output channel; mode "w4a8" packs the slow
+    mode "int8" quantizes per output channel; "w4a8" packs the slow
     stack's ("layers") matrices whose input width divides by `groupsize`
-    as groupwise int4, and leaves every other matrix (fast stack,
-    embeddings) int8. Leaves are replaced one at a time, so the peak memory
-    is one leaf's temporaries."""
-    if mode not in ("int8", "w4a8"):
-        raise ValueError(f"unknown quantization mode {mode!r}")
+    as groupwise int4 (the runnable form), "int4" keeps them as the JAX
+    native int4 checkpoint form ({"q", "gs"}, `quantize_weight_int4`);
+    every other matrix (fast stack, embeddings) is int8. Leaves are
+    replaced one at a time and layer-stacked ones quantized a layer at a
+    time, so the peak memory is one layer's temporaries."""
+    _check_mode(mode)
 
     def visit(keys: tuple, w):
         if isinstance(w, dict):
             return {k: visit(keys + (k,), v) for k, v in w.items()}
-        leaf = keys[-1]
-        target = leaf in _LM_QUANT_LEAVES or (leaf in _LM_QUANT_TOP
-                                              and len(keys) == 1)
-        if target and w.ndim >= 2:
-            if (mode == "w4a8" and keys[0] == "layers"
-                    and w.shape[-1] % groupsize == 0):
-                return _int4_by_layer(w, groupsize)
-            return quantize_weight(w)
-        if w.is_floating_point():
-            return w.to(torch.bfloat16)
-        return w
+        return _quantize_leaf(keys, w, mode, groupsize)
 
     return {k: visit((k,), v) for k, v in params.items()}
+
+
+def quantize_lm_params_incremental(params: dict, mode: str = "int8",
+                                   groupsize: int = 128) -> dict:
+    """quantize_lm_params, freeing as it goes (the JAX
+    `quantize_lm_params_incremental`): DESTRUCTIVE, `params` and its
+    sub-dicts are emptied first, so each bf16 leaf is freed once its
+    quantized form exists (a full-width S2-Pro bf16 tree is ~8 GB beside
+    its ~4 GB int8 form). Rebind the result."""
+    _check_mode(mode)
+    flat = []
+
+    def take(keys: tuple, node: dict):
+        for k in list(node):
+            v = node.pop(k)
+            if isinstance(v, dict):
+                take(keys + (k,), v)
+            else:
+                flat.append((keys + (k,), v))
+
+    take((), params)
+    out: dict = {}
+    for i in range(len(flat)):
+        keys, w = flat[i]
+        flat[i] = None          # the leaf's last reference but `w`
+        y = _quantize_leaf(keys, w, mode, groupsize)
+        del w
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = y
+    return out

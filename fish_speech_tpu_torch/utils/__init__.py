@@ -1,2 +1,3 @@
 """Checkpoint IO (the port's own safetensors reader and writer), the
-steady-state probe and file helpers."""
+steady-state probe, file helpers, the log-mel spectrogram, profiling
+accounting and ranked logging."""

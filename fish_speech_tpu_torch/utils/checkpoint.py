@@ -6,10 +6,12 @@ safetensors reader and writer (utils/safetensors.py).
 The native format: a directory with `config.json` and `model.safetensors`
 holding the parameter tree flattened with '/'-joined keys (list indices as
 numbers). The JAX package widens its native int4 leaves to int8 on disk and
-lists their keys in `quant_meta.json`; `load_params` packs such a leaf pair
-({"q", "gs"}) into the port's split-half nibble form ({"q4", "gs"}), as
-`models.init.lm_params_from_jax` does for a JAX int4 tree. The port's own
-packed int4 is int8 on disk and needs no such list.
+lists their keys in `quant_meta.json`, and so does `save_params` for the
+port's carried form of them (ops/quant.py, mode "int4"); `load_params`
+packs such a leaf pair ({"q", "gs"}) into the port's split-half nibble
+form ({"q4", "gs"}), as `models.init.lm_params_from_jax` does for a JAX
+int4 tree. The port's own packed int4 is int8 on disk and needs no such
+list.
 
 The reference layouts (`load_torch_lm_checkpoint`): a sharded safetensors
 checkpoint with its index, one `model.safetensors`, or `model.pth` (the
@@ -76,7 +78,15 @@ def save_params(path: str | Path, params: dict, config=None) -> None:
     dataclass or a dict) to `path`/config.json."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    save_file(_flatten(params), path / "model.safetensors")
+    flat = _flatten(params)
+    # the JAX native int4 form ({"q" int8 values, "gs"}): listed as JAX
+    # lists its int4 leaves, widened to int8 on disk
+    int4_keys = sorted(k for k in flat if k.endswith("/q")
+                       and k[:-1] + "gs" in flat and k[:-1] + "s" not in flat)
+    if int4_keys:
+        (path / "quant_meta.json").write_text(json.dumps(
+            {"int4_keys": int4_keys}))
+    save_file(flat, path / "model.safetensors")
     if config is not None:
         cfg_dict = (dataclasses.asdict(config)
                     if dataclasses.is_dataclass(config) else dict(config))

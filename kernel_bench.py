@@ -47,8 +47,15 @@ requests of --frames frames each through `tts_with_codes`, one JSON line
 a request (frames / LM seconds); then one more request with every
 `models/dual_ar.py::rms_norm` call recorded, and those calls replayed
 alone: the host time a decode step spends in RMSNorm (`rms_norm_ms_a_step`,
-its calls a step). With --tree it measures another checkout's package,
-such as the parent's.
+its calls a step); last, the parts of one decode step on that engine
+at a cache position of 128 (`step_parts`, host clock around
+synchronised repetitions: these are sequences of many launches): the slow
+stack (`forward_generate`, the restricted logits included), the fast head
+over its 10 positions (`forward_generate_fast`, the priming sweep and 9
+codebook steps), sampling over the vocabulary and over a codebook
+(`sample_one`), and the whole step (`decode_one_token`), the JAX
+package's tools/micro_bench.py's four timings. With --tree it measures
+another checkout's package, such as the parent's.
 
 w4a8 --phases asks what paces the products instead. Rows up to 8 (the
 weight stream): copies of csrc/w4a8.cu that return at once (`empty`: the
@@ -734,6 +741,75 @@ def step(cs, dev, frames: int) -> None:
     print(json.dumps({"step": "int8 path, batch 1", "frames": n,
                       "rms_norm_calls_a_step": len(calls) / n,
                       "rms_norm_ms_a_step": 1e3 * replay_s / n}), flush=True)
+    print(json.dumps({"step": "int8 path, batch 1", "parts_ms": step_parts(
+        engine, dev, cs.SEED)}), flush=True)
+
+
+def step_parts(engine, dev, seed: int, pos: int = 128, reps: int = 20,
+               warmup: int = 3) -> dict:
+    """ms of the parts of one batch-1 decode step on `engine` (the
+    micro_bench parts): slow stack, fast head x 10 positions, sampling
+    over the vocabulary and over a codebook, the whole step."""
+    from fish_speech_tpu_torch.models.decode import (SamplingConfig,
+                                                     decode_one_token,
+                                                     new_fast_cache)
+    from fish_speech_tpu_torch.models.dual_ar import (
+        KVCache, forward_generate, forward_generate_fast, param_dtype,
+        precompute_freqs_cis)
+    from fish_speech_tpu_torch.ops.quant import take_rows
+    from fish_speech_tpu_torch.ops.sampling import RAS_WIN_SIZE, sample_one
+
+    params, cfg = engine.params, engine.cfg
+    s = engine.cache_len
+    cache = KVCache.create(cfg.n_layer, 1, s, cfg.n_local_heads,
+                           cfg.head_dim, dtype=torch.int8,
+                           pos_major=cfg.kv_cache_layout == "pos",
+                           device=dev)
+    freqs = precompute_freqs_cis(s, cfg.head_dim, cfg.rope_base, dev)
+    ffreqs = precompute_freqs_cis(cfg.num_codebooks, cfg.fast_head_dim,
+                                  cfg.rope_base, dev)
+    fc = new_fast_cache(params, cfg, 1, dev, param_dtype(params))
+    support = (cfg.semantic_begin_id, cfg.semantic_end_id, engine.im_end_id)
+    cur = torch.zeros(1, cfg.num_codebooks + 1, 1, dtype=torch.int32,
+                      device=dev)
+    hidden = torch.zeros(1, cfg.fast_dim, dtype=torch.bfloat16, device=dev)
+    code = torch.zeros(1, dtype=torch.long, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sampling = SamplingConfig.create()
+    window = torch.zeros(1, RAS_WIN_SIZE, dtype=torch.int32, device=dev)
+
+    def fast10():
+        forward_generate_fast(params, cfg, hidden, fc, 0, ffreqs,
+                              want_logits=False)
+        for i in range(1, cfg.num_codebooks):
+            forward_generate_fast(params, cfg, take_rows(
+                params["fast_embeddings"], code), fc, i, ffreqs)
+
+    vocab = torch.zeros(1, cfg.vocab_size, device=dev)
+    book = torch.zeros(1, cfg.codebook_size, device=dev)
+    parts = {
+        "slow_stack": lambda: forward_generate(params, cfg, cur, cache, pos,
+                                               freqs, logit_support=support),
+        "fast_head_x10": fast10,
+        "sample_vocab": lambda: sample_one(vocab, 0.7, 0.7, 30, gen=gen),
+        "sample_codebook": lambda: sample_one(book, 0.7, 0.7, 30, gen=gen),
+        "full_step": lambda: decode_one_token(
+            params, cfg, cur, cache, pos, freqs, ffreqs, engine._bias,
+            sampling, window, top_k=30, greedy=False, gen=gen,
+            sample_support=support, fast_cache=fc),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in parts.items():
+            for _ in range(warmup):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
 
 
 def main() -> int:

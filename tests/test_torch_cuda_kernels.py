@@ -985,6 +985,81 @@ def test_final_block_rows_batch_invariant(dev):
             x[r:r + 1], packed, **kw))
 
 
+def _block_f64(x, packed, *, stride, tail_vec, final_w,
+               dilations=tv.DILATIONS):
+    """fused_block_plain's function in float64 from the same bf16 inputs
+    and weights, with no rounding in between: the value both the kernel
+    and its twin (bf16 state, f32 sums) approximate. Same rows, same snake
+    polynomial, same final conv taps."""
+    f = torch.float64
+    pw, pb = packed["tconv_pw"].to(f), packed["tconv_pb"].to(f)
+    b, t_in, _ = x.shape
+    c = pw.shape[2] // stride
+    xf = x.to(f)
+    lag = torch.nn.functional.pad(xf, (0, 0, 1, 0))[:, :-1]
+    cur = (xf @ pw[0] + lag @ pw[1] + pb).reshape(b, t_in * stride, c)
+    fk = 0 if final_w is None else final_w.shape[0] - 1
+    halo = 6 * sum(dilations) + max(fk - 1, 0)
+    cur = torch.nn.functional.pad(cur, (0, 0, halo, 0))
+    w7, w1 = packed["w7"].to(f), packed["w1"].to(f)
+    vec = packed["vec"].to(f)
+    for u, d in enumerate(dilations):
+        n = cur.shape[1] - 6 * d
+        a1, ia1, a2, ia2, b1, b2 = vec[u, :6]
+        s = tv.snake_poly(cur, a1, ia1)
+        acc = b1 + sum(s[:, i * d:i * d + n] @ w7[u, i] for i in range(7))
+        cur = cur[:, 6 * d:] + tv.snake_poly(acc, a2, ia2) @ w1[u] + b2
+    tail = tail_vec.to(f)
+    out = tv.snake_poly(cur, tail[0], tail[1])
+    if final_w is None:
+        return out
+    fw = final_w.to(f)
+    t = out.shape[1] - (fk - 1)
+    m = sum((out[:, i:i + t] * fw[i]).sum(-1) for i in range(fk))
+    return torch.tanh(m + fw[fk, 0])
+
+
+def test_final_block_f64_witness(dev):
+    """test_vocoder_s2pro_batch4[block-3-8]'s case held to float64: the
+    kernel's waveform and its twin's, row by row, against the same
+    function evaluated in float64 from the same bf16 inputs and weights
+    (`_block_f64`). Both keep a bf16 state with f32 sums in their own
+    orders, so each is off the float64 value by rounding alone. The
+    kernel must be as close to it as the twin: its state before the final
+    conv within 2^-5 of the state's scale (the kernel test's bound), and
+    its worst row of the waveform at most twice the twin's worst row.
+    One JSON line (run with -s) gives, per row, the three distances:
+    kernel-twin, kernel-f64, twin-f64, and the same for the state before
+    the final conv (relative to its scale)."""
+    import json
+
+    x, packed, kw = _block_case(3, 8, dev)
+    got = tv.fused_block(x, packed, **kw).double()
+    ref = tv.fused_block_plain(x, packed, **kw).double()
+    exact = _block_f64(x, packed, **kw)
+    state_kw = {**kw, "final_w": None}
+    sg = tv.fused_block(x, packed, **state_kw).double()
+    sr = tv.fused_block_plain(x, packed, **state_kw).double()
+    se = _block_f64(x, packed, **state_kw)
+    torch.cuda.synchronize()
+    scale = se.abs().amax(dim=(1, 2))
+
+    def dist(a, b):
+        return (a - b).abs().flatten(1).amax(1).tolist()
+
+    rows = {"wave": {"kernel_twin": dist(got, ref),
+                     "kernel_f64": dist(got, exact),
+                     "twin_f64": dist(ref, exact)},
+            "state_rel": {k: (torch.tensor(v, device=dev) / scale).tolist()
+                          for k, v in (("kernel_twin", dist(sg, sr)),
+                                       ("kernel_f64", dist(sg, se)),
+                                       ("twin_f64", dist(sr, se)))}}
+    print(json.dumps({"final_block_f64_witness": rows}))
+    assert max(rows["state_rel"]["kernel_f64"]) <= 2 ** -5
+    assert max(rows["wave"]["kernel_f64"]) <= 2 * max(
+        rows["wave"]["twin_f64"])
+
+
 # the int8 packs (VOC_QUANT): the same codes and exact int32 sums on both
 # sides, and the f32 steps round alike (-fmad=false), so they agree bit for
 # bit unless a sum order moves the final conv's f32 sum; the bound is one

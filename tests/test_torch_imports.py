@@ -2,9 +2,11 @@
 the standard library, torch, numpy, scipy, einops and triton (and itself).
 The card's machine has nothing else: no JAX, no JAX package, none of the
 JAX server's packages (aiohttp, msgpack, pydantic, safetensors,
-transformers). The one exception is `HFTokenizer`'s lazy `transformers`
-import, which only a checkpoint with tokenizer files reaches. Every import
-statement counts, those inside functions too."""
+transformers). The exceptions are lazy imports that only an optional
+path reaches: `HFTokenizer`'s `transformers` (a checkpoint with tokenizer
+files) and the API client's `pyaudio` (the first backend `--play` tries, any
+failure falling through to the next). Every import statement counts, those
+inside functions too."""
 
 import ast
 import sys
@@ -18,7 +20,9 @@ ALLOWED = {"torch", "numpy", "scipy", "einops", "triton",
            "fish_speech_tpu_torch"}
 # (file relative to the repo, enclosing class or function) -> module
 EXCEPTIONS = {("fish_speech_tpu_torch/text/tokenizer.py", "HFTokenizer"):
-              "transformers"}
+              "transformers",
+              ("fish_speech_tpu_torch/tools/api_client.py", "LivePlayer"):
+              "pyaudio"}
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -102,3 +106,25 @@ def test_guard_covers_the_parallel_slice():
                if PACKAGE in p.parents}
     assert set(PARALLEL_MODULES) <= guarded
     assert dist.is_available() and dist.is_gloo_available()
+
+
+TOOLS_MODULES = (
+    "ops/quant.py", "utils/spectrogram.py", "utils/profiling.py",
+    "utils/logger.py", "data/vqgan.py", "i18n/__init__.py", "i18n/core.py",
+    "i18n/scan.py", "tools/quantize.py", "tools/quant_drift.py",
+    "tools/eval_quality.py", "tools/latency_bench.py",
+    "tools/profile_decode.py", "tools/extract_vq.py", "tools/api_client.py",
+    "tools/eval_in_context.py")
+
+
+def test_guard_covers_the_tools_slice():
+    """The remaining tools and the utilities they need are among the
+    guarded files, and none of them imports at module scope what the
+    exceptions allow inside a function (pyaudio) or the test harness."""
+    guarded = {str(p.relative_to(PACKAGE)) for p in FILES
+               if PACKAGE in p.parents}
+    assert set(TOOLS_MODULES) <= guarded
+    for rel in TOOLS_MODULES:
+        tree = ast.parse((PACKAGE / rel).read_text())
+        top = {m for m, scope in _imports(tree) if not scope}
+        assert not top & {"ref_harness", "pyaudio", "jax", "msgpack"}, rel
