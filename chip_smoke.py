@@ -81,7 +81,8 @@ Phases, in order; any failure exits non-zero:
  10. tensor parallelism (phase 9's engines freed): two ranks of this
      script (--tp-rank) on cuda:0, joined over gloo into one model group
      of TP = 2, each drawing the S2-Pro weights from the seed on the card
-     (int8 and W4A8 serving trees, fused fast head) and keeping its slices
+     at full width, the slow stack cut to 12 of its 36 layers (int8 and
+     W4A8 serving trees, fused fast head) and keeping its slices
      (parallel/mesh.py); rank 0 decodes each case at TP = 1 on the whole
      weights first, then both decode it at TP = 2 under decode_mesh:
      (a) two 32-frame greedy requests at batch 1 and one batch of 2 on
@@ -107,12 +108,37 @@ Phases, in order; any failure exits non-zero:
      slow and decode fast (its top-1 in the bf16 top-5 logged), the
      other configurations logged; (c)
      tools.latency_bench --full --quant --kv-int8 --w8a8 --pallas-attn
-     stream --fused-fast --kv-layout pos --slots 2 --max-new 48: finite
+     stream --fused-fast --kv-layout pos --slots 2 --max-new 24: finite
      TTFA and RTF, audio > 0; (d) tools.profile_decode at B = 1 over a
-     2048 cache and B = 64 over 384, 32 steps each: #1 and #2 among the
+     2048 cache and B = 64 over 384, 8 steps each: #1 and #2 among the
      device kernels, the idle share logged; (e) tools.extract_vq with a
      seeded S2-Pro codec.pth on three seeded 3 s waveforms: the codes
-     equal encode_reference's; #1, #2 and #11 launch; under 150 s.
+     equal encode_reference's; #1, #2 and #11 launch; under 150 s;
+ 12. training and the vocoder under the (data, model) mesh (phase 11's
+     engines freed): two ranks of this script (--mesh-rank) on cuda:0,
+     one gloo world serving a (data 1, model 2) and a (data 2, model 1)
+     mesh. (a) A full finetune of S2-Pro at full width and depth in
+     bf16, weights drawn from the seed, under (1, 2): rank 0 first takes
+     a TP = 1 step on the whole tree with the same batch (LR 0, so the
+     tree stays as drawn), then both ranks take two make_train_step steps
+     at batch 2 x 512 on their slices; step 1's loss and grad_norm within
+     1e-2 and 5e-2 relative of TP = 1's, finite after step 2, the
+     replicated leaves bit-equal on both ranks, peak memory and seconds
+     a step reported. (b) The training CLI (--lora, 2 steps, checkpoint
+     every step, --device cuda:0) on a full-width native checkpoint and
+     phase 9's corpus, as one process here and as two ranks under
+     torchrun's environment with --data-parallel 2, at the same global
+     batch, both steps at LR > 0: losses within 1e-2 and grad_norm (the
+     data-summed gradient's norm) within 5e-2 relative a step, each
+     final factor within 2^-2 of its L2 norm (Adam's first steps are
+     near sign(gradient), so an entry whose gradient nearly cancels
+     follows the bf16 sums' last bits; the factors over 2^-5 are
+     reported), rank 0 alone logging. (c) The vocoder over (2,
+     1): four seeded 64-frame code sequences at S2-Pro codec width, two a
+     rank, the gathered waveform within 2^-5 of rank 0's decode of all
+     four; #3 and #4 launch on both ranks, and no kernel in (a) or (b).
+     Under 240 s. The ranks time-share the card: the phase's seconds are
+     no measure of parallel speed.
 Each request must give codes in range and a finite waveform in [-1, 1] of
 frames x 2048 samples, and must launch the kernels of its route and none of
 the other route's. Launch counts are set to 0 just before each path.
@@ -122,7 +148,8 @@ vocoder's waveform against the bf16 one's (not a check).
 
 Output: the `{"voc_quant_vs_bf16": ...}` line, one JSON line per request,
 the `{"scheduler": ...}`, `{"codec": ...}`, `{"server": ...}`,
-`{"train": ...}`, `{"parallel": ...}` and `{"tools": ...}` lines, then the
+`{"train": ...}`, `{"parallel": ...}`, `{"tools": ...}` and `{"mesh":
+...}` lines, then the
 `{"kernels": [...]}` line, the card's name and power limit, one compact
 `{"phase": ...}` line a phase (ok, seconds, launches, key numbers: the
 earlier lines may fall outside a 24 KB tail of the output), and last the
@@ -180,8 +207,8 @@ TWIN_BATCHES = (4, 8)
 CODEC_PHASE_S = 120.0
 SERVER_CACHE_LEN = 2048  # phase 8: the served engine's cache,
 SERVER_KEY = "smoke-key"  # its API key,
-SERVER_NEW_TOKENS = 32   # the buffered JSON request's frames at most,
-SERVER_SHORT_TOKENS = 24  # every other request's
+SERVER_NEW_TOKENS = 16   # the buffered JSON request's frames at most,
+SERVER_SHORT_TOKENS = 12  # every other request's
 TRAIN_SPEAKERS = 2      # phase 9: the synthetic corpus's speakers,
 TRAIN_CLIPS = 8         # clips a speaker,
 TRAIN_BATCH = 2         # the training batch,
@@ -2994,6 +3021,8 @@ def run_train(kernels: dict, chk: Checks, card: str, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 TP = 2               # phase 10: the model group's ranks, all on cuda:0,
+TP_LAYERS = 12       # the slow stack's layers (S2-Pro's 36, cut: each
+                     # layer's gloo collectives cost the host ~4 ms a frame),
 TP_FRAMES = 32       # frames of 10a's requests,
 TP_SHORT = 16        # of 10b, 10c and 10d's,
 TP_PROMPT = 48       # tokens of a prompt,
@@ -3107,12 +3136,14 @@ def tp_rank_main(rank: int, addr: str, out_dir: str) -> int:
                "fast_sweep": fast_fused.KERNEL}
 
     tokenizer = ByteTokenizer(n_semantic=4096)
-    base = s2_pro_lm_config(max_seq_len=TP_CACHE_LEN).with_semantic_range(
-        tokenizer.semantic_begin_id, tokenizer.semantic_end_id)
+    base = dataclasses.replace(
+        s2_pro_lm_config(max_seq_len=TP_CACHE_LEN), n_layer=TP_LAYERS
+    ).with_semantic_range(tokenizer.semantic_begin_id,
+                          tokenizer.semantic_end_id)
     im_end = tokenizer.get_token_id(IM_END_TOKEN)
     bias = semantic_logit_bias(base.vocab_size, base.semantic_begin_id,
                                base.semantic_end_id, im_end, device=dev)
-    # the same draw as build_engine's LM, then both serving quantizations
+    # build_engine's LM draw at TP_LAYERS, then both serving quantizations
     gen = torch.Generator(device=dev).manual_seed(SEED)
     drawn = init_dual_ar_params(gen, base, dtype=torch.bfloat16, device=dev)
     whole = {"int8": enable_fused_fast_head(quantize_lm_params(drawn)),
@@ -3220,46 +3251,65 @@ def tp_rank_main(rank: int, addr: str, out_dir: str) -> int:
     return 0
 
 
-def spawn_tp_ranks(out_dir: str, timeout: float) -> list:
-    """Phase 10's two ranks (this script with --tp-rank) to their end; a
-    rank that fails or outlives `timeout` (then both are killed) raises
-    with both ranks' output tails."""
+def free_addr() -> str:
+    """A free local port's address, for a world's rendezvous."""
     import socket
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
-        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+        return f"127.0.0.1:{sk.getsockname()[1]}"
+
+
+def spawn_ranks(argvs: list, timeout: float, label: str,
+                envs: list | None = None) -> list:
+    """This script once a rank (one argv each, `envs` their environments)
+    to the end of all; each rank's (stdout, stderr). A rank that fails or
+    outlives `timeout` (then all are killed) raises with every rank's
+    output tails. The ranks' "  rank ..." progress lines are logged."""
     script = os.path.abspath(__file__)
     procs = [subprocess.Popen(
-        [sys.executable, script, "--tp-rank", str(r), "--tp-addr", addr,
-         "--tp-out", out_dir], cwd=os.path.dirname(script), env=cli_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(TP)]
+        [sys.executable, script, *argv], cwd=os.path.dirname(script),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for argv, env in zip(argvs, envs or [cli_env()] * len(argvs))]
     outs, deadline = [], time.monotonic() + timeout
     try:
         for p in procs:
             outs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0])
+                timeout=max(1.0, deadline - time.monotonic())))
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        outs = [p.communicate()[0] for p in procs]
-        raise RuntimeError(f"phase 10 ranks outlived {timeout} s:\n" + "\n".join(
-            f"--- rank {r}\n{o[-3000:]}" for r, o in enumerate(outs)))
-    for r, o in enumerate(outs):
-        for line in o.splitlines():
+        outs = [p.communicate() for p in procs]
+        raise RuntimeError(f"{label} ranks outlived {timeout:.0f} s:\n"
+                           + "\n".join(f"--- rank {r}\n{o[-3000:]}{e[-3000:]}"
+                                       for r, (o, e) in enumerate(outs)))
+    for o, e in outs:
+        for line in (o + e).splitlines():
             if line.startswith("  rank "):
                 log(line)
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         raise RuntimeError("\n".join(
-            f"phase 10 rank {r} exited {procs[r].returncode}:\n"
-            f"{outs[r][-4000:]}" for r in bad))
+            f"{label} rank {r} exited {procs[r].returncode}:\n"
+            f"{outs[r][0][-2000:]}{outs[r][1][-4000:]}" for r in bad))
+    return outs
+
+
+def read_ranks(out_dir: str, n: int, name: str = "rank") -> list:
     out = []
-    for r in range(TP):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+    for r in range(n):
+        with open(os.path.join(out_dir, f"{name}{r}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def spawn_tp_ranks(out_dir: str, timeout: float) -> list:
+    """Phase 10's two ranks (this script with --tp-rank) to their end;
+    their rank{R}.json results."""
+    addr = free_addr()
+    spawn_ranks([["--tp-rank", str(r), "--tp-addr", addr, "--tp-out",
+                  out_dir] for r in range(TP)], timeout, "phase 10")
+    return read_ranks(out_dir, TP)
 
 
 def multihost_server_check(workdir: str, timeout: float) -> dict:
@@ -3271,13 +3321,10 @@ def multihost_server_check(workdir: str, timeout: float) -> dict:
     Returns the check's numbers and its problems."""
     import re
     import signal
-    import socket
 
     from fish_speech_tpu_torch.tools.api_server import demo_codec
 
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    coord = free_addr()
     fl = demo_codec(torch.device("cpu"))[0].frame_length
     codes_log = os.path.join(workdir, "codes")
     t0 = time.perf_counter()
@@ -3430,9 +3477,10 @@ def run_parallel(kernels: dict, chk: Checks, card: str) -> dict:
 DRIFT_BOUNDS = {"max_abs_dlogit": 1.0, "mean_abs_dlogit": 0.10}
 LATENCY_ARGS = ("--full", "--quant", "--kv-int8", "--w8a8", "--pallas-attn",
                 "stream", "--fused-fast", "--kv-layout", "pos", "--slots",
-                "2", "--max-new", "48")
+                "2", "--max-new", "24")
 PROFILE_SHAPES = ((1, 2048), (64, 384))   # (batch, cache) of 11d
-PROFILE_STEPS = 32
+PROFILE_STEPS = 8     # decode steps a profile (the profiler's host-side
+                      # bookkeeping grows with its events)
 PROFILE_ROWS = 6      # kernels of each profile in the phase's report
 TOOLS_WAVS = 3        # 11e: seeded waveforms
 TOOLS_WAV_S = 3.0     # of this many seconds
@@ -3669,6 +3717,455 @@ def tools_summary(report: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training and the vocoder under the (data, model) mesh, two
+# ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2        # phase 12: the world's ranks, all on cuda:0,
+MESH_TRAIN_LEN = 512  # 12a's tokens a row,
+MESH_TRAIN_B = 2      # its global batch,
+MESH_LOSS_RTOL = 1e-2  # step 1 against TP = 1: the loss,
+MESH_NORM_RTOL = 5e-2  # the gradient norm (bf16 over 36 layers),
+MESH_CLI_STEPS = 2    # 12b's steps,
+MESH_FACTOR_TOL = 2 ** -2  # a final factor's gap over its L2 norm,
+MESH_VOC_ROWS = 4     # 12c's code sequences,
+MESH_VOC_FRAMES = 64  # of this many frames,
+MESH_PHASE_S = 240.0  # the phase's time limit
+# the kernels of 12c's route (and none in 12a or 12b)
+MESH_VOC_ROUTE = ("voc_block", "voc_res_stack")
+
+
+def mesh_train_batch(cfg) -> dict:
+    """12a's global batch (numpy, the same on every rank): text, then
+    semantic tokens with codes; an ignored prefix; row 1 padded at its
+    tail."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 12)
+    b, t, k = MESH_TRAIN_B, MESH_TRAIN_LEN, cfg.num_codebooks
+    tokens = rng.integers(0, cfg.vocab_size, (b, 1, t))
+    tokens[:, 0, t // 4:] = rng.integers(cfg.semantic_begin_id,
+                                         cfg.semantic_end_id + 1,
+                                         (b, t - t // 4))
+    inputs = np.concatenate([tokens, rng.integers(0, cfg.codebook_size,
+                                                  (b, k, t))], 1)
+    labels = inputs.copy()
+    labels[:, :, :16] = -100
+    masks = np.zeros((b, t), bool)
+    masks[1, -32:] = True
+    return {"inputs": inputs.astype(np.int32),
+            "labels": labels.astype(np.int32), "attention_masks": masks}
+
+
+def replicated_equal(params: dict, mesh) -> list[str]:
+    """The replicated leaves (no `model` axis in their spec) that differ
+    from rank 0's bit for bit (rank 0's broadcast over the model
+    group)."""
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.parallel.mesh import (MODEL_AXIS,
+                                                     dual_ar_param_specs)
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    specs = dict(tree_leaves(dual_ar_param_specs(params)))
+    bad = []
+    for path, leaf in tree_leaves(params):
+        if MODEL_AXIS in specs[path]:
+            continue
+        theirs = leaf.detach().clone()
+        dist.broadcast(theirs, dist.get_global_rank(mesh.model_group, 0),
+                       group=mesh.model_group)
+        if not torch.equal(theirs, leaf.detach()):
+            bad.append("/".join(path))
+    return bad
+
+
+def factor_gaps(got: dict, want: dict) -> dict:
+    """Each LoRA factor's distance from `want`'s over its L2 norm."""
+    out = {}
+    for key in want:
+        for n in ("a", "b"):
+            w, g = want[key][n].float(), got[key][n].float()
+            out[f"{key}/{n}"] = float((g - w).norm()
+                                      / w.norm().clamp_min(1e-30))
+    return out
+
+
+def mesh_rank_main(rank: int, addr: str, out_dir: str) -> int:
+    """One rank of phase 12 (`--mesh-rank`): joins a gloo world of
+    MESH_RANKS ranks on cuda:0, builds the (data 1, model 2) and (data 2,
+    model 1) meshes, and writes DIR/rank{R}.json with (a) the full
+    finetune under the model group (rank 0 first takes the TP = 1 step on
+    the whole tree) and (c) the vocoder over the data group."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from fish_speech_tpu_torch.codec.config import s2_pro_codec_config
+    from fish_speech_tpu_torch.codec.fastpath import (dac_from_indices_fused,
+                                                      pack_decoder)
+    from fish_speech_tpu_torch.codec.init import init_dac_params
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.parallel.mesh import (MeshConfig, create_mesh,
+                                                     shard_dual_ar_params)
+    from fish_speech_tpu_torch.parallel.vocoder import decode_data_parallel
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+    from fish_speech_tpu_torch.train import (TrainBatch,
+                                             cosine_warmup_schedule,
+                                             make_optimizer, make_train_step)
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}",
+                            world_size=MESH_RANKS, rank=rank,
+                            timeout=timedelta(seconds=60))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp_mesh = create_mesh(MeshConfig(data=1, model=MESH_RANKS),
+                          backend="gloo", device=dev)
+    dp_mesh = create_mesh(MeshConfig(data=MESH_RANKS, model=1),
+                          backend="gloo", device=dev)
+    kernels = kernel_counters()
+    result: dict = {"rank": rank}
+
+    def launched() -> dict:
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+
+    # (a) the full finetune at full S2-Pro width and depth, bf16
+    tokenizer = ByteTokenizer()
+    cfg = s2_pro_lm_config(max_seq_len=MESH_TRAIN_LEN).with_semantic_range(
+        tokenizer.semantic_begin_id, tokenizer.semantic_end_id)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    whole = init_dual_ar_params(gen, cfg, dtype=torch.bfloat16, device=dev)
+    batch = TrainBatch.from_numpy(mesh_train_batch(cfg), dev)
+    schedule = cosine_warmup_schedule(1e-4, 1, 10)   # step 1 at LR 0
+    for k in kernels.values():
+        k.launches = 0
+    if rank == 0:
+        opt = make_optimizer(whole, schedule)
+        t0 = time.perf_counter()
+        m = make_train_step(cfg, opt, remat=True)(whole, opt.init(whole),
+                                                   batch)[2]
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        result["tp1"] = {"s": time.perf_counter() - t0, **m}
+        del opt             # LR 0 left the whole tree as it was
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    local = shard_dual_ar_params(whole, tp_mesh)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(local, schedule)
+    state = opt.init(local)
+    step_fn = make_train_step(cfg, opt, remat=True, mesh=tp_mesh)
+    steps = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        local, state, m = step_fn(local, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        steps.append({"step": i + 1, "s": time.perf_counter() - t0, **m})
+    result["steps"] = steps
+    result["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    result["finite"] = all(bool(torch.isfinite(p).all())
+                           for _, p in tree_leaves(local))
+    result["replicated_differ"] = replicated_equal(local, tp_mesh)
+    result["train_launches"] = launched()
+    del local, state, opt, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  rank {rank} 12a: steps "
+        + ", ".join(f"{s['s']:.2f} s" for s in steps)
+        + f", peak {result['peak_gib']:.1f} GiB")
+
+    # (c) the vocoder over the data axis: weights replicated, rows split
+    ccfg = s2_pro_codec_config()
+    cparams = init_dac_params(torch.Generator(device=dev).manual_seed(
+        SEED + 12), ccfg, device=dev)
+    packed = pack_decoder(cparams["decoder"], ccfg, dtype=torch.bfloat16)
+    rng = np.random.default_rng(SEED + 12)
+    codes = np.concatenate([
+        rng.integers(0, ccfg.rvq.semantic_codebook_size,
+                     (MESH_VOC_ROWS, 1, MESH_VOC_FRAMES)),
+        rng.integers(0, ccfg.rvq.codebook_size,
+                     (MESH_VOC_ROWS, ccfg.rvq.n_codebooks, MESH_VOC_FRAMES))],
+        axis=1)
+    codes = torch.from_numpy(codes).to(dev)
+    dac_from_indices_fused(cparams, ccfg, codes[:1], packed=packed,
+                           device=dev)            # the kernels' first use
+    torch.cuda.synchronize()
+    dist.barrier()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    wav = decode_data_parallel(cparams, ccfg, codes, dp_mesh, packed=packed)
+    torch.cuda.synchronize()
+    result["vocoder"] = {"s": time.perf_counter() - t0,
+                         "shape": list(wav.shape),
+                         "launches": launched()}
+    if rank == 0:
+        ref = dac_from_indices_fused(cparams, ccfg, codes, packed=packed,
+                                     device=dev)
+        result["vocoder"]["max_abs_err_vs_whole"] = max_err(wav, ref)
+        result["vocoder"]["finite"] = bool(torch.isfinite(wav).all())
+    result["total_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def cli_rank_main(out: str, argv: list) -> int:
+    """One rank of 12b (`--cli-out FILE -- ARGS`): the training CLI's
+    `main(ARGS)` under the world's environment, then its logged metrics
+    and this rank's launches into FILE."""
+    from fish_speech_tpu_torch.tools import train
+
+    kernels = kernel_counters()
+    for k in kernels.values():
+        k.launches = 0
+    r = train.main(argv)
+    with open(out, "w") as f:
+        json.dump({"history": r["history"], "final": str(r["final"]),
+                   "launches": {n: k.launches for n, k in kernels.items()
+                                if k.launches}}, f)
+    return 0
+
+
+def spawn_cli_ranks(argv: list, out_dir: str, timeout: float) -> list:
+    """12b's CLI ranks (this script with --cli-out) under torchrun's
+    environment on cuda:0; each rank's (stdout, its JSON)."""
+    host, port = free_addr().split(":")
+    envs = [dict(cli_env(), RANK=str(r), WORLD_SIZE=str(MESH_RANKS),
+                 LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(MESH_RANKS),
+                 MASTER_ADDR=host, MASTER_PORT=port)
+            for r in range(MESH_RANKS)]
+    outs = spawn_ranks([["--cli-out", os.path.join(out_dir, f"cli{r}.json"),
+                         "--", *argv] for r in range(MESH_RANKS)], timeout,
+                       "12b", envs)
+    return list(zip((o for o, _ in outs),
+                    read_ranks(out_dir, MESH_RANKS, "cli")))
+
+
+def run_mesh(kernels: dict, chk: Checks, card: str, dev) -> tuple:
+    """Phase 12 (see the module docstring): (a) and (c) in two ranks of
+    this script (`--mesh-rank`), then (b) the training CLI as one process
+    (in this one) and as two ranks. Prints the {"mesh": ...} line and
+    returns 12c's launches summed over the ranks (the path's counts) and
+    the phase's key numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from fish_speech_tpu_torch.codec.config import s2_pro_codec_config
+    from fish_speech_tpu_torch.models.config import s2_pro_lm_config
+    from fish_speech_tpu_torch.models.init import init_dual_ar_params
+    from fish_speech_tpu_torch.text.tokenizer import ByteTokenizer
+    from fish_speech_tpu_torch.tools import build_dataset, train
+    from fish_speech_tpu_torch.utils.checkpoint import (load_params,
+                                                        save_params)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix=".smoke_mesh_", dir=root)
+    report: dict = {"card": card, "ranks": MESH_RANKS, "backend": "gloo",
+                    "device": "cuda:0 (every rank)",
+                    "note": "the ranks time-share one card: their seconds "
+                            "are no measure of parallel speed"}
+    problems: list[str] = []
+    total = {n: 0 for n in kernels}
+
+    def left() -> float:
+        return MESH_PHASE_S - (time.perf_counter() - t_phase)
+
+    try:
+        # (a) and (c), one world serving both meshes
+        addr = free_addr()
+        spawn_ranks([["--mesh-rank", str(r), "--mesh-addr", addr,
+                      "--mesh-out", work] for r in range(MESH_RANKS)],
+                    left(), "12a/c")
+        ranks = read_ranks(work, MESH_RANKS)
+        tp1, steps = ranks[0]["tp1"], [r["steps"] for r in ranks]
+        s1 = steps[0][0]
+        gaps = {"loss": abs(s1["loss"] - tp1["loss"]) / abs(tp1["loss"]),
+                "grad_norm": abs(s1["grad_norm"] - tp1["grad_norm"])
+                / abs(tp1["grad_norm"])}
+        report["a"] = {"tp1": tp1, "steps": steps, "step1_rel_gap": gaps,
+                       "peak_gib": [r["peak_gib"] for r in ranks],
+                       "batch": [MESH_TRAIN_B, MESH_TRAIN_LEN]}
+        if gaps["loss"] > MESH_LOSS_RTOL or gaps["grad_norm"] > MESH_NORM_RTOL:
+            problems.append(f"12a step 1 against TP = 1: {gaps}")
+        if any(a[m] != b[m] for a, b in zip(steps[0], steps[1])
+               for m in ("loss", "grad_norm")):
+            problems.append("12a: the ranks' metrics differ")
+        for r, rk in enumerate(ranks):
+            if not rk["finite"] or not all(math.isfinite(s[m]) for s in
+                                           rk["steps"] for m in
+                                           ("loss", "grad_norm")):
+                problems.append(f"12a rank {r}: not finite after step 2")
+            if rk["replicated_differ"]:
+                problems.append(f"12a rank {r}: replicated leaves differ "
+                                f"from rank 0's: {rk['replicated_differ']}")
+            if rk["train_launches"]:
+                problems.append(f"12a rank {r} launched "
+                                f"{rk['train_launches']}")
+        # (c)
+        voc = [r["vocoder"] for r in ranks]
+        report["c"] = voc
+        err = voc[0]["max_abs_err_vs_whole"]
+        frame = s2_pro_codec_config().frame_length
+        if not voc[0]["finite"] or err > BATCH_TOL or voc[0]["shape"] != [
+                MESH_VOC_ROWS, MESH_VOC_FRAMES * frame]:
+            problems.append(f"12c: {voc[0]}")
+        for r, v in enumerate(voc):
+            missing = [n for n in MESH_VOC_ROUTE
+                       if v["launches"].get(n, 0) < 1]
+            stray = [n for n in v["launches"] if n not in MESH_VOC_ROUTE]
+            if missing or stray:
+                problems.append(f"12c rank {r}: not launched {missing}, "
+                                f"launched off route {stray}")
+            for n, c in v["launches"].items():
+                total[n] += c
+    except Exception as e:  # noqa: BLE001 - reported, fails the phase
+        problems.append(f"12a/c: {e!r}")
+
+    try:
+        # (b) the training CLI: one process, then two ranks (--data-parallel)
+        rng = np.random.default_rng(SEED + 9)
+        corpus, protos = (os.path.join(work, d) for d in ("corpus", "protos"))
+        write_train_corpus(corpus, rng)
+        build_dataset.main(["--input", corpus, "--output", protos])
+        tokenizer = ByteTokenizer()
+        cfg = s2_pro_lm_config(max_seq_len=TRAIN_LEN).with_semantic_range(
+            tokenizer.semantic_begin_id, tokenizer.semantic_end_id)
+        drawn = init_dual_ar_params(torch.Generator(device=dev).manual_seed(
+            SEED + 12), cfg, dtype=torch.bfloat16, device=dev)
+        ckpt = os.path.join(work, "base")
+        save_params(ckpt, drawn, cfg)
+        del drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+        common = ["--proto-dir", protos, "--lora",
+                  "--max-steps", str(MESH_CLI_STEPS), "--batch-size",
+                  str(TRAIN_BATCH), "--max-length", str(TRAIN_LEN),
+                  "--warmup-steps", "0", "--checkpoint-every", "1",
+                  "--log-every", "1", "--device", "cuda:0"]
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        one = train.main(common + ["--checkpoint", ckpt, "--output-dir",
+                                   os.path.join(work, "one")])
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = {n: k.launches for n, k in kernels.items()
+                        if k.launches}
+        one_final = str(one["final"])
+        one_hist = one["history"]
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        two_dir = os.path.join(work, "two")
+        clis = spawn_cli_ranks(common + ["--checkpoint", ckpt,
+                                         "--output-dir", two_dir,
+                                         "--data-parallel",
+                                         str(MESH_RANKS)], work, left())
+        two_s = time.perf_counter() - t0
+        two_hist = clis[0][1]["history"]
+
+        def rel_gaps(metric: str) -> list:
+            return [abs(a[metric] - b[metric]) / abs(b[metric])
+                    for a, b in zip(two_hist, one_hist)]
+
+        loss_gaps, norm_gaps = rel_gaps("loss"), rel_gaps("grad_norm")
+        f_one, _ = load_params(one_final, device="cpu")
+        f_two, _ = load_params(clis[0][1]["final"], device="cpu")
+        # a factor's scale is its L2 norm: Adam's step normalizes each
+        # entry by its own gradient, so an entry whose gradient nearly
+        # cancels moves by a step that follows the bf16 sums' last bits
+        # (the largest entry's gap is reported, not held). grad_norm
+        # holds the data group's sum, which Adam's steps barely show
+        gaps = factor_gaps(f_two, f_one)
+        over = {k: g for k, g in gaps.items() if g > MESH_FACTOR_TOL}
+        entry_gaps = {f"{key}/{n}": max_err(f_two[key][n], f_one[key][n])
+                      / max(float(f_one[key][n].float().abs().max()), 1e-30)
+                      for key in f_one for n in ("a", "b")}
+        worst = max(gaps, key=gaps.get)
+        worst_entry = max(entry_gaps, key=entry_gaps.get)
+        lines = [o.splitlines() for o, _ in clis]
+        report["b"] = {
+            "one_process_s": one_s, "two_ranks_s": two_s,
+            "losses": [[h["loss"] for h in one_hist],
+                       [h["loss"] for h in two_hist]],
+            "grad_norms": [[h["grad_norm"] for h in one_hist],
+                           [h["grad_norm"] for h in two_hist]],
+            "loss_rel_gap": loss_gaps, "grad_norm_rel_gap": norm_gaps,
+            "factor_rel_l2_gap_max": [worst, gaps[worst]],
+            "factors_over_2^-5": {k: g for k, g in gaps.items()
+                                  if g > BATCH_TOL},
+            "factors": len(gaps),
+            "factor_entry_gap_max": [worst_entry, entry_gaps[worst_entry]],
+            "first_line": lines[0][:1],
+            "lines_by_rank": [len(x) for x in lines],
+            "checkpoints": sorted(os.listdir(two_dir)),
+            "launches": [one_launches] + [c[1]["launches"] for c in clis]}
+        if len(loss_gaps) != MESH_CLI_STEPS or max(loss_gaps) > \
+                MESH_LOSS_RTOL or max(norm_gaps) > MESH_NORM_RTOL:
+            problems.append(f"12b losses or grad_norms: one {one_hist}, "
+                            f"two {two_hist}")
+        if over:
+            problems.append(f"12b final factors over {MESH_FACTOR_TOL} of "
+                            f"their L2 norm: {over}")
+        if any(lines[1:]) or not lines[0] or \
+                not lines[0][0].startswith(f"mesh: data {MESH_RANKS} x "
+                                           "model 1"):
+            problems.append(f"12b: rank 0 alone must log, mesh line "
+                            f"first: {[x[:2] for x in lines]}")
+        want = [f"step_{s:09d}" for s in range(1, MESH_CLI_STEPS + 1)] + [
+            f"step_{MESH_CLI_STEPS:09d}_final"]
+        if report["b"]["checkpoints"] != sorted(want):
+            problems.append(f"12b checkpoints: {report['b']['checkpoints']}")
+        if any(report["b"]["launches"]):
+            problems.append(f"12b launched {report['b']['launches']}")
+    except Exception as e:  # noqa: BLE001 - reported, fails the phase
+        problems.append(f"12b: {e!r}")
+    shutil.rmtree(work, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t_phase
+    if report["seconds"] > MESH_PHASE_S:
+        problems.append(f"phase 12 took {report['seconds']:.1f} s > "
+                        f"{MESH_PHASE_S:.0f} s")
+    report["launches"] = {n: v for n, v in total.items() if v}
+    report["problems"] = problems
+    print(json.dumps({"mesh": report}), flush=True)
+    chk.failed += problems
+    summary = {}
+    if "a" in report:
+        summary["a_step1_rel_gap"] = report["a"]["step1_rel_gap"]
+        summary["a_step_s"] = [round(s["s"], 2)
+                               for s in report["a"]["steps"][0]]
+        summary["a_peak_gib"] = [round(g, 1) for g in report["a"]["peak_gib"]]
+        summary["c_max_abs_err"] = report["c"][0]["max_abs_err_vs_whole"]
+    if "b" in report:
+        summary["b_loss_rel_gap"] = report["b"]["loss_rel_gap"]
+        summary["b_grad_norm_rel_gap"] = report["b"]["grad_norm_rel_gap"]
+        summary["b_factor_rel_l2_gap_max"] = report["b"][
+            "factor_rel_l2_gap_max"]
+        summary["b_factor_entry_gap_max"] = report["b"][
+            "factor_entry_gap_max"]
+        summary["b_factors_over_2^-5"] = len(report["b"][
+            "factors_over_2^-5"])
+    return total, summary
+
+
 def kernel_counters() -> dict:
     """Every hand-written kernel's launch counter by its C entry's name
     (the `{"kernels"}` line's names)."""
@@ -3737,9 +4234,24 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-addr", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
-    args = ap.parse_args()
+    # and phase 12 as its ranks, and as a rank of the training CLI (its
+    # arguments after "--")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-addr", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--cli-out", default=None, help=argparse.SUPPRESS)
+    argv, cli_argv = sys.argv[1:], []
+    if "--" in argv:
+        cli_argv = argv[argv.index("--") + 1:]
+        argv = argv[:argv.index("--")]
+    args = ap.parse_args(argv)
     if args.tp_rank is not None:
         return tp_rank_main(args.tp_rank, args.tp_addr, args.tp_out)
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args.mesh_rank, args.mesh_addr, args.mesh_out)
+    if args.cli_out is not None:
+        return cli_rank_main(args.cli_out, cli_argv)
 
     from fish_speech_tpu_torch.codec.fastpath import pack_decoder
     from fish_speech_tpu_torch.engine.generate import (build_engine,
@@ -3908,6 +4420,13 @@ def main() -> int:
     by_path["tools"], tools_summary = run_tools(kernels, chk, card, dev)
     phases.end("11 tools", by_path["tools"], **tools_summary)
 
+    # phase 12: training and the vocoder under the (data, model) mesh,
+    # two ranks on the card (phase 11's engines freed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mesh"], mesh_summary = run_mesh(kernels, chk, card, dev)
+    phases.end("12 mesh", by_path["mesh"], **mesh_summary)
+
     def entry(name, replaces, cases, head, path):
         """`head`: the cases whose times are summed into the headline;
         `path`: the path (or paths) whose launches are counted."""
@@ -3960,9 +4479,10 @@ def main() -> int:
                            "tools"]),
         # headline: the whole decoder's use at F frames
         entry("voc_block", "fish_speech_tpu/ops/voc_fused.py:378", blk, blk,
-              ["int8", "scheduler", "codec", "server", "tools"]),
+              ["int8", "scheduler", "codec", "server", "tools", "mesh"]),
         entry("voc_res_stack", "fish_speech_tpu/ops/voc_fused.py:459", res,
-              res[:1], ["int8", "scheduler", "codec", "server", "tools"]),
+              res[:1], ["int8", "scheduler", "codec", "server", "tools",
+                        "mesh"]),
         # the int8 configurations (VOC_QUANT)
         entry("voc_block_i8", "fish_speech_tpu/ops/voc_fused.py:378", blk_i8,
               blk_i8, "voc_quant"),

@@ -7,9 +7,11 @@ sequences -> (B, K+1, T) batches, on the host. Samples are drawn from
 Python's `random` module in the same calls and order as the JAX package's,
 so the same `random.seed` gives the same samples and batches.
 
-Multi-process sharding: files are strided by (rank, dataloader worker),
-the rank and world size those of `torch.distributed` when it is
-initialised, else (0, 1) (ref semantic.py:32-56).
+Files are strided over the dataloader's workers alone (ref
+semantic.py:32-56 strides them over (rank, worker)): every rank of the
+training CLI's (data, model) mesh reads the same global batch and keeps
+its data rows (`parallel.mesh.shard_batch`), as JAX places the global
+batch on P(data).
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from random import Random
 from typing import Iterator, Optional
 
 import numpy as np
-import torch.distributed as dist
 
 from ..text.clean import clean_text
 from ..text.content import ContentSequence, TextPart, VQPart
@@ -32,21 +33,12 @@ from .stream import read_pb_stream
 CODEBOOK_PAD_TOKEN_ID = 0
 
 
-def _process_info() -> tuple[int, int]:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def split_by_rank_worker(files: list, worker_id: int = 0,
                          num_workers: int = 1) -> list:
-    """Stride files over (rank, worker) (ref semantic.py:32-56)."""
-    rank, world = _process_info()
-    total = world * num_workers
-    if len(files) < total:
-        files = files * (total // max(len(files), 1) + 1)
-    if world > 1:
-        files = files[rank::world]
+    """Stride files over the dataloader's workers (ref semantic.py:32-56
+    in a world of one process; see the module docstring)."""
+    if len(files) < num_workers:
+        files = files * (num_workers // max(len(files), 1) + 1)
     if num_workers > 1:
         files = files[worker_id::num_workers]
     return files

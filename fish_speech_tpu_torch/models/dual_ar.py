@@ -17,8 +17,14 @@ inserts in the JAX package are written out here: wqkv's columns are
 gathered (its row split is not head-aligned) and each rank keeps its
 heads; wo and w2 are row-parallel products (`ops.quant.
 matmul_t_row_parallel`); the row-sharded heads (`output`, `fast_output`,
-`fast_project_in`) gather their columns; the fused fast sweep splits the
-batch over the model group (`parallel.tp.fused_fast_sweep_tp`).
+`fast_project_in`, `codebook_output`) gather their columns; the fused
+fast sweep splits the batch over the model group
+(`parallel.tp.fused_fast_sweep_tp`). `forward_train` takes the same
+branches with gradients: each collective is one of the differentiable
+operators of parallel/collectives.py, chosen by what consumes its
+result, and every column-parallel product's input passes Megatron's
+copy operator (`copy_to_group`), which sums the input's partial
+gradients over the model group.
 
 A decode step writes every row at one shared slot, or (continuous
 batching) each row at its own slot given as a (B,) tensor on the device.
@@ -58,7 +64,8 @@ from ..ops.quant import (
     slice_rows,
     take_rows,
 )
-from ..parallel.collectives import all_gather
+from ..parallel.collectives import (copy_to_group, gather_for_partial,
+                                    gather_for_replicated)
 from ..parallel.tp import (
     blocks_attention_tp,
     fused_fast_sweep_tp,
@@ -246,8 +253,13 @@ def _read_cache(cache: KVCache, layer: int):
 
 def _gather_columns(y: torch.Tensor, mesh) -> torch.Tensor:
     """A row-sharded head's output columns, gathered over the model group
-    (exact: bits move)."""
-    return y if mesh is None else all_gather(y, mesh.model_group)
+    (exact: bits move) for a consumer that every rank computes whole."""
+    return y if mesh is None else gather_for_replicated(y, mesh.model_group)
+
+
+def _column_input(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The input of a column-parallel product (Megatron's copy)."""
+    return x if mesh is None else copy_to_group(x, mesh.model_group)
 
 
 class DecodeBounds(NamedTuple):
@@ -321,12 +333,14 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
     b, t, _ = x.shape
     h, hkv, d = ad.n_head, ad.n_local_heads, ad.head_dim
     mesh = tp_mesh(ad.tp_shards)
-    qkv = matmul_t(x, p["wqkv"], w8a8=ad.w8a8)
+    qkv = matmul_t(_column_input(x, mesh), p["wqkv"], w8a8=ad.w8a8)
     if ad.qkv_bias:
         qkv = qkv + p["wqkv_b"]
     # wqkv's rows are [q | k | v], so its contiguous row split does not
-    # follow the heads: gather the columns, then keep the rank's heads
-    qkv = _gather_columns(qkv, mesh)
+    # follow the heads: gather the columns, then keep the rank's heads (so
+    # a rank's gradient of the gathered columns is partial)
+    if mesh is not None:
+        qkv = gather_for_partial(qkv, mesh.model_group)
     q, k, v = torch.split(qkv, [h * d, hkv * d, hkv * d], dim=-1)
     q = q.reshape(b, t, h, d)
     k = k.reshape(b, t, hkv, d)
@@ -341,8 +355,9 @@ def attention(p: dict, ad: AttnDims, x: torch.Tensor, freqs_cis: torch.Tensor,
         k = k[:, :, r * hkv:(r + 1) * hkv]
         v = v[:, :, r * hkv:(r + 1) * hkv]
     if ad.qk_norm:
-        q = rms_norm(q, p["q_norm"], 1e-5)
-        k = rms_norm(k, p["k_norm"], 1e-5)
+        # replicated weights applied to the rank's heads only
+        q = rms_norm(q, _column_input(p["q_norm"], mesh), 1e-5)
+        k = rms_norm(k, _column_input(p["k_norm"], mesh), 1e-5)
     q = apply_rotary_emb(q, freqs_cis)
     k = apply_rotary_emb(k, freqs_cis)
 
@@ -423,6 +438,7 @@ def _ffn(p: dict, x: torch.Tensor, w8a8: bool = False,
          mesh=None) -> torch.Tensor:
     """The gated MLP; under tensor parallelism w1 and w3 give the rank's
     hidden columns and w2 is row-parallel."""
+    x = _column_input(x, mesh)
     gate = torch.nn.functional.silu(matmul_t(x, p["w1"], w8a8=w8a8))
     hidden = gate * matmul_t(x, p["w3"], w8a8=w8a8)
     if mesh is None:
@@ -552,8 +568,8 @@ def _token_logits(params: dict, cfg: DualARConfig, slow_out: torch.Tensor,
     w = params["embeddings"] if cfg.tie_word_embeddings else params["output"]
     mesh = None if cfg.tie_word_embeddings else tp_mesh(cfg.tp_shards)
     if mesh is not None:
-        logits = all_gather(slow_out @ as_weight(w, slow_out.dtype).T,
-                            mesh.model_group)
+        logits = _gather_columns(_column_input(slow_out, mesh)
+                                 @ as_weight(w, slow_out.dtype).T, mesh)
         if logit_support is None:
             return logits
         sb, se, im = logit_support
@@ -571,8 +587,10 @@ def _fast_input(params: dict, cfg: DualARConfig, x: torch.Tensor,
                 slow_normed: torch.Tensor) -> torch.Tensor:
     h = slow_normed if cfg.norm_fastlayer_input else x
     if "fast_project_in" in params:
-        h = h @ params["fast_project_in"]["w"].T + params["fast_project_in"]["b"]
-        h = _gather_columns(h, tp_mesh(cfg.tp_shards))
+        mesh = tp_mesh(cfg.tp_shards)
+        h = (_column_input(h, mesh) @ params["fast_project_in"]["w"].T
+             + params["fast_project_in"]["b"])
+        h = _gather_columns(h, mesh)
     return h
 
 
@@ -702,7 +720,12 @@ def forward_train(params: dict, cfg: DualARConfig, inp: torch.Tensor,
     codebook) feed the fast head, `inp`'s when None; key_padding_mask: (B,
     T) bool, True at PAD positions. Codebook k >= 1 conditions on codes
     [..., :k]. The naive head (`cfg.is_naive`) predicts all K codebooks at
-    once from the slow stack's output."""
+    once from the slow stack's output.
+
+    Under tensor parallelism (`cfg.tp_shards > 1`, run under
+    `parallel.tp.decode_mesh`) the weights are the rank's slices and the
+    batch is the rank's data rows; the logits come out whole on every
+    rank of the model group."""
     b, _, t = inp.shape
     dev = inp.device
     x = embed_tokens(params, cfg, inp)
@@ -722,7 +745,10 @@ def forward_train(params: dict, cfg: DualARConfig, inp: torch.Tensor,
     if cfg.is_naive:
         h = slow_normed if cfg.norm_fastlayer_input else x
         cb = rms_norm(h, params["codebook_norm"], cfg.norm_eps)
-        cb_logits = cb @ as_weight(params["codebook_output"], cb.dtype).T
+        mesh = tp_mesh(cfg.tp_shards)
+        cb_logits = _gather_columns(
+            _column_input(cb, mesh)
+            @ as_weight(params["codebook_output"], cb.dtype).T, mesh)
         return TrainOut(token_logits,
                         cb_logits.reshape(b, t, k, cfg.codebook_size))
 
@@ -740,6 +766,9 @@ def forward_train(params: dict, cfg: DualARConfig, inp: torch.Tensor,
     fx = run_stack(params["fast_layers"], cfg.fast_attn, cfg.norm_eps,
                    fast_in, fast_freqs, fmask, remat=remat)
     fx = rms_norm(fx, params["fast_norm"], cfg.norm_eps)
-    codebook_logits = fx @ as_weight(params["fast_output"], fx.dtype).T
+    mesh = tp_mesh(cfg.tp_shards)
+    codebook_logits = _gather_columns(
+        _column_input(fx, mesh) @ as_weight(params["fast_output"], fx.dtype).T,
+        mesh)
     return TrainOut(token_logits,
                     codebook_logits.reshape(b, t, k, cfg.codebook_size))

@@ -138,9 +138,11 @@ def matmul_t_row_parallel(x: torch.Tensor, w, group, *,
     - W4A8: the input columns are gathered and the whole product is taken
       (`matmul_t`): bit for bit the single-device product.
     - Otherwise (a float product): the partial products are summed over
-      the group in f32, which rounds as a psum does."""
+      the group in f32, which rounds as a psum does; with gradients, the
+      SUM-forward operator (its backward hands every rank the whole
+      gradient of the result)."""
     from ..parallel.collectives import (all_gather, all_reduce_max,
-                                        all_reduce_sum)
+                                        all_reduce_sum, reduce_from_group)
 
     if is_quantized(w) and "q4" in w:
         return matmul_t(all_gather(x, group), w, w8a8=w8a8)
@@ -153,7 +155,7 @@ def matmul_t_row_parallel(x: torch.Tensor, w, group, *,
             torch.int8), w["q"]), group)
         y = acc.float() * xs * w["s"].float()
         return y.to(x.dtype).reshape(*lead, -1)
-    return all_reduce_sum(matmul_t(x, w, w8a8=w8a8), group)
+    return reduce_from_group(matmul_t(x, w, w8a8=w8a8), group)
 
 
 def take_rows(w, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

@@ -13,6 +13,31 @@ Exactness, which is what lets TP=2 give TP=1's bits on int8 weights:
 - `all_reduce_sum` is exact on integer tensors (the W8A8 products' int32
   accumulators) and rounds on floating ones (a plain model's row-parallel
   partial sums), as GSPMD's psum does.
+
+Training differentiates through the collectives, which GSPMD does for
+the JAX package. The four operators with gradients below (Megatron's
+names in brackets) take those calls forward and pick their backward by
+what consumes the result; each is the plain forward call itself when
+its input needs no gradient, so the serving path, which trains nothing,
+runs the same calls as before:
+
+- `copy_to_group` [copy]: the identity forward, a SUM of the gradient
+  over the group backward. It stands before a column-parallel product
+  (wqkv, w1, w3, the row-sharded heads), whose rank sees only part of
+  the input's gradient, and on a replicated weight that a rank applies
+  to its own heads only (the q / k norms);
+- `reduce_from_group` [reduce]: a SUM forward, the identity backward
+  (a row-parallel product's partial sums; the data group's loss sums);
+- `gather_for_replicated`: an all-gather whose backward is the rank's
+  own slice of the gradient, for a consumer that every rank computes
+  whole (the logits, `fast_project_in`'s output);
+- `gather_for_partial`: an all-gather whose backward is a reduce-scatter
+  (a SUM, then the rank's slice), for a consumer of which each rank
+  computes only its part (wqkv's gathered columns, of which a rank keeps
+  its heads).
+
+Each rank of a group issues the same collectives in the same order, in
+the backward pass too: the ranks run the same graph.
 """
 
 from __future__ import annotations
@@ -71,3 +96,88 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
                memory_format=torch.contiguous_format, copy=True)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out.to(x.dtype)
+
+
+def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's contiguous 1/n of `x` along `dim`."""
+    n = group_size(group)
+    step = x.shape[dim] // n
+    return x.narrow(dim, _dist().get_rank(group) * step, step).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a reduce-scatter as the whole SUM, then the rank's slice
+        return _slice(all_reduce_sum(g, ctx.group), ctx.group, ctx.dim), \
+            None, None
+
+
+def _trains(x: torch.Tensor, group) -> bool:
+    return (group_size(group) > 1 and torch.is_grad_enabled()
+            and x.requires_grad)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` forward; its gradient SUMmed over the group backward."""
+    return _Copy.apply(x, group) if _trains(x, group) else x
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """`all_reduce_sum` forward; the gradient as it is backward."""
+    if _trains(x, group):
+        return _Reduce.apply(x, group)
+    return all_reduce_sum(x, group)
+
+
+def gather_for_replicated(x: torch.Tensor, group,
+                          dim: int = -1) -> torch.Tensor:
+    """`all_gather` forward; the rank's slice of the gradient backward."""
+    if _trains(x, group):
+        return _GatherReplicated.apply(x, group, dim % x.dim())
+    return all_gather(x, group, dim)
+
+
+def gather_for_partial(x: torch.Tensor, group,
+                       dim: int = -1) -> torch.Tensor:
+    """`all_gather` forward; the gradient reduce-scattered backward."""
+    if _trains(x, group):
+        return _GatherPartial.apply(x, group, dim % x.dim())
+    return all_gather(x, group, dim)

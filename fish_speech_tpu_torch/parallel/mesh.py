@@ -235,8 +235,12 @@ def _local(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
         step = x.shape[axis] // n
         x = x.narrow(axis, i * step, step)
         sliced = True
-    # a copy of its own, so the whole tensor can be freed
-    return x.clone(memory_format=torch.contiguous_format) if sliced else x
+    if not sliced:
+        return x
+    # a copy of its own, so the whole tensor can be freed, and a leaf
+    # (a parameter that took a step is one with a gradient)
+    with torch.no_grad():
+        return x.clone(memory_format=torch.contiguous_format)
 
 
 def _map(fn, tree, specs):
@@ -251,6 +255,26 @@ def shard_dual_ar_params(params: dict, mesh: Mesh) -> dict:
     rest whole."""
     specs = dual_ar_param_specs(params)
     return _map(lambda x, s: _local(x, s, mesh), params, specs)
+
+
+def unshard_dual_ar_params(local: dict, mesh: Mesh) -> dict:
+    """The whole parameter tree from this rank's slices, the inverse of
+    `shard_dual_ar_params`: every model-sharded axis gathered over the
+    model group (bits move), the rest as it is, detached. A collective:
+    every rank of the model group must call it; each gets the whole
+    tree."""
+    from .collectives import all_gather
+
+    def whole(x, spec):
+        x = x.detach()
+        for axis, name in enumerate(spec):
+            if name == MODEL_AXIS:
+                x = all_gather(x, mesh.model_group, dim=axis)
+            elif name is not None:
+                raise ValueError(f"a parameter spec names {name!r}")
+        return x
+
+    return _map(whole, local, dual_ar_param_specs(local))
 
 
 # ---------------------------------------------------------------------------
@@ -310,3 +334,11 @@ def shard_kv_cache(cache, mesh: Mesh):
 def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The data rank's rows of a batch-leading tensor."""
     return _local(x, (DATA_AXIS,), mesh)
+
+
+def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole batch from the data ranks' rows, the inverse of
+    `shard_batch` (a collective over the data group)."""
+    from .collectives import all_gather
+
+    return all_gather(x, mesh.data_group, dim=0)

@@ -12,6 +12,12 @@ gradients reach only the factors (the base is frozen).
 Covered weights (the reference's target list, lora.py:34-60): attention
 wqkv / wo and mlp w1 / w2 / w3 in both stacks (stacked layers get stacked
 factors), fast_output, output (untied) and the three embedding tables.
+
+On a (data, model) mesh the factors are whole on every rank and the base
+is the rank's slices: `merge_lora` adds the slice of the delta that the
+target's spec gives the rank, through the copy operator, so a factor's
+gradient is summed over the model group (each rank's is the part its
+slice contributes); the step then sums it over the data group.
 """
 
 from __future__ import annotations
@@ -22,8 +28,10 @@ import torch
 
 from ..models.config import DualARConfig
 from ..models.init import lm_params_from_jax
-from .step import (Optimizer, OptState, TrainBatch, dual_ar_loss, grads_of,
-                   tree_leaves)
+from ..parallel.collectives import copy_to_group
+from ..parallel.mesh import MODEL_AXIS, dual_ar_param_specs
+from .step import (Optimizer, OptState, TrainBatch, data_sum, dual_ar_loss,
+                   grads_of, mesh_config, mesh_context, tree_leaves)
 
 
 @dataclass(frozen=True)
@@ -77,23 +85,48 @@ def lora_params_from_jax(tree: dict, device=None) -> dict:
     return lm_params_from_jax(tree, device)
 
 
-def merge_lora(params: dict, lora: dict, cfg: LoraConfig) -> dict:
+def _local_factors(lw: dict, w: torch.Tensor, spec: tuple, mesh):
+    """(b, a) whose product is the rank's slice of the delta of a target
+    `w` under `spec`: b's rows for an output-sharded weight, a's columns
+    for an input-sharded one, both through the copy operator."""
+    b, a = lw["b"], lw["a"]
+    if MODEL_AXIS not in spec:
+        return b, a
+    b, a = copy_to_group(b, mesh.model_group), copy_to_group(a,
+                                                             mesh.model_group)
+    axis = spec.index(MODEL_AXIS) - len(spec)          # -2 rows, -1 columns
+    src = b if axis == -2 else a
+    step = src.shape[axis] // mesh.model
+    part = src.narrow(axis, mesh.model_index * step, step)
+    return (part, a) if axis == -2 else (b, part)
+
+
+def merge_lora(params: dict, lora: dict, cfg: LoraConfig,
+               mesh=None) -> dict:
     """W + scale * (b @ a) at every target, identity elsewhere. The product
     is taken in the weight's dtype, then scaled, then added (JAX's rounding
-    order)."""
-    def visit(tree, prefix):
+    order). With a mesh whose model axis is above 1, `params` are the
+    rank's slices and the factors whole (see the module docstring)."""
+    sharded = mesh is not None and mesh.model > 1
+
+    def visit(tree, specs, prefix):
         out = {}
         for k, w in tree.items():
             path = prefix + (k,)
             if isinstance(w, dict):
-                out[k] = visit(w, path)
+                out[k] = visit(w, specs and specs[k], path)
                 continue
             lw = lora.get(_keystr(path))
-            out[k] = w if lw is None else \
-                w + cfg.scale * (lw["b"] @ lw["a"]).to(w.dtype)
+            if lw is None:
+                out[k] = w
+                continue
+            b, a = (_local_factors(lw, w, specs[k], mesh) if sharded
+                    else (lw["b"], lw["a"]))
+            out[k] = w + cfg.scale * (b @ a).to(w.dtype)
         return out
 
-    return visit(params, ())
+    return visit(params, dual_ar_param_specs(params) if sharded else None,
+                 ())
 
 
 def make_lora_optimizer(schedule) -> Optimizer:
@@ -106,20 +139,26 @@ def make_lora_optimizer(schedule) -> Optimizer:
 
 def make_lora_train_step(cfg_model: DualARConfig, base_params: dict,
                          lora_cfg: LoraConfig, optimizer: Optimizer,
-                         remat: bool = True):
+                         remat: bool = True, mesh=None):
     """(lora, opt_state, batch) -> (lora, opt_state, metrics), opt_state
     being `optimizer.init(lora)`: only the factors train (ref lit_module.py's
     LoRA-only checkpoint). The base is frozen (`requires_grad=False`) and
-    left bit for bit as it was."""
+    left bit for bit as it was. mesh: as `make_train_step`'s, the base
+    being the rank's slices and the factors whole on every rank (so the
+    global norm counts each once)."""
     del optimizer  # bound to the factors by init
     for _, w in tree_leaves(base_params):
         w.requires_grad_(False)
+    cfg_model = mesh_config(cfg_model, mesh)
+    data_group = None if mesh is None else mesh.data_group
 
     def step(lora: dict, opt_state: OptState, batch: TrainBatch):
-        merged = merge_lora(base_params, lora, lora_cfg)
-        loss, metrics = dual_ar_loss(merged, cfg_model, batch, remat)
-        metrics["grad_norm"] = opt_state.apply(
-            grads_of(loss, opt_state.leaves))
+        with mesh_context(mesh):
+            merged = merge_lora(base_params, lora, lora_cfg, mesh)
+            loss, metrics = dual_ar_loss(merged, cfg_model, batch, remat,
+                                         data_group)
+            grads = data_sum(grads_of(loss, opt_state.leaves), data_group)
+        metrics["grad_norm"] = opt_state.apply(grads)
         return lora, opt_state, metrics
 
     return step

@@ -17,10 +17,24 @@ clip formula: g / ||g|| * clip when ||g|| >= clip, with no epsilon.
 
 Parameters are the nested dicts of models/init.py; a step updates them in
 place and also returns them, as the JAX step returns its new tree.
+
+On a (data, model) mesh (`make_train_step(..., mesh=)`) every rank holds
+its parameter slices (`parallel.mesh.shard_dual_ar_params`) and its data
+rows of the global batch (`shard_batch`), and the step reproduces JAX's
+sharded step, where GSPMD inserts the collectives:
+- the forward pass runs under the model group (models/dual_ar.py);
+- the loss is the global batch's mean: the masked sums and counts of
+  each cross-entropy and of the top-5 accuracy are summed over the data
+  group (not the ranks' means averaged);
+- the gradients are summed over the data group;
+- the global norm counts a model-sharded leaf's squares over the model
+  group and a replicated leaf's once.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -28,6 +42,9 @@ import torch
 
 from ..models.config import DualARConfig
 from ..models.dual_ar import forward_train
+from ..parallel.collectives import all_reduce_sum, reduce_from_group
+from ..parallel.mesh import MODEL_AXIS, dual_ar_param_specs
+from ..parallel.tp import decode_mesh
 
 CODEBOOK_PAD_TOKEN_ID = 0  # ref lit_module.py:10
 ADAM_EPS = 1e-8            # optax's adamw default (eps_root 0)
@@ -59,13 +76,15 @@ def tree_leaves(tree: dict, prefix: tuple = ()) -> list:
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
-               mask: torch.Tensor) -> torch.Tensor:
-    """Mean CE over mask; logits (..., V), labels (...), mask (...) bool."""
+               mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Mean CE over mask; logits (..., V), labels (...), mask (...) bool.
+    `group`: the data group, over which the sum and the count are summed
+    (the mean over the global batch)."""
     safe = labels.clamp_min(0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    denom = mask.sum().clamp_min(1)
-    return torch.where(mask, nll, 0.0).sum() / denom
+    denom = all_reduce_sum(mask.sum(), group).clamp_min(1)
+    return reduce_from_group(torch.where(mask, nll, 0.0).sum(), group) / denom
 
 
 def get_batch_logps(logits: torch.Tensor, labels: torch.Tensor,
@@ -91,28 +110,32 @@ def get_batch_logps(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def dual_ar_loss(params: dict, cfg: DualARConfig, batch: TrainBatch,
-                 remat: bool = True):
+                 remat: bool = True, data_group=None):
     """(loss, metrics): the scalar loss and {"loss", "base_loss",
-    "semantic_loss", "top_5_accuracy"} as 0-d tensors."""
+    "semantic_loss", "top_5_accuracy"} as 0-d tensors. `data_group`: the
+    data group of a mesh, `batch` the rank's rows; the loss and metrics
+    are the global batch's, the same on every rank."""
     out = forward_train(params, cfg, batch.inputs, labels=batch.labels,
                         key_padding_mask=batch.attention_masks, remat=remat)
     labels = batch.labels.long()
     token_labels = labels[:, 0]                                # (B, T)
     base_loss = _masked_ce(out.token_logits, token_labels,
-                           token_labels != -100)
+                           token_labels != -100, data_group)
 
     semantic_mask = ((token_labels >= cfg.semantic_begin_id)
                      & (token_labels <= cfg.semantic_end_id))   # (B, T)
     cb_labels = labels[:, 1:].transpose(1, 2)                   # (B, T, K)
     cb_mask = semantic_mask[..., None] & (cb_labels != -100)
-    semantic_loss = _masked_ce(out.codebook_logits, cb_labels, cb_mask)
+    semantic_loss = _masked_ce(out.codebook_logits, cb_labels, cb_mask,
+                               data_group)
 
     # top-5 accuracy (ref lit_module.py:193-204)
     with torch.no_grad():
         acc_mask = cb_mask & (cb_labels != CODEBOOK_PAD_TOKEN_ID)
         top5 = torch.topk(out.codebook_logits, 5, dim=-1).indices
         correct = (top5 == cb_labels[..., None]).any(-1) & acc_mask
-        accuracy = correct.sum() / acc_mask.sum().clamp_min(1)
+        accuracy = (all_reduce_sum(correct.sum(), data_group)
+                    / all_reduce_sum(acc_mask.sum(), data_group).clamp_min(1))
 
     loss = base_loss + semantic_loss
     metrics = {"loss": loss.detach(), "base_loss": base_loss.detach(),
@@ -129,17 +152,64 @@ def grads_of(loss: torch.Tensor, leaves: list) -> list:
             for p, g in zip(leaves, grads)]
 
 
+def data_sum(grads: list, data_group) -> list:
+    """Each gradient summed over the data group (a rank's is its rows'
+    part of the global mean's gradient)."""
+    if data_group is None:
+        return grads
+    return [all_reduce_sum(g, data_group) for g in grads]
+
+
+def sharded_leaves(params: dict) -> list:
+    """Whether each leaf (`tree_leaves` order) is sharded over `model`
+    (`parallel.mesh.dual_ar_param_specs`)."""
+    return [MODEL_AXIS in spec for _, spec in
+            tree_leaves(dual_ar_param_specs(params))]
+
+
+def global_norm(grads: list, sharded: list | None = None,
+                model_group=None) -> torch.Tensor:
+    """The gradients' global L2 norm (f32). With `sharded` flags and a
+    model group: a sharded leaf's squares are summed over the group, a
+    replicated leaf's are counted once."""
+    sq = [g.float().square().sum() for g in grads]
+    if model_group is None or not any(sharded or ()):
+        return torch.sqrt(sum(sq))
+    rep = sum((s for s, sh in zip(sq, sharded) if not sh),
+              torch.zeros((), device=sq[0].device))
+    shd = sum(s for s, sh in zip(sq, sharded) if sh)
+    return torch.sqrt(rep + all_reduce_sum(shd, model_group))
+
+
+def mesh_context(mesh):
+    """The decode-mesh registry set to `mesh` (the model group's
+    branches of models/dual_ar.py read it); nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None else decode_mesh(mesh)
+
+
+def mesh_config(cfg: DualARConfig, mesh) -> DualARConfig:
+    """`cfg` with its tensor-parallel width set to the mesh's model axis."""
+    if mesh is None or cfg.tp_shards == mesh.model:
+        return cfg
+    return dataclasses.replace(cfg, tp_shards=mesh.model)
+
+
 def dual_ar_grads(params: dict, cfg: DualARConfig, batch: TrainBatch,
-                  remat: bool = True):
+                  remat: bool = True, mesh=None):
     """(metrics, grads): the loss's metrics and its gradient as a tree like
     `params` (`jax.value_and_grad(dual_ar_loss, has_aux=True)`). Marks every
-    leaf as requiring a gradient."""
+    leaf as requiring a gradient. mesh: as `make_train_step`'s; the
+    gradient is then the rank's slices of the global batch's."""
     paths, leaves = zip(*tree_leaves(params))
     for p in leaves:
         p.requires_grad_(True)
-    loss, metrics = dual_ar_loss(params, cfg, batch, remat)
+    data_group = None if mesh is None else mesh.data_group
+    with mesh_context(mesh):
+        loss, metrics = dual_ar_loss(params, mesh_config(cfg, mesh), batch,
+                                     remat, data_group)
+        grads_list = data_sum(grads_of(loss, list(leaves)), data_group)
     grads: dict = {}
-    for path, g in zip(paths, grads_of(loss, list(leaves))):
+    for path, g in zip(paths, grads_list):
         node = grads
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -176,10 +246,13 @@ class OptState:
         self.sched = sched
         self.clip_norm = clip_norm
 
-    def apply(self, grads: list) -> torch.Tensor:
-        """Clip `grads` (one a leaf) by their global norm, take one AdamW
-        step at this count's rate, and return the unclipped norm."""
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    def apply(self, grads: list,
+              g_norm: torch.Tensor | None = None) -> torch.Tensor:
+        """Clip `grads` (one a leaf) by their global norm (`g_norm`, or
+        `global_norm(grads)`), take one AdamW step at this count's rate,
+        and return the unclipped norm."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         if not bool(g_norm < self.clip_norm):
             grads = [(g / g_norm.to(g.dtype)) * self.clip_norm for g in grads]
         for p, g in zip(self.leaves, grads):
@@ -232,17 +305,29 @@ def make_optimizer(params: dict, schedule, weight_decay: float = 0.01,
 
 
 def make_train_step(cfg: DualARConfig, optimizer: Optimizer,
-                    remat: bool = True):
+                    remat: bool = True, mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), metrics
     with the unclipped gradient norm as "grad_norm". With `remat` each
     layer is recomputed in the backward pass. opt_state is
-    `optimizer.init(params)`."""
+    `optimizer.init(params)`.
+
+    mesh: a `parallel.mesh.Mesh`; params are then the rank's slices, the
+    batch its data rows, cfg.tp_shards is set to the model axis, and the
+    metrics are the global batch's on every rank (see the module
+    docstring)."""
     del optimizer  # bound to the leaves by init; kept for the JAX signature
+    cfg = mesh_config(cfg, mesh)
+    data_group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
 
     def step(params: dict, opt_state: OptState, batch: TrainBatch):
-        loss, metrics = dual_ar_loss(params, cfg, batch, remat)
+        with mesh_context(mesh):
+            loss, metrics = dual_ar_loss(params, cfg, batch, remat,
+                                         data_group)
+            grads = data_sum(grads_of(loss, opt_state.leaves), data_group)
+        sharded = None if model_group is None else sharded_leaves(params)
         metrics["grad_norm"] = opt_state.apply(
-            grads_of(loss, opt_state.leaves))
+            grads, global_norm(grads, sharded, model_group))
         return params, opt_state, metrics
 
     return step

@@ -298,15 +298,59 @@ def test_cli_pipeline(tmp_path):
     _assert_equal_trees(back, out["full"][0]["state"], "jax->port")
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel", "2"],
-                                  ["--model-parallel", "2"],
-                                  ["--multihost"]])
-def test_train_cli_refuses_parallel_flags(flag, capsys):
-    """Data and tensor parallelism are not ported: the flags raise before
-    anything runs, never train on one device instead."""
+WORLD_ENV = {"RANK": "0", "WORLD_SIZE": "4", "MASTER_ADDR": "127.0.0.1",
+             "MASTER_PORT": "29500"}
+
+
+def _world(monkeypatch, env: dict) -> None:
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+              "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+def test_train_cli_multihost_needs_the_world(monkeypatch, capsys):
+    """--multihost without torchrun's environment exits before anything
+    runs, naming what is missing; with it, the mesh covers the world."""
+    _world(monkeypatch, {})
     with pytest.raises(SystemExit):
-        train.parse_args(["--proto-dir", "x", *flag])
-    assert "not ported" in capsys.readouterr().err
+        train.parse_args(["--proto-dir", "x", "--multihost"])
+    err = capsys.readouterr().err
+    assert "--multihost needs the world's environment" in err
+    assert "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT" in err
+    _world(monkeypatch, WORLD_ENV)
+    args = train.parse_args(["--proto-dir", "x", "--multihost",
+                             "--model-parallel", "2"])
+    assert (args.world, args.rank, args.mesh_shape) == (4, 0, (2, 2))
+
+
+@pytest.mark.parametrize("env,flags", [
+    ({}, ["--data-parallel", "2"]),                 # one process, data 2
+    ({}, ["--model-parallel", "2"]),                # one process, model 2
+    (WORLD_ENV, ["--model-parallel", "3"]),         # 4 ranks, model 3
+    (WORLD_ENV, ["--data-parallel", "1", "--model-parallel", "2"]),
+])
+def test_train_cli_mesh_must_cover_the_world(monkeypatch, capsys, env,
+                                             flags):
+    """A mesh that does not cover WORLD_SIZE exits before anything trains:
+    the CLI never trains on fewer devices instead."""
+    _world(monkeypatch, env)
+    with pytest.raises(SystemExit):
+        train.parse_args(["--proto-dir", "x", "--batch-size", "4", *flags])
+    assert "does not cover the world" in capsys.readouterr().err
+
+
+def test_train_cli_batch_must_split_over_data(monkeypatch, capsys):
+    """A batch size that the data axis does not divide exits; one that it
+    divides gives the mesh."""
+    _world(monkeypatch, WORLD_ENV)
+    with pytest.raises(SystemExit):
+        train.parse_args(["--proto-dir", "x", "--batch-size", "6"])
+    assert "does not split over the data axis of 4" in \
+        capsys.readouterr().err
+    args = train.parse_args(["--proto-dir", "x", "--batch-size", "8"])
+    assert args.mesh_shape == (4, 1)
 
 
 def test_create_train_split_matches_jax(tmp_path, monkeypatch):

@@ -128,3 +128,22 @@ def test_guard_covers_the_tools_slice():
         tree = ast.parse((PACKAGE / rel).read_text())
         top = {m for m, scope in _imports(tree) if not scope}
         assert not top & {"ref_harness", "pyaudio", "jax", "msgpack"}, rel
+
+
+MESH_TRAINING_MODULES = (
+    "parallel/collectives.py", "parallel/mesh.py", "parallel/vocoder.py",
+    "models/dual_ar.py", "ops/quant.py", "train/step.py", "train/lora.py",
+    "tools/train.py")
+
+
+def test_guard_covers_the_mesh_training_slice():
+    """Training and the vocoder under the (data, model) mesh: the modules
+    it added or changed are among the guarded files, and none of them
+    names jax or the JAX package in any import, at any scope."""
+    guarded = {str(p.relative_to(PACKAGE)) for p in FILES
+               if PACKAGE in p.parents}
+    assert set(MESH_TRAINING_MODULES) <= guarded
+    for rel in MESH_TRAINING_MODULES:
+        mods = {m for m, _ in _imports(ast.parse((PACKAGE / rel)
+                                                 .read_text()))}
+        assert not mods & {"jax", "jaxlib", "fish_speech_tpu", "optax"}, rel

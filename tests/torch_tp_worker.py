@@ -5,9 +5,13 @@
 
 `mesh`: joins a gloo world of WORLD ranks on the CPU, builds the (DATA,
 MODEL) mesh, and runs every case of DIR/cases.pt under it: "generate"
-(greedy `generate` on the rank's parameter slices) or "batcher" (a greedy
-`ContinuousBatcher` on them, its requests run to the end). Writes
-DIR/rank{RANK}.npz with each case's codes.
+(greedy `generate` on the rank's parameter slices), "batcher" (a greedy
+`ContinuousBatcher` on them, its requests run to the end), "train" (the
+first step's gradients, two full steps and two LoRA steps on the rank's
+slices and data rows, `unshard_dual_ar_params` of the slices),
+"collectives" (each differentiable collective's gradient) or "vocoder"
+(`parallel.vocoder.decode_data_parallel`). Writes DIR/rank{RANK}.npz
+with each case's results.
 
 `plan`: the two-process plan broadcast. The leader builds a TickPlan of
 two assignments; every rank receives it through `broadcast_plan` and
@@ -48,6 +52,10 @@ def run_mesh(addr, world, rank, data, model, workdir) -> None:
     cases = torch.load(os.path.join(workdir, "cases.pt"), weights_only=False)
     out = {}
     for name, case in cases.items():
+        if case["kind"] in SCENARIOS:
+            for k, v in SCENARIOS[case["kind"]](case, mesh).items():
+                out[f"{name}/{k}"] = v
+            continue
         local = shard_dual_ar_params(case["params"], mesh)
         cfg = case["cfg"]
         with decode_mesh(mesh):
@@ -72,6 +80,119 @@ def run_mesh(addr, world, rank, data, model, workdir) -> None:
                 for i, codes in res.items():
                     out[f"{name}_{i}"] = codes
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **out)
+
+
+def _flat(tree: dict, prefix: str) -> dict:
+    from fish_speech_tpu_torch.train.step import tree_leaves
+
+    return {f"{prefix}/{'/'.join(p)}": v.detach().numpy()
+            for p, v in tree_leaves(tree)}
+
+
+def _train(case, mesh) -> dict:
+    """The first step's gradients (gathered whole), the metrics of two
+    full steps and two LoRA steps and the trees after them (whole), from
+    the whole tree and global batches of the case."""
+    from fish_speech_tpu_torch.parallel.mesh import (shard_batch,
+                                                     shard_dual_ar_params,
+                                                     unshard_dual_ar_params)
+    from fish_speech_tpu_torch.train import lora as tl
+    from fish_speech_tpu_torch.train import step as ts
+    from fish_speech_tpu_torch.train.scheduler import cosine_warmup_schedule
+
+    cfg, whole = case["cfg"], case["params"]
+
+    def batch(b):
+        return ts.TrainBatch(*(shard_batch(torch.from_numpy(b[k]), mesh)
+                               for k in ts.TrainBatch._fields))
+
+    def fresh():
+        return shard_dual_ar_params(_clone(whole), mesh)
+
+    out = {}
+    back = unshard_dual_ar_params(shard_dual_ar_params(whole, mesh), mesh)
+    out["unshard_equal"] = np.array(all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            ts.tree_leaves(back), ts.tree_leaves(whole))))
+    metrics, grads = ts.dual_ar_grads(fresh(), cfg, batch(case["batches"][0]),
+                                      remat=True, mesh=mesh)
+    out.update(_flat(unshard_dual_ar_params(grads, mesh), "grad"))
+    out["grad_metrics"] = np.array([float(metrics[k]) for k in METRICS[:-1]])
+
+    sched = cosine_warmup_schedule(case["lr"], 1, 10)
+    params = fresh()
+    opt = ts.make_optimizer(params, sched)
+    fn = ts.make_train_step(cfg, opt, remat=True, mesh=mesh)
+    state, rows = opt.init(params), []
+    for b in case["batches"]:
+        params, state, m = fn(params, state, batch(b))
+        rows.append([float(m[k]) for k in METRICS])
+    out["full_metrics"] = np.array(rows)
+    out.update(_flat(unshard_dual_ar_params(params, mesh), "full"))
+
+    lcfg = tl.LoraConfig(**case["lora_cfg"])
+    lora = _clone(case["lora"])
+    opt = tl.make_lora_optimizer(sched)
+    fn = tl.make_lora_train_step(cfg, fresh(), lcfg, opt, remat=True,
+                                 mesh=mesh)
+    state, rows = opt.init(lora), []
+    for b in case["batches"]:
+        lora, state, m = fn(lora, state, batch(b))
+        rows.append([float(m[k]) for k in METRICS])
+    out["lora_metrics"] = np.array(rows)
+    out.update(_flat(lora, "lora"))
+    return out
+
+
+METRICS = ("loss", "base_loss", "semantic_loss", "top_5_accuracy",
+           "grad_norm")
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _collectives(case, mesh) -> dict:
+    """Each differentiable collective over the model group on the case's
+    inputs: the gradient that reaches this rank's input."""
+    from fish_speech_tpu_torch.parallel import collectives as col
+
+    g, r = mesh.model_group, mesh.model_index
+    c = torch.from_numpy(case["c"])                # (model, rows, cols)
+    out = {}
+
+    def leaf(a):
+        return torch.from_numpy(a).clone().requires_grad_(True)
+
+    x = leaf(case["x"])
+    (col.copy_to_group(x, g) * c[r]).sum().backward()
+    out["copy"] = x.grad.numpy()
+    p = leaf(case["parts"][r])
+    y = col.reduce_from_group(p, g)
+    (y * y * c[0]).sum().backward()
+    out["reduce"] = p.grad.numpy()
+    for op in ("gather_for_replicated", "gather_for_partial"):
+        p = leaf(case["halves"][r])
+        y = getattr(col, op)(p, g, dim=-1)
+        w = c[0] if op == "gather_for_replicated" else \
+            c[0] * torch.from_numpy(case["masks"][r])
+        (y * y * w).sum().backward()
+        out[op] = p.grad.numpy()
+    return out
+
+
+def _vocoder(case, mesh) -> dict:
+    from fish_speech_tpu_torch.parallel.vocoder import decode_data_parallel
+
+    wav = decode_data_parallel(case["params"], case["cfg"],
+                               torch.from_numpy(case["codes"]), mesh)
+    return {"wav": wav.numpy()}
+
+
+SCENARIOS = {"train": _train, "collectives": _collectives,
+             "vocoder": _vocoder}
 
 
 def run_plan(addr, world, rank, workdir) -> None:
