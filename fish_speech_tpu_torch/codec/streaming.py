@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .config import DACConfig, RVQConfig
 from .model import DILATIONS, dac_from_indices
 from .nn import (
@@ -301,8 +302,9 @@ class StatefulVocoder:
     def step(self, state: dict, codes: torch.Tensor):
         """One `vocoder_stream_step` of (B, K+1, t) codes from `state`:
         (waveform, state')."""
-        return vocoder_stream_step(self.params, self.cfg, state,
-                                   codes.to(self.device), self._freqs)
+        with span("stream.vocoder", frames=codes.shape[-1]):
+            return vocoder_stream_step(self.params, self.cfg, state,
+                                       codes.to(self.device), self._freqs)
 
     def feed(self, codes: np.ndarray | None = None,
              final: bool = False) -> Iterator[np.ndarray]:

@@ -58,6 +58,7 @@ from ..models.dual_ar import (
 from ..ops.sampling import RAS_WIN_SIZE, push_window
 from ..parallel.collectives import all_gather
 from ..parallel.tp import active_mesh
+from ..utils.profiling import span, span_since
 
 
 def slice_slot_cache(cache: KVCache, slot: int) -> KVCache:
@@ -93,6 +94,9 @@ class SlotRequest:
     done: threading.Event = field(default_factory=threading.Event)
     error: Exception | None = None
     cancelled: threading.Event = field(default_factory=threading.Event)
+    # time.time_ns() at the scheduler's `submit`: the start of its `queue`
+    # span, which ends when the request is assigned a slot
+    submitted_ns: int | None = None
 
     def cancel(self) -> None:
         """Abandon the request: the scheduler frees its slot on the next
@@ -443,12 +447,14 @@ class ContinuousBatcher:
             return False  # no room for the padded layout; full prefill
         block = np.zeros((req.prompt.shape[0], sb), np.int32)
         block[:, :t_sfx] = req.prompt[:, tp:]  # RIGHT padding
-        self._install_sampling(req, slot)
-        if self._local(slot) is not None:
-            self._copy_prefix(slot, self._get_prefix_entry(req))
-        col = self._prefill(slot, block, tp, tp + self._arange(sb)[None], 0,
-                            req, sample_at=t_sfx - 1)
-        self._activate_slot(req, slot, col, tp + t_sfx, 0)
+        with span("prefill", request=req.request_id, tokens=t_sfx,
+                  chunked=False):
+            self._install_sampling(req, slot)
+            if self._local(slot) is not None:
+                self._copy_prefix(slot, self._get_prefix_entry(req))
+            col = self._prefill(slot, block, tp, tp + self._arange(sb)[None],
+                                0, req, sample_at=t_sfx - 1)
+            self._activate_slot(req, slot, col, tp + t_sfx, 0)
         return True
 
     def _activate_slot(self, req: SlotRequest, slot: int, col: torch.Tensor,
@@ -530,19 +536,23 @@ class ContinuousBatcher:
         req, slot, c, tp = inf["req"], inf["slot"], inf["next"], inf["tp"]
         final = c == len(inf["blocks"]) - 1
         t0 = tp + c * cs
-        if final:
-            self._install_sampling(req, slot)
-        col = self._prefill(slot, inf["blocks"][c], t0,
-                            t0 + self._arange(cs)[None], 0,
-                            req if final else None,
-                            sample_at=inf["t_total"] - t0 - 1)
-        inf["next"] = c + 1
-        if final:
-            self._inflight.pop(0)
-            self._activate_slot(req, slot, col, inf["t_total"], 0)
+        with span("prefill", request=req.request_id,
+                  tokens=min(cs, inf["t_total"] - t0), chunked=True):
+            if final:
+                self._install_sampling(req, slot)
+            col = self._prefill(slot, inf["blocks"][c], t0,
+                                t0 + self._arange(cs)[None], 0,
+                                req if final else None,
+                                sample_at=inf["t_total"] - t0 - 1)
+            inf["next"] = c + 1
+            if final:
+                self._inflight.pop(0)
+                self._activate_slot(req, slot, col, inf["t_total"], 0)
 
     # ------------------------------------------------------------------
     def _assign(self, req: SlotRequest, slot: int):
+        if req.submitted_ns is not None:
+            span_since("queue", req.submitted_ns, request=req.request_id)
         if self._assign_with_prefix(req, slot):
             return
         if self._start_chunked(req, slot):
@@ -554,10 +564,12 @@ class ContinuousBatcher:
         padded = np.zeros((req.prompt.shape[0], bucket), np.int32)
         padded[:, bucket - t_real:] = req.prompt   # LEFT padding
         start = bucket - t_real
-        self._install_sampling(req, slot)
-        rope = (self._arange(bucket)[None] - start).clamp_min(0)
-        col = self._prefill(slot, padded, 0, rope, start, req)
-        self._activate_slot(req, slot, col, bucket, start)
+        with span("prefill", request=req.request_id, tokens=t_real,
+                  chunked=False):
+            self._install_sampling(req, slot)
+            rope = (self._arange(bucket)[None] - start).clamp_min(0)
+            col = self._prefill(slot, padded, 0, rope, start, req)
+            self._activate_slot(req, slot, col, bucket, start)
 
     def _finish_slot(self, slot: int) -> None:
         req = self.slot_req[slot]
@@ -586,15 +598,20 @@ class ContinuousBatcher:
 
     def step(self) -> None:
         """One decode tick for all active slots, then the host's
-        bookkeeping on one fetch of the tick's column."""
-        if self.local_sweep:
-            self.sweep_cancelled()
-        if self._inflight:
-            self.ticks_while_prefilling += 1
-        col, _ = self._tick()
-        col_h = _host(self._gather_slots(col))          # one fetch
-        for slot in np.flatnonzero(self.active_h).tolist():
-            self._emit(slot, col_h[slot])
+        bookkeeping on one fetch of the tick's column. Its `tick` span
+        counts the rows it decoded."""
+        with span("tick", n=1) as sp:
+            if self.local_sweep:
+                self.sweep_cancelled()
+            if self._inflight:
+                self.ticks_while_prefilling += 1
+            col, _ = self._tick()
+            with span("tick.fetch"):
+                col_h = _host(self._gather_slots(col))      # one fetch
+            slots = np.flatnonzero(self.active_h).tolist()
+            sp.set(rows=len(slots))
+            for slot in slots:
+                self._emit(slot, col_h[slot])
 
     def step_chunk(self, n: int) -> None:
         """n decode ticks and one fetch. The same launches and uniforms, in
@@ -606,20 +623,28 @@ class ContinuousBatcher:
         cache_len - 1 (`_tick`)."""
         if n <= 1:
             return self.step()
-        if self.local_sweep:
-            self.sweep_cancelled()
-        active_before = self.active_h.copy()
-        cols = []
-        for _ in range(n):
-            col, finished = self._tick()
-            self.active = self.active & ~finished
-            cols.append(col)
-        self.chunked_ticks += n
-        out_h = _host(self._gather_slots(torch.stack(cols), dim=1))  # n,B,K+1
-        for slot in np.flatnonzero(active_before).tolist():
-            for j in range(n):
-                if self._emit(slot, out_h[j, slot]):
-                    break
+        with span("tick", n=n) as sp:
+            if self.local_sweep:
+                self.sweep_cancelled()
+            active_before = self.active_h.copy()
+            cols = []
+            for _ in range(n):
+                col, finished = self._tick()
+                self.active = self.active & ~finished
+                cols.append(col)
+            self.chunked_ticks += n
+            with span("tick.fetch"):
+                out_h = _host(self._gather_slots(torch.stack(cols),
+                                                 dim=1))       # n, B, K+1
+            if sp.recording:
+                # a row decodes on the device up to its im_end column
+                ended = out_h[:, active_before, 0] == self.im_end_id
+                sp.set(rows=int(np.where(ended.any(0), ended.argmax(0) + 1,
+                                         n).sum()))
+            for slot in np.flatnonzero(active_before).tolist():
+                for j in range(n):
+                    if self._emit(slot, out_h[j, slot]):
+                        break
 
     def free_slots(self) -> list[int]:
         return [i for i in range(self.num_slots) if not self.active_h[i]
@@ -682,6 +707,7 @@ class SchedulerThread:
         self.thread.start()
 
     def submit(self, req: SlotRequest) -> SlotRequest:
+        req.submitted_ns = time.time_ns()
         self.queue.put(req)
         return req
 

@@ -38,6 +38,7 @@ from ..ops.sampling import (
 from ..parallel.collectives import all_gather
 from ..parallel.mesh import shard_batch
 from ..parallel.tp import active_mesh, tp_mesh
+from ..utils.profiling import span
 from .config import DualARConfig
 from .dual_ar import (
     KVCache,
@@ -139,57 +140,60 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
     of the last (a right-padded prefill block's last real column).
     Returns the new column (B, K+1) int32."""
     b = x.shape[0]
-    out = forward_generate(params, cfg, x, cache, input_pos, freqs_table,
-                           rope_positions=rope_positions,
-                           key_valid_from=key_valid_from,
-                           logit_support=sample_support,
-                           last_only=sample_at is None)
-    col = -1 if sample_at is None else sample_at
-    logits_col = out.logits[:, col, :]
-    hidden = out.hidden[:, col, :]
-    if sample_support is not None:
-        sb, se, im = sample_support
-        bias_r = torch.cat([bias[sb:se + 1], bias[im:im + 1]])
-        logits = logits_col.float() + bias_r
-        n_sem = se - sb + 1
+    with span("decode.slow"):
+        out = forward_generate(params, cfg, x, cache, input_pos, freqs_table,
+                               rope_positions=rope_positions,
+                               key_valid_from=key_valid_from,
+                               logit_support=sample_support,
+                               last_only=sample_at is None)
+    with span("decode.fast"):
+        col = -1 if sample_at is None else sample_at
+        logits_col = out.logits[:, col, :]
+        hidden = out.hidden[:, col, :]
+        if sample_support is not None:
+            sb, se, im = sample_support
+            bias_r = torch.cat([bias[sb:se + 1], bias[im:im + 1]])
+            logits = logits_col.float() + bias_r
+            n_sem = se - sb + 1
 
-        def unmap(t):
-            return torch.where(t == n_sem, im, t + sb).to(torch.int32)
-    else:
-        logits = logits_col.float() + bias
+            def unmap(t):
+                return torch.where(t == n_sem, im, t + sb).to(torch.int32)
+        else:
+            logits = logits_col.float() + bias
 
-        def unmap(t):
-            return t
+            def unmap(t):
+                return t
 
-    if prev_window is not None and not greedy:
-        tn, th = sample_main_and_high(logits, sampling.temperature,
-                                      sampling.top_p, top_k,
-                                      sampling.top_k_row, gen=gen)
-        token = ras_select(unmap(tn), unmap(th), prev_window,
-                           cfg.semantic_begin_id, cfg.semantic_end_id)
-    else:
-        token = unmap(_sample(logits, sampling, top_k, greedy, gen))
+        if prev_window is not None and not greedy:
+            tn, th = sample_main_and_high(logits, sampling.temperature,
+                                          sampling.top_p, top_k,
+                                          sampling.top_k_row, gen=gen)
+            token = ras_select(unmap(tn), unmap(th), prev_window,
+                               cfg.semantic_begin_id, cfg.semantic_end_id)
+        else:
+            token = unmap(_sample(logits, sampling, top_k, greedy, gen))
 
-    if cfg.is_naive:
-        return torch.cat([token[:, None].to(torch.int32),
-                          _naive_codes(params, cfg, hidden, sampling, top_k,
-                                       greedy, gen)], dim=1)
+        if cfg.is_naive:
+            return torch.cat([token[:, None].to(torch.int32),
+                              _naive_codes(params, cfg, hidden, sampling,
+                                           top_k, greedy, gen)], dim=1)
 
-    # fast head: prime position 0 with the slow hidden state, then emit the
-    # residual codebooks one position at a time
-    if fast_cache is None:
-        fast_cache = new_fast_cache(params, cfg, b, x.device, hidden.dtype)
-    forward_generate_fast(params, cfg, hidden, fast_cache, 0,
-                          fast_freqs_table, want_logits=False)
-    code = (token - cfg.semantic_begin_id).clamp(0, cfg.codebook_size - 1)
-    codes = [token, code]
-    for idx in range(1, cfg.num_codebooks):
-        emb = take_rows(params["fast_embeddings"], code.long())
-        logits_f = forward_generate_fast(params, cfg, emb, fast_cache, idx,
-                                         fast_freqs_table)
-        code = _sample(logits_f.float(), sampling, top_k, greedy, gen)
-        codes.append(code)
-    return torch.stack([c.to(torch.int32) for c in codes], dim=1)
+        # fast head: prime position 0 with the slow hidden state, then emit
+        # the residual codebooks one position at a time
+        if fast_cache is None:
+            fast_cache = new_fast_cache(params, cfg, b, x.device,
+                                        hidden.dtype)
+        forward_generate_fast(params, cfg, hidden, fast_cache, 0,
+                              fast_freqs_table, want_logits=False)
+        code = (token - cfg.semantic_begin_id).clamp(0, cfg.codebook_size - 1)
+        codes = [token, code]
+        for idx in range(1, cfg.num_codebooks):
+            emb = take_rows(params["fast_embeddings"], code.long())
+            logits_f = forward_generate_fast(params, cfg, emb, fast_cache,
+                                             idx, fast_freqs_table)
+            code = _sample(logits_f.float(), sampling, top_k, greedy, gen)
+            codes.append(code)
+        return torch.stack([c.to(torch.int32) for c in codes], dim=1)
 
 
 def generate(params: dict, cfg: DualARConfig, prompt: torch.Tensor,

@@ -215,6 +215,7 @@ class MultihostSchedulerThread:
         self.thread.start()
 
     def submit(self, req):
+        req.submitted_ns = time.time_ns()
         self.queue.put(req)
         return req
 

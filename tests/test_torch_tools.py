@@ -510,10 +510,11 @@ def test_profile_decode_tiny_cpu(tmp_path, capsys):
     assert live["kernels"] == [] and live["idle_share"] is None
     # a device trace's accounting
     trace = {"traceEvents": [
-        {"ph": "X", "cat": "kernel", "name": "a", "dur": 300.0},
-        {"ph": "X", "cat": "kernel", "name": "b", "dur": 100.0},
-        {"ph": "X", "cat": "kernel", "name": "a", "dur": 100.0},
-        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 900.0}]}
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 0.0, "dur": 300.0},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 300.0, "dur": 100.0},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 600.0, "dur": 100.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0.0,
+         "dur": 900.0}]}
     (tmp_path / "t.json").write_text(json.dumps(trace))
     tprof.save_wall(tmp_path / "t.json", 0.002)
     t = tprof.trace_table(tmp_path / "t.json")
