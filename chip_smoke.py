@@ -31,7 +31,10 @@ Phases, in order; any failure exits non-zero:
      lengths) once one at a time and once from six threads with staggered
      arrival, on two fresh batchers with the same seed; each request's
      codes must be the same in both runs, and so must the prefix hits and
-     misses and the chunked prefills; each request alone in a 1-slot
+     misses and the chunked prefills; both batchers must have captured
+     their tick's slow forward as a CUDA graph, and each request alone in
+     a 4-slot batcher that ticks eagerly must give the same greedy codes;
+     each request alone in a 1-slot
      batcher must give the same greedy codes as in the 4-slot run (#1 at
      batch 1 takes other CTAs but the same 128-key chunks); one `tts`
      through the scheduler must give a finite waveform. Each request's
@@ -1555,10 +1558,11 @@ def batch1_codes(engine, seg: dict, max_new: int):
 
 
 def scheduler_replay(engine, seg: dict, max_new: int,
-                     slots: int = SCHED_SLOTS):
+                     slots: int = SCHED_SLOTS, graph: bool = True):
     """The segment alone through a fresh batcher of `slots` slots, built
     otherwise as phase 6's engine builds it (slot 0, a prefix miss,
-    per-step ticks: the same values as a hit and as chunked ticks):
+    per-step ticks: the same values as a hit and as chunked ticks);
+    `graph=False` ticks eagerly, without the captured slow forward:
     (K+1, n) codes."""
     import numpy as np
 
@@ -1570,6 +1574,7 @@ def scheduler_replay(engine, seg: dict, max_new: int,
                           im_end_id=engine.im_end_id, bias=engine._bias,
                           greedy=True, prefill_chunk=PREFILL_CHUNK,
                           device=engine.device)
+    b.graph_tick = b.graph_tick and graph
     req = SlotRequest(request_id=0, prompt=np.ascontiguousarray(
         seg["padded"][:, seg["start"]:]).astype(np.int32),
         max_new_tokens=max_new, prefix_id=seg["prefix_id"],
@@ -1653,9 +1658,12 @@ def split_witness(engine, seg: dict, ref, f: int) -> dict:
 
 
 def batcher_counts(b) -> dict:
-    return {k: getattr(b, k) for k in (
+    """The batcher's counters, and whether its tick's slow forward was
+    captured as a CUDA graph (`graph`)."""
+    return {**{k: getattr(b, k) for k in (
         "ticks", "chunked_ticks", "prefix_hits", "prefix_misses",
-        "chunked_prefills", "ticks_while_prefilling")}
+        "chunked_prefills", "ticks_while_prefilling")},
+        "graph": b.slow_graph is not None and b.slow_graph.graph is not None}
 
 
 def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
@@ -1736,6 +1744,11 @@ def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
         problems.append("no tick ran while a chunked prefill was in flight")
     if c_conc["prefix_hits"] < 1 or c_conc["chunked_prefills"] < 1:
         problems.append(f"no prefix hit or no chunked prefill: {c_conc}")
+    on_card = engine.device.type == "cuda"
+    if c_solo["graph"] != on_card or c_conc["graph"] != on_card:
+        problems.append(f"the tick's graph captured: solo {c_solo['graph']}"
+                        f", concurrent {c_conc['graph']} on "
+                        f"{engine.device.type}")
     n = tts_codes.shape[1]
     if n < 1 or wav.shape != (n * fl,) or not np.isfinite(wav).all():
         problems.append(f"tts: {n} frames, waveform {wav.shape}, finite "
@@ -1748,27 +1761,44 @@ def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
         problems.append(f"not launched {missing}, launched off route "
                         f"{stray}")
 
-    # each request alone in a 1-slot batcher (checked): #1 at B = 1 takes
+    # each request alone in a SCHED_SLOTS-slot batcher that ticks eagerly
+    # (checked): the captured slow forward makes the eager tick's launches,
+    # so the greedy codes must equal the solo run's. Each request alone in
+    # a 1-slot batcher (checked): #1 at B = 1 takes
     # other CTAs than at B = SCHED_SLOTS but the same chunks of keys, so
     # the greedy codes must equal the SCHED_SLOTS run's (Queue C2). The
     # non-scheduler path at batch 1 (greedy), logged, not checked: the two
     # paths lay the prompt out at other cache columns. At the first frame
     # where they differ, both paths' logits there (split_witness)
-    shared, splits, one_slot_equal = [], [], []
+    shared, splits, one_slot_equal, eager_equal = [], [], [], []
     if len(segs) != len(solo_codes):
         problems.append(f"{len(segs)} segments for {len(solo_codes)} "
                         f"requests")
         segs = []
+
+    def first_diff(a, b):
+        return next((j for j in range(min(a.shape[1], b.shape[1]))
+                     if not (a[:, j] == b[:, j]).all()),
+                    min(a.shape[1], b.shape[1]))
+
+    t_eager = time.perf_counter()
+    for i, seg in enumerate(segs):
+        a = seg["codes"]
+        eager = scheduler_replay(engine, seg, seg["max_new"], graph=False)
+        eager_equal.append(bool(np.array_equal(eager, a)))
+        if not eager_equal[-1]:
+            problems.append(f"request {i}: eager-tick codes {eager.shape} "
+                            f"!= captured {a.shape} from frame "
+                            f"{first_diff(a, eager)}")
+    eager_s = time.perf_counter() - t_eager
     for i, seg in enumerate(segs):
         a = seg["codes"]
         one = scheduler_replay(engine, seg, seg["max_new"], slots=1)
         one_slot_equal.append(bool(np.array_equal(one, a)))
         if not one_slot_equal[-1]:
-            diff = next((j for j in range(min(a.shape[1], one.shape[1]))
-                         if not (a[:, j] == one[:, j]).all()),
-                        min(a.shape[1], one.shape[1]))
             problems.append(f"request {i}: 1-slot codes {one.shape} != "
-                            f"{SCHED_SLOTS}-slot {a.shape} from frame {diff}")
+                            f"{SCHED_SLOTS}-slot {a.shape} from frame "
+                            f"{first_diff(a, one)}")
         ref = batch1_codes(engine, seg, seg["max_new"])
         m = min(a.shape[1], ref.shape[1])
         same = [bool((a[:, j] == ref[:, j]).all()) for j in range(m)]
@@ -1789,6 +1819,7 @@ def run_scheduler(engine, kernels: dict, chk: Checks, card: str,
         "solo": {**rate("solo"), **c_solo},
         "concurrent": {**rate("concurrent"), **c_conc},
         "tts_frames": n, "launches": launches,
+        "eager_tick_codes_equal": eager_equal, "eager_replays_s": eager_s,
         "one_slot_codes_equal": one_slot_equal,
         "frames_shared_with_batch1": shared,
         "first_split": splits,

@@ -14,7 +14,9 @@ batch of decode *slots* on the device:
   caller, so utterances of different lengths never wait for each other.
 
 The JAX package runs each of these as a jitted program; here each is an
-eager sequence of launches with the same shapes every tick. The slot
+eager sequence of launches with the same shapes every tick, except a
+tick's slow forward, which on a CUDA device without a decode mesh is
+captured once as a CUDA graph and replayed (`SlowStepGraph`). The slot
 state (last column, position, left-pad offset, active flags, RAS window,
 per-slot sampling parameters) stays on the device; the host keeps a mirror
 of the active flags and the token budgets, so scheduling decisions need no
@@ -48,13 +50,20 @@ import torch
 
 from ..device import resolve_device
 from ..models.config import DualARConfig
-from ..models.decode import SamplingConfig, decode_one_token, new_fast_cache
+from ..models.decode import (
+    SamplingConfig,
+    decode_fast,
+    decode_one_token,
+    new_fast_cache,
+)
 from ..models.dual_ar import (
     KVCache,
+    SlowOut,
     forward_generate,
     param_dtype,
     precompute_freqs_cis,
 )
+from ..ops import _cuda
 from ..ops.sampling import RAS_WIN_SIZE, push_window
 from ..parallel.collectives import all_gather
 from ..parallel.tp import active_mesh
@@ -71,6 +80,72 @@ def slice_slot_cache(cache: KVCache, slot: int) -> KVCache:
     kv_axis = 2 if cache.pos_major else 1
     return KVCache(sl(cache.k, kv_axis), sl(cache.v, kv_axis),
                    sl(cache.ks, 1), sl(cache.vs, 1), cache.pos_major)
+
+
+class SlowStepGraph:
+    """A tick's slow-stack forward replayed as one CUDA graph: `forward`
+    (`forward_generate` at T = 1 over every slot, with the arithmetic of
+    its per-row write positions and RoPE rows) takes ~140 small launches a
+    layer, which cost the host far more than the device's work behind
+    them.
+
+    `forward` takes no arguments: it reads fixed tensors (the batcher's
+    slot state, cache, RoPE table and parameters), which the batcher
+    writes in place and never rebinds. The first call runs it eagerly
+    (one-time work: libraries loaded, shared-memory attributes set, the SM
+    count cached); the second captures it, then every call replays. Its
+    outputs live in the graph's memory pool: the fast half reads them on
+    the same stream before the next replay rewrites them. Capture puts
+    the process's default CUDA generator in graph mode, so no other thread
+    may draw from it meanwhile (the engine's threads draw from their own
+    generators). The hand-written kernels' launch counts follow the
+    launches made: the capture's calls are left out and added at each
+    replay (`_cuda.capturing`). A capture that raises is logged once and
+    the runner stays eager. Off CUDA it never captures: `forward` runs as
+    is."""
+
+    def __init__(self, forward: Callable[[], SlowOut], device: torch.device):
+        self.forward = forward
+        self.capturable = device.type == "cuda"
+        self.calls = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.out: SlowOut | None = None
+        self.launches: dict = {}
+
+    def _capture(self) -> None:
+        try:
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: the engine's vocoder and client threads go on
+            # allocating and launching while this thread captures
+            with _cuda.capturing() as launches, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                out = self.forward()
+        except Exception:  # noqa: BLE001 - the eager forward stays
+            logging.getLogger(__name__).exception(
+                "capturing the tick's slow forward failed; it stays eager")
+            self.capturable = False
+            return
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def __call__(self) -> SlowOut:
+        if self.graph is None and self.capturable and self.calls > 0:
+            self._capture()
+        self.calls += 1
+        if self.graph is None:
+            return self.forward()
+        self.graph.replay()
+        _cuda.replayed(self.launches)
+        return self.out
+
+
+def tick_positions(active: torch.Tensor, pos: torch.Tensor,
+                   start: torch.Tensor, cache_len: int):
+    """A tick's (B,) write positions and (B, 1) RoPE positions: an
+    inactive slot, or one past the cache's end, writes row cache_len - 1
+    (`ContinuousBatcher._tick`)."""
+    write_pos = torch.where(active & (pos < cache_len), pos,
+                            torch.full_like(pos, cache_len - 1))
+    return write_pos, (write_pos - start)[:, None]
 
 
 @dataclass
@@ -220,6 +295,14 @@ class ContinuousBatcher:
         self.prefix_store_cap = 8
         self.prefix_hits = 0
         self.prefix_misses = 0
+        # a tick's slow forward replays as one CUDA graph (`SlowStepGraph`
+        # over `slow_forward`, built at the first tick) on a CUDA device
+        # with no decode mesh: a mesh's collectives cannot be captured.
+        # Multihost replicas turn it off, as they turn off local_sweep, and
+        # tick eagerly. The graph reads cur, pos, start and active, so
+        # those are only ever written in place.
+        self.graph_tick = dev.type == "cuda" and self.mesh is None
+        self.slow_graph: SlowStepGraph | None = None
 
     # ------------------------------------------------------------------
     def _local(self, slot: int) -> int | None:
@@ -239,6 +322,27 @@ class ContinuousBatcher:
         return dict(top_k=self.top_k, greedy=self.greedy, gen=self.gen,
                     sample_support=self.support)
 
+    def slow_forward(self) -> Callable[[], SlowOut]:
+        """A tick's slow forward as a function of no arguments over the
+        batcher's tensors as they are now (the function a `SlowStepGraph`
+        captures): the tick's positions, then `forward_generate` at T = 1
+        over every slot."""
+        params, cfg, cache, freqs = (self.params, self.cfg, self.cache,
+                                     self.freqs)
+        cur, pos, start, active = self.cur, self.pos, self.start, self.active
+        cache_len, support = self.cache_len, self.support
+
+        def forward() -> SlowOut:
+            write_pos, rope_pos = tick_positions(active, pos, start,
+                                                 cache_len)
+            return forward_generate(params, cfg, cur[:, :, None], cache,
+                                    write_pos, freqs,
+                                    rope_positions=rope_pos,
+                                    key_valid_from=start,
+                                    logit_support=support)
+
+        return forward
+
     def _tick(self):
         """One decode step of every slot. Inactive slots (free, or in the
         middle of a chunked prefill) write their KV at row cache_len - 1
@@ -247,27 +351,38 @@ class ContinuousBatcher:
         1, whose own write lands before the read. Their state is frozen.
         So does an active slot whose position has passed the cache's end (a
         budget spent inside a `step_chunk`: the host drops those columns),
-        so no write or RoPE row falls outside the cache.
+        so no write or RoPE row falls outside the cache
+        (`tick_positions`). With `graph_tick`, the slow forward goes
+        through `slow_graph` (eager at the first tick, a replay from the
+        second), then `decode_fast`: the launches `decode_one_token`
+        makes, in order.
         Returns (column (B, K+1), finished (B,)), both on the device."""
         active = self.active
-        write_pos = torch.where(active & (self.pos < self.cache_len),
-                                self.pos,
-                                torch.full_like(self.pos,
-                                                self.cache_len - 1))
-        rope_pos = (write_pos - self.start)[:, None]
         sampling = SamplingConfig(self.temp, self.top_p, self.top_k_row)
-        col = decode_one_token(
-            self.params, self.cfg, self.cur[:, :, None], self.cache,
-            write_pos, self.freqs, self.fast_freqs, self.bias, sampling,
-            self.prev_win, rope_positions=rope_pos,
-            key_valid_from=self.start, fast_cache=self.fast_cache,
-            **self._step_kw())
+        if self.slow_graph is None and self.graph_tick:
+            self.slow_graph = SlowStepGraph(self.slow_forward(), self.device)
+        if self.slow_graph is None:
+            write_pos, rope_pos = tick_positions(active, self.pos,
+                                                 self.start, self.cache_len)
+            col = decode_one_token(
+                self.params, self.cfg, self.cur[:, :, None], self.cache,
+                write_pos, self.freqs, self.fast_freqs, self.bias, sampling,
+                self.prev_win, rope_positions=rope_pos,
+                key_valid_from=self.start, fast_cache=self.fast_cache,
+                **self._step_kw())
+        else:
+            with span("decode.slow") as sp:
+                out = self.slow_graph()
+                sp.set(graph=self.slow_graph.graph is not None)
+            col = decode_fast(self.params, self.cfg, out, self.fast_freqs,
+                              self.bias, sampling, self.prev_win,
+                              fast_cache=self.fast_cache, **self._step_kw())
         col = torch.where(active[:, None], col, self.cur)
-        self.pos = torch.where(active, self.pos + 1, self.pos)
+        self.pos += active
         self.prev_win = torch.where(active[:, None],
                                     push_window(self.prev_win, col[:, 0]),
                                     self.prev_win)
-        self.cur = col
+        self.cur.copy_(col)
         self.ticks += 1
         return col, active & (col[:, 0] == self.im_end_id)
 
@@ -630,7 +745,7 @@ class ContinuousBatcher:
             cols = []
             for _ in range(n):
                 col, finished = self._tick()
-                self.active = self.active & ~finished
+                self.active &= ~finished
                 cols.append(col)
             self.chunked_ticks += n
             with span("tick.fetch"):

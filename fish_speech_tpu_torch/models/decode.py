@@ -42,6 +42,7 @@ from ..utils.profiling import span
 from .config import DualARConfig
 from .dual_ar import (
     KVCache,
+    SlowOut,
     forward_generate,
     forward_generate_fast,
     param_dtype,
@@ -138,14 +139,31 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
     and sampling over only those rows (the bias must be -inf elsewhere, as
     semantic_logit_bias is). sample_at: the column to sample from instead
     of the last (a right-padded prefill block's last real column).
-    Returns the new column (B, K+1) int32."""
-    b = x.shape[0]
-    with span("decode.slow"):
+    Returns the new column (B, K+1) int32: the slow forward, then
+    `decode_fast` on its output."""
+    with span("decode.slow", graph=False):
         out = forward_generate(params, cfg, x, cache, input_pos, freqs_table,
                                rope_positions=rope_positions,
                                key_valid_from=key_valid_from,
                                logit_support=sample_support,
                                last_only=sample_at is None)
+    return decode_fast(params, cfg, out, fast_freqs_table, bias, sampling,
+                       prev_window, top_k=top_k, greedy=greedy, gen=gen,
+                       sample_support=sample_support, sample_at=sample_at,
+                       fast_cache=fast_cache)
+
+
+def decode_fast(params: dict, cfg: DualARConfig, out: SlowOut,
+                fast_freqs_table: torch.Tensor, bias: torch.Tensor,
+                sampling: SamplingConfig, prev_window: torch.Tensor | None, *,
+                top_k: int, greedy: bool, gen: torch.Generator | None = None,
+                sample_support: tuple | None = None,
+                sample_at: int | None = None,
+                fast_cache=None) -> torch.Tensor:
+    """The rest of a step after the slow forward's `out`: the main token's
+    sampling (and RAS with `prev_window`), then the fast head's codebooks
+    (or the naive head's). -> the new column (B, K+1) int32."""
+    b = out.hidden.shape[0]
     with span("decode.fast"):
         col = -1 if sample_at is None else sample_at
         logits_col = out.logits[:, col, :]
@@ -181,7 +199,7 @@ def decode_one_token(params: dict, cfg: DualARConfig, x: torch.Tensor,
         # fast head: prime position 0 with the slow hidden state, then emit
         # the residual codebooks one position at a time
         if fast_cache is None:
-            fast_cache = new_fast_cache(params, cfg, b, x.device,
+            fast_cache = new_fast_cache(params, cfg, b, hidden.device,
                                         hidden.dtype)
         forward_generate_fast(params, cfg, hidden, fast_cache, 0,
                               fast_freqs_table, want_logits=False)

@@ -542,8 +542,10 @@ def embed_tokens(params: dict, cfg: DualARConfig,
                                                      device=inp.device))
     x = take_rows(params["embeddings"], tok).to(emb_dtype) + vq_sum
     if cfg.scale_codebook_embeddings:
-        scale = torch.tensor(1.0 / math.sqrt(cfg.num_codebooks + 1),
-                             dtype=emb_dtype, device=inp.device)
+        # a fill on the device (the same rounding as torch.tensor's), not a
+        # copy from the host, which a CUDA graph's capture refuses
+        scale = torch.full((), 1.0 / math.sqrt(cfg.num_codebooks + 1),
+                           dtype=emb_dtype, device=inp.device)
         x = torch.where(is_sem, x * scale, x)
     return x
 

@@ -11,6 +11,7 @@ Nothing here runs at import: the first launch builds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -157,11 +158,18 @@ def lib(source: str) -> ctypes.CDLL:
         return _libs[source]
 
 
+# the counts of the CUDA graph this thread is capturing (`capturing`)
+_capture = threading.local()
+
+
 class Kernel:
     """A C entry point of one of the libraries, with its launch count.
 
     `launches` is a plain integer: the wrapper adds one each time it calls
-    the kernel, and nowhere else."""
+    the kernel, and nowhere else. A call made while this thread captures a
+    CUDA graph launches nothing (the graph records it), so it is counted
+    into the capture's counts instead, which the graph's owner adds at
+    each replay (`capturing`, `replayed`)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -171,10 +179,34 @@ class Kernel:
     def __call__(self, *args) -> None:
         fn = getattr(lib(self.source), self.name)
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        self.launches += 1
+        counts = getattr(_capture, "counts", None)
+        if counts is None:
+            self.launches += 1
+        else:
+            counts[self] = counts.get(self, 0) + 1
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
+
+
+@contextlib.contextmanager
+def capturing():
+    """Around a CUDA graph's capture on this thread: yields {Kernel: calls}
+    of the kernels the capture recorded, left out of their `launches`.
+    Other threads' calls meanwhile are counted as launched."""
+    counts: dict = {}
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def replayed(counts: dict) -> None:
+    """A replay of a graph whose capture recorded `counts`: each kernel's
+    `launches` rises by its calls in the graph."""
+    for kernel, n in counts.items():
+        kernel.launches += n
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,10 +21,19 @@ RAS_HIGH_TOP_P = 0.9
 _TINY = torch.finfo(torch.float32).tiny
 
 
+def _on_device(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """x as a tensor on `device`. A Python number becomes a fill there: a
+    copy from the host's pageable memory would wait for the stream, the
+    host idle until the device has run all it was given."""
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def _per_row(x, ref: torch.Tensor) -> torch.Tensor:
     """A sampling parameter (scalar or per-row (B,)) broadcastable over
     (B, k)."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=ref.device)
+    x = _on_device(x, torch.float32, ref.device)
     return x[:, None] if x.ndim == 1 else x
 
 
@@ -42,11 +51,11 @@ def _mask_topk_rows(vals: torch.Tensor, top_k_row) -> torch.Tensor:
     None (no-op), a scalar or a (B,) int."""
     if top_k_row is None:
         return vals
-    k = torch.as_tensor(top_k_row, dtype=torch.int32, device=vals.device)
+    k = _on_device(top_k_row, torch.int32, vals.device)
     pos = torch.arange(vals.shape[-1], dtype=torch.int32, device=vals.device)
     keep = pos[None, :] < (k[:, None] if k.ndim == 1 else k)
-    return torch.where(keep, vals, torch.tensor(-torch.inf,
-                                                device=vals.device))
+    return torch.where(keep, vals, _on_device(-torch.inf, torch.float32,
+                                              vals.device))
 
 
 def _candidates(logits: torch.Tensor, top_k: int, top_k_row=None):
@@ -60,8 +69,8 @@ def _candidates(logits: torch.Tensor, top_k: int, top_k_row=None):
 def _draw(vals, idx, cum, temperature, top_p, u) -> torch.Tensor:
     remove = cum > _per_row(top_p, vals)
     remove[:, 0] = False                                   # keep the top-1
-    cand = torch.where(remove, torch.tensor(-torch.inf, device=vals.device),
-                       vals)
+    cand = torch.where(remove, _on_device(-torch.inf, torch.float32,
+                                          vals.device), vals)
     cand = cand / _per_row(temperature, vals).clamp_min(1e-5)
     probs = torch.softmax(cand, dim=-1)
     choice = torch.argmax(probs / -torch.log(u), dim=-1)
@@ -106,8 +115,8 @@ def sampling_probs(logits: torch.Tensor, temperature, top_p,
     vals, idx, cum = _candidates(logits, top_k)
     remove = cum > _per_row(top_p, vals)
     remove[:, 0] = False
-    cand = torch.where(remove, torch.tensor(-torch.inf, device=vals.device),
-                       vals)
+    cand = torch.where(remove, _on_device(-torch.inf, torch.float32,
+                                          vals.device), vals)
     probs = torch.softmax(cand / _per_row(temperature, vals).clamp_min(1e-5),
                           dim=-1)
     return torch.zeros_like(logits, dtype=torch.float32).scatter(1, idx,

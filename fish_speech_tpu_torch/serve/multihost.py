@@ -176,6 +176,7 @@ def run_follower_loop(batcher, stop: threading.Event | None = None,
     plan (or `stop`). on_done(request) is called with each request once
     it finishes."""
     batcher.local_sweep = False   # cancellations come through the plan
+    batcher.graph_tick = False    # replicas tick eagerly
     registry: dict = {}
     while stop is None or not stop.is_set():
         plan = broadcast_plan(None)
@@ -204,6 +205,7 @@ class MultihostSchedulerThread:
                              "prefill state in its plans")
         self.batcher = batcher
         batcher.local_sweep = False   # cancellations go through the plan
+        batcher.graph_tick = False    # replicas tick eagerly
         self.queue: "queue.Queue" = queue.Queue()
         self.registry: dict = {}
         self.poll_s = poll_s
